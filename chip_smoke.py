@@ -6,32 +6,51 @@ Phases, each of which raises on failure (non-zero exit):
 
 1. device: a CUDA device is required; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: compiles the CifHr kernel (``openpifpaf_tpu_torch/csrc/cifhr.cu``)
-   from the sources next to this script;
-3. kernel vs plain: ``cifhr_cuda.accumulate`` against its plain PyTorch
-   version on seeded random cells at the decode's shapes, atol 1e-5, with
-   both times from CUDA events;
-4. golden decode: ``CifCaf.batch_decode`` on the fields of
+2. build: compiles the port's kernels (``openpifpaf_tpu_torch/csrc/*.cu``:
+   CifHr, depthwise conv, fused block) from the sources next to this
+   script, one nvcc per source, all started together;
+3. CifHr kernel vs plain: ``cifhr_cuda.accumulate`` against its plain
+   PyTorch version on seeded random cells at the decode's shapes, atol
+   1e-5, with both times from CUDA events;
+4. backbone kernels vs plain: ``dw_cuda.depthwise_conv``,
+   ``shuffle_cuda.fused_block`` and ``block_cuda.branch2_apply`` against
+   their plain versions at the three stage shapes of shufflenetv2k16 for
+   one 513x641 image, plus a dilated leaky case, in float32 and bfloat16
+   with TF32 off, with both times from CUDA events;
+5. golden decode: ``CifCaf.batch_decode`` on the fields of
    ``tests/golden/torch_decode_golden.npz`` (written with the JAX package)
    must give the stored JAX poses within the tie-free parity gate, go
    through the kernel and escalate the 40-person scene to the crowd tier;
    then each scene's warm batch-1 decode time;
-5. main path: a full-width shufflenetv2k16 cocokp ``Predictor`` (random
+6. main path: a full-width shufflenetv2k16 cocokp ``Predictor`` (random
    weights from seed 0) answers three single-image requests and one batch
    of two 481x641 images, with field shapes and values checked, and the
-   kernel launch count read around that run; each request's end-to-end,
-   NN and decode time per image.
+   CifHr kernel's launch count read around that run; each request's
+   end-to-end, NN and decode time per image;
+7. backbone engines: the same model served with ``backbone_engine``
+   ``'dwpallas'``, ``'pallas'`` and ``'folded'`` on the same requests: each
+   engine's fields equal the module graph's (TF32 off), its kernel
+   launches 13 times per forward (k16's non-first blocks), and each
+   request's times are printed; a bfloat16 ``'pallas'`` request gives finite
+   fields close to the float32 ones;
+8. branch2 path: ``block_cuda.build_mosaic_forward`` on the folded k16
+   backbone gives the module graph's features with 13 branch2 launches;
+9. forward profile: each engine's batch-1 NN time (CUDA events) and, from
+   ``torch.profiler``, its device time, device ops and BatchNorm kernels.
 
 The second-to-last line is a JSON object describing the kernels, the last
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import functools
 import json
 import os
 import subprocess
 import sys
 import time
+import types
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -45,6 +64,25 @@ HR_SHAPE = (513, 641)
 IMAGE_HW = (481, 641)
 #: fields at stride 16 of IMAGE_HW after the Predictor's bucket pad to 513x641
 FIELD_HW = (33, 41)
+#: the image of the engine, branch2 and profile phases
+FORWARD_HW = (513, 641)
+SOURCES = ('cifhr.cu', 'depthwise.cu', 'shuffle_block.cu')
+#: (Cb, H, W) of shufflenetv2k16's stages 2-4 for a 513x641 input: the
+#: activations of the non-first blocks are (N, 2 Cb, H, W)
+STAGES = ((174, 129, 161), (348, 65, 81), (696, 33, 41))
+#: non-first blocks of shufflenetv2k16 (3 + 7 + 3): stride-1 depthwise
+#: convs and fused blocks per forward
+FORWARD_LAUNCHES = 13
+#: kernel vs plain: float32 differs by summation order only; bfloat16 by
+#: at most one rounding step of the largest output
+F32_ATOL = 1e-5
+BF16_RTOL = 2.0 ** -7
+#: engine vs module graph fields, float32 with TF32 off (BatchNorm folded
+#: into the weights rounds differently)
+ENGINE_TOL = dict(rtol=1e-4, atol=1e-4)
+#: bfloat16 backbone vs float32: max abs error within this share of the
+#: head's largest field value
+BF16_FIELD_RTOL = 5e-2
 
 
 def log(*args):
@@ -60,15 +98,61 @@ def card_line():
 
 
 def import_port():
-    """The port and the test helpers (pose gate, seeded cells) of this
-    checkout."""
+    """The port's modules and the test helpers (pose gate, seeded cells)
+    of this checkout."""
     sys.path[:0] = [ROOT, os.path.join(ROOT, 'tests')]
     import openpifpaf_tpu_torch
     if not os.path.abspath(openpifpaf_tpu_torch.__file__).startswith(ROOT):
         raise RuntimeError('openpifpaf_tpu_torch imported from '
                            f'{openpifpaf_tpu_torch.__file__}, not {ROOT}')
+    from openpifpaf_tpu_torch import _nvcc
+    from openpifpaf_tpu_torch.models import block_cuda, dw_cuda, \
+        fused_inference, shuffle_cuda
     from openpifpaf_tpu_torch.ops import cifhr, cifhr_cuda
-    return cifhr, cifhr_cuda
+    return types.SimpleNamespace(
+        nvcc=_nvcc, cifhr=cifhr, cifhr_cuda=cifhr_cuda, dw_cuda=dw_cuda,
+        shuffle_cuda=shuffle_cuda, block_cuda=block_cuda,
+        fused_inference=fused_inference)
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Float32 convolutions and matmuls in full float32."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def launch_counters(port):
+    return {'cifhr_accumulate': port.cifhr_cuda,
+            'depthwise_conv': port.dw_cuda,
+            'shuffle_block': port.shuffle_cuda,
+            'shuffle_branch2': port.block_cuda}
+
+
+def reset_launches(port):
+    for module in launch_counters(port).values():
+        module.LAUNCHES = 0
+
+
+def read_launches(port):
+    return {name: module.LAUNCHES
+            for name, module in launch_counters(port).items()}
+
+
+def phase_build(port):
+    start = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        futures = [pool.submit(port.nvcc.build, source) for source in SOURCES]
+        paths = [f.result() for f in futures]
+    log(f'built {", ".join(os.path.basename(p) for p in paths)} in '
+        f'{time.perf_counter() - start:.1f} s')
 
 
 def cuda_ms(fn, n):
@@ -207,18 +291,68 @@ def check_fields_against_cpu(predictor, device):
     log('fields on the GPU match the CPU forward (TF32 off, atol 1e-4)')
 
 
-def phase_main_path(cifhr_cuda, device, card):
-    from openpifpaf_tpu_torch.predictor import Predictor
+def phase_backbone_kernels(port, device, card):
+    """Each backbone kernel against its plain version; returns
+    {name: [(case, dtype, err, tol, ms, plain_ms), ...]}."""
+    from torch_port_helpers import backbone_kernel_inputs
 
-    predictor = Predictor(device=device)
-    check_fields_against_cpu(predictor, device)
+    kernels = {
+        'depthwise_conv': (port.dw_cuda.depthwise_conv,
+                           port.dw_cuda.depthwise_conv_plain),
+        'shuffle_block': (port.shuffle_cuda.fused_block,
+                          port.shuffle_cuda.fused_block_plain),
+        'shuffle_branch2': (port.block_cuda.branch2_apply,
+                            port.shuffle_cuda.branch2_plain),
+    }
+    # the model's stage shapes (depthwise without activation, as in the
+    # model), and a small dilated leaky case
+    cases = [((1, 2 * cb, h, w), 5, 1, False) for cb, h, w in STAGES]
+    cases.append(((2, 24, 13, 17), 5, 2, True))
+    results = {}
+    with no_tf32():
+        for name, (call, plain) in kernels.items():
+            results[name] = []
+            for dtype in (torch.float32, torch.bfloat16):
+                for i, (shape, k, dilation, leaky) in enumerate(cases):
+                    if name == 'depthwise_conv' and i < len(STAGES):
+                        shape = (1, shape[1] // 2) + shape[2:]
+                    args, kw = backbone_kernel_inputs(
+                        name, shape, k=k, dilation=dilation, act=leaky,
+                        leaky=leaky, dtype=dtype, device=device, seed=i)
+                    out = call(*args, **kw)
+                    ref = plain(*args, **kw)
+                    torch.cuda.synchronize()
+                    err = float((out.float() - ref.float()).abs().max())
+                    tol = F32_ATOL if dtype == torch.float32 else \
+                        BF16_RTOL * float(ref.float().abs().max())
+                    case = f'{tuple(shape)} k={k} d={dilation} ' \
+                        f'leaky={leaky} {str(dtype)[6:]}'
+                    if not err <= tol:
+                        raise AssertionError(f'{name} kernel vs plain at '
+                                             f'{case}: max abs err {err}')
+                    ms = cuda_ms(functools.partial(call, *args, **kw), 20)
+                    plain_ms = cuda_ms(functools.partial(plain, *args, **kw),
+                                       20)
+                    results[name].append((case, dtype, err, tol, ms,
+                                          plain_ms))
+                    log(f'{name} {case}: max_abs_err {err} (tol {tol:.3g}), '
+                        f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per '
+                        f'call [{card}]')
+    return results
 
+
+def make_requests():
     rng = np.random.RandomState(0)
     requests = [[rng.randint(0, 256, IMAGE_HW + (3,), dtype=np.uint8)]
                 for _ in range(3)]
     requests.append([rng.randint(0, 256, IMAGE_HW + (3,), dtype=np.uint8)
                      for _ in range(2)])
+    return requests
 
+
+def serve(predictor, requests, card, label):
+    """Answer ``requests``, check every field's shape and values and print
+    each request's times; returns the number of forwards."""
     seen = []
     fields_batch = predictor.fields_batch
 
@@ -230,34 +364,168 @@ def phase_main_path(cifhr_cuda, device, card):
 
     predictor.fields_batch = recording_fields_batch
     timings = []
-    cifhr_cuda.LAUNCHES = 0
-    for images in requests:
-        predictor.batch_size = len(images)
-        start = time.perf_counter()
-        out = list(predictor.numpy_images(images))
-        e2e = time.perf_counter() - start
-        if len(out) != len(images):
-            raise AssertionError(f'{len(out)} answers for {len(images)}')
-        timings.append((len(images), e2e, predictor.last_nn_time,
-                        predictor.last_decoder_time,
-                        predictor.processor.last_escalated,
-                        [len(pred) for pred, _, _ in out]))
-    launches = cifhr_cuda.LAUNCHES
-    if launches == 0:
-        raise AssertionError('main path never launched the CifHr kernel')
+    try:
+        for images in requests:
+            predictor.batch_size = len(images)
+            start = time.perf_counter()
+            out = list(predictor.numpy_images(images))
+            e2e = time.perf_counter() - start
+            if len(out) != len(images):
+                raise AssertionError(f'{len(out)} answers for {len(images)}')
+            timings.append((len(images), e2e, predictor.last_nn_time,
+                            predictor.last_decoder_time,
+                            predictor.processor.last_escalated,
+                            [len(pred) for pred, _, _ in out]))
+    finally:
+        del predictor.fields_batch
 
     for (b, *_), shapes in zip(timings, seen):
         want = [((b, 17, 5) + FIELD_HW, True), ((b, 19, 8) + FIELD_HW, True)]
         if shapes != want:
-            raise AssertionError(f'fields {shapes}, want {want}')
+            raise AssertionError(f'{label}: fields {shapes}, want {want}')
     for i, (b, e2e, nn_s, dec_s, escalated, n_anns) in enumerate(timings):
-        log(f'request {i} batch {b}: e2e {e2e / b * 1e3:.2f} ms/image, '
-            f'NN {nn_s / b * 1e3:.2f} ms/image, '
+        log(f'{label} request {i} batch {b}: e2e {e2e / b * 1e3:.2f} '
+            f'ms/image, NN {nn_s / b * 1e3:.2f} ms/image, '
             f'decode {dec_s / b * 1e3:.2f} ms/image, crowd tier for '
             f'{escalated}, annotations {n_anns}'
             f'{" (first call, warm-up)" if i == 0 else ""} [{card}]')
-    log(f'main path: {launches} CifHr kernel launches')
+    return len(seen)
+
+
+def phase_main_path(port, device, card):
+    from openpifpaf_tpu_torch.predictor import Predictor
+
+    predictor = Predictor(device=device)
+    check_fields_against_cpu(predictor, device)
+    reset_launches(port)
+    serve(predictor, make_requests(), card, 'module graph')
+    launches = read_launches(port)
+    if launches['cifhr_accumulate'] == 0:
+        raise AssertionError('main path never launched the CifHr kernel')
+    log(f'main path: {launches["cifhr_accumulate"]} CifHr kernel launches')
+    return predictor, launches['cifhr_accumulate']
+
+
+def test_image(device):
+    rng = np.random.RandomState(2)
+    return torch.from_numpy(rng.randn(1, *FORWARD_HW, 3).astype(
+        np.float32)).to(device)
+
+
+def compare_fields(out, ref, label, **tol):
+    """Largest abs difference per head; raises beyond ``tol``."""
+    errs = [float((o.float() - r).abs().max()) for o, r in zip(out, ref)]
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o.float(), r, **tol, msg=lambda m: (
+            f'{label}: {m}'))
+    return errs
+
+
+def phase_engines(port, predictor, device, card):
+    """Each backbone engine on the module path's model and requests;
+    returns {kernel name: launches in its engine's run} and the engines'
+    predictors."""
+    from openpifpaf_tpu_torch.predictor import Predictor
+
+    image = test_image(device)
+    with no_tf32(), torch.inference_mode():
+        ref = predictor._forward(image)
+    engine_kernel = {'dwpallas': 'depthwise_conv', 'pallas': 'shuffle_block',
+                     'folded': None}
+    launches = {}
+    predictors = {'module graph': predictor}
+    for engine, kernel in engine_kernel.items():
+        p = Predictor(model=predictor.model, device=device,
+                      backbone_engine=engine)
+        predictors[engine] = p
+        with no_tf32(), torch.inference_mode():
+            errs = compare_fields(p._forward(image), ref, engine,
+                                  **ENGINE_TOL)
+        log(f'engine {engine}: fields vs module graph, max abs err per head '
+            f'{errs} (TF32 off, rtol/atol {ENGINE_TOL["rtol"]})')
+        reset_launches(port)
+        forwards = serve(p, make_requests(), card, f'engine {engine}')
+        counts = read_launches(port)
+        for name in ('depthwise_conv', 'shuffle_block', 'shuffle_branch2'):
+            want = FORWARD_LAUNCHES * forwards if name == kernel else 0
+            if counts[name] != want:
+                raise AssertionError(f'engine {engine}: {counts[name]} '
+                                     f'{name} launches in {forwards} '
+                                     f'forwards, want {want}')
+        if kernel is not None:
+            launches[kernel] = counts[kernel]
+        log(f'engine {engine}: launches {counts} in {forwards} forwards')
+
+    p16 = Predictor(model=predictor.model, device=device,
+                    backbone_engine='pallas', bf16=True)
+    x = image.permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    with no_tf32(), torch.inference_mode():
+        pairs = list(zip(p16._forward(image), ref))
+        pairs.append((p16._backbone(x).float(), predictor.model.base_net(x)))
+    for what, (o, r) in zip(('cif', 'caf', 'features'), pairs):
+        if not bool(torch.isfinite(o).all()):
+            raise AssertionError(f'bf16 pallas: {what} not finite')
+        err = float((o - r).abs().max())
+        rel = err / float(r.abs().max())
+        if not rel <= BF16_FIELD_RTOL:
+            raise AssertionError(f'bf16 pallas: {what} error {rel} of the '
+                                 f'largest value, want <= {BF16_FIELD_RTOL}')
+        log(f'engine pallas bf16: {what} max abs err {err} = {rel:.3g} of '
+            f'the largest float32 value (tol {BF16_FIELD_RTOL})')
+    serve(p16, make_requests()[:1], card, 'engine pallas bf16')
+    predictors['pallas bf16'] = p16
+    return launches, predictors
+
+
+def phase_branch2(port, predictor, device, card):
+    """``build_mosaic_forward`` on the folded k16 backbone against the
+    module graph's features; returns the branch2 launches."""
+    forward = port.block_cuda.build_mosaic_forward(
+        port.fused_inference.fold_shufflenet(predictor.model.base_net),
+        dtype=torch.float32)
+    x = test_image(device).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    with no_tf32(), torch.inference_mode():
+        ref = predictor.model.base_net(x)
+        reset_launches(port)
+        out = forward(x)
+        launches = read_launches(port)['shuffle_branch2']
+    if launches != FORWARD_LAUNCHES:
+        raise AssertionError(f'branch2 path: {launches} launches, want '
+                             f'{FORWARD_LAUNCHES}')
+    err = compare_fields([out], [ref], 'branch2 path', **ENGINE_TOL)[0]
+    log(f'branch2 path: {launches} launches, features vs module graph max '
+        f'abs err {err} (TF32 off) [{card}]')
     return launches
+
+
+def phase_profile(predictors, device, card):
+    """Batch-1 forward of each engine on FORWARD_HW: CUDA-event time (TF32 as
+    PyTorch defaults it) and, from one profiled forward, device time,
+    device ops and BatchNorm kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    image = test_image(device)
+    for name, p in predictors.items():
+        def forward():
+            return p._forward(image)
+
+        with torch.inference_mode():
+            ms = cuda_ms(forward, 10)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                forward()
+                torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+        bn = [e for e in ops if 'bn_' in e.name or 'batch_norm' in e.name
+              or 'batchnorm' in e.name.lower()]
+        bn_ms = sum(e.time_range.elapsed_us() for e in bn) / 1e3
+        log(f'forward {name}, batch 1, {FORWARD_HW}: {ms:.3f} ms (CUDA '
+            f'events, 10 reps), device time {busy:.3f} ms in {len(ops)} '
+            f'device ops, {len(bn)} BatchNorm kernels ({bn_ms:.3f} ms) '
+            f'[{card}]')
 
 
 def main():
@@ -270,26 +538,48 @@ def main():
     log(f'torch {torch.__version__} cuda {torch.version.cuda} on '
         f'{torch.cuda.get_device_name(0)}')
 
-    cifhr, cifhr_cuda = import_port()
-    start = time.perf_counter()
-    log(f'built {cifhr_cuda.build()} in '
-        f'{time.perf_counter() - start:.1f} s')
-
-    kernel_results = phase_kernel(cifhr, cifhr_cuda, device, card)
-    phase_golden(cifhr_cuda, device, card)
-    launches = phase_main_path(cifhr_cuda, device, card)
+    port = import_port()
+    phase_build(port)
+    kernel_results = phase_kernel(port.cifhr, port.cifhr_cuda, device, card)
+    backbone_results = phase_backbone_kernels(port, device, card)
+    phase_golden(port.cifhr_cuda, device, card)
+    predictor, cifhr_launches = phase_main_path(port, device, card)
+    launches, predictors = phase_engines(port, predictor, device, card)
+    launches['cifhr_accumulate'] = cifhr_launches
+    launches['shuffle_branch2'] = phase_branch2(port, predictor, device,
+                                                card)
+    phase_profile(predictors, device, card)
 
     _, ms, plain_ms = kernel_results[(17, 256)]
-    log(json.dumps({'kernels': [{
+    entries = [{
         'name': 'cifhr_accumulate',
         'route': 'cuda',
         'source': 'openpifpaf_tpu_torch/csrc/cifhr.cu',
         'replaces': 'openpifpaf_tpu/ops/cifhr_pallas.py:53',
-        'launches': launches,
+        'launches': launches['cifhr_accumulate'],
         'max_abs_err': max(r[0] for r in kernel_results.values()),
         'ms': ms,
         'plain_ms': plain_ms,
-    }]}))
+    }]
+    replaces = {
+        'depthwise_conv': ('depthwise.cu', 'models/dw_pallas.py:38'),
+        'shuffle_block': ('shuffle_block.cu', 'models/shuffle_pallas.py:108'),
+        'shuffle_branch2': ('shuffle_block.cu', 'models/block_pallas.py:119'),
+    }
+    for name, (source, tpu) in replaces.items():
+        rows = backbone_results[name]
+        # times at the first stage's shape in float32
+        entries.append({
+            'name': name,
+            'route': 'cuda',
+            'source': f'openpifpaf_tpu_torch/csrc/{source}',
+            'replaces': f'openpifpaf_tpu/{tpu}',
+            'launches': launches[name],
+            'max_abs_err': max(r[2] for r in rows),
+            'ms': rows[0][4],
+            'plain_ms': rows[0][5],
+        })
+    log(json.dumps({'kernels': entries}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu',
         'kind': torch.cuda.get_device_name(0),

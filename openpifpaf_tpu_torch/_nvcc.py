@@ -1,0 +1,80 @@
+"""Build and load of the port's CUDA kernels (``csrc/*.cu``).
+
+Each source compiles on its own with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, in the git-ignored ``_build/`` directory
+beside this file, and is loaded with ``ctypes``. A library is keyed on the
+source's bytes and the flags, so an edited source or a changed flag builds
+anew and an unchanged one is reused. Nothing is compiled at import: the
+first call of a kernel's wrapper on a CUDA tensor builds its library.
+"""
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         '_build')
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC')
+
+_LIBS = {}
+_LOCK = threading.Lock()
+
+
+def _nvcc():
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError('nvcc not found: set CUDA_HOME to the CUDA '
+                           'toolkit to build the port\'s kernels')
+    return os.path.join(CUDA_HOME, 'bin', 'nvcc')
+
+
+def build(source):
+    """Compile ``csrc/<source>`` unless a library for this exact source and
+    these flags exists. Returns the library's path."""
+    path = os.path.join(CSRC, source)
+    with open(path, 'rb') as f:
+        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+    stem = os.path.splitext(source)[0]
+    lib_path = os.path.join(BUILD_DIR,
+                            f'lib{stem}_{digest.hexdigest()[:16]}.so')
+    if os.path.exists(lib_path):
+        return lib_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f'{lib_path}.{os.getpid()}.{threading.get_ident()}.tmp'
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, path]
+    done = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if done.returncode != 0:
+        raise RuntimeError(f'nvcc failed on {source} ({done.returncode}):\n'
+                           f'{done.stdout}{done.stderr}')
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def function(source, symbol, argtypes):
+    """The C function ``symbol`` of ``csrc/<source>``, built and loaded at
+    first use, with ``argtypes`` declared and an ``int`` (CUDA error)
+    result."""
+    with _LOCK:
+        lib = _LIBS.get(source)
+        if lib is None:
+            lib = _LIBS[source] = ctypes.CDLL(build(source))
+        fn = getattr(lib, symbol)
+        if fn.argtypes is None:
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(fn, device, *args):
+    """Call the kernel's C function with ``args`` and PyTorch's current
+    stream on ``device`` as the last argument; raise if the launch failed
+    (a refused launch never runs, and no synchronise would report it)."""
+    import torch
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'{fn.__name__} launch failed: CUDA error {err}')

@@ -3,10 +3,13 @@
 ``ShuffleNetV2K``).
 
 NCHW modules meant to run in ``torch.channels_last``; BatchNorm with the
-reference's model defaults (eps 1e-3, momentum 0.01), ReLU. A
-ShuffleNetV2 with kernel 5 in stages 2-4, no max-pool (stride 16) and a
-1x1 conv5.
+reference's model defaults (eps 1e-3, momentum 0.01), ReLU or leaky ReLU
+(slope 0.01). A ShuffleNetV2 with kernel 5 in stages 2-4, no max-pool
+(stride 16) and a 1x1 conv5, with the flax model's options: a dilated
+stage 4, a second input conv and two blocks in place of conv5.
 """
+
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -14,31 +17,44 @@ import torch.nn.functional as F
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01
+NON_LINEARITIES = ('relu', 'leaky_relu')
+
+
+def activation(x, non_linearity):
+    """ReLU or leaky ReLU (slope 0.01, flax's default)."""
+    if non_linearity == 'leaky_relu':
+        return F.leaky_relu(x, 0.01)
+    return F.relu(x)
 
 
 class ConvNormAct(nn.Module):
-    """Convolution without bias, BatchNorm, optional ReLU."""
+    """Convolution without bias, BatchNorm, optional activation."""
 
     def __init__(self, in_features, features, kernel=3, stride=1, groups=1,
-                 dilation=1, act=True):
+                 dilation=1, act=True, non_linearity='relu'):
         super().__init__()
+        if non_linearity not in NON_LINEARITIES:
+            raise ValueError(f'unknown non_linearity {non_linearity!r}')
         pad = (kernel - 1) // 2 * dilation
         self.conv = nn.Conv2d(in_features, features, kernel, stride=stride,
                               padding=pad, dilation=dilation, groups=groups,
                               bias=False)
         self.norm = nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = act
+        self.non_linearity = non_linearity
 
     def forward(self, x):
         x = self.norm(self.conv(x))
-        return F.relu(x) if self.act else x
+        return activation(x, self.non_linearity) if self.act else x
 
 
 def channel_interleave2(a, b):
     """``channel_shuffle(cat([a, b], 1), 2)`` as one interleave:
-    out[:, 2i] = a[:, i] and out[:, 2i + 1] = b[:, i]."""
+    out[:, 2i] = a[:, i] and out[:, 2i + 1] = b[:, i]. The result is
+    channels_last, whatever the inputs' memory format."""
     bb, m, h, w = a.shape
-    return torch.stack([a, b], dim=2).reshape(bb, 2 * m, h, w)
+    out = torch.stack([a.permute(0, 2, 3, 1), b.permute(0, 2, 3, 1)], dim=-1)
+    return out.reshape(bb, h, w, 2 * m).permute(0, 3, 1, 2)
 
 
 class InvertedResidualK(nn.Module):
@@ -49,26 +65,28 @@ class InvertedResidualK(nn.Module):
     """
 
     def __init__(self, in_features, out_features, first_in_stage, *,
-                 stride=1, dilation=1, kernel=5):
+                 stride=1, dilation=1, kernel=5, non_linearity='relu'):
         super().__init__()
         branch_features = out_features // 2
         self.first_in_stage = first_in_stage
+        style = dict(non_linearity=non_linearity)
         if first_in_stage:
             self.branch1 = nn.Sequential(
                 ConvNormAct(in_features, in_features, kernel, stride=stride,
-                            dilation=dilation, groups=in_features, act=False),
-                ConvNormAct(in_features, branch_features, 1),
+                            dilation=dilation, groups=in_features, act=False,
+                            **style),
+                ConvNormAct(in_features, branch_features, 1, **style),
             )
             branch2_in = in_features
         else:
             self.branch1 = None
             branch2_in = branch_features
         self.branch2 = nn.Sequential(
-            ConvNormAct(branch2_in, branch_features, 1),
+            ConvNormAct(branch2_in, branch_features, 1, **style),
             ConvNormAct(branch_features, branch_features, kernel,
                         stride=stride, dilation=dilation,
-                        groups=branch_features, act=False),
-            ConvNormAct(branch_features, branch_features, 1),
+                        groups=branch_features, act=False, **style),
+            ConvNormAct(branch_features, branch_features, 1, **style),
         )
 
     def forward(self, x):
@@ -79,32 +97,82 @@ class InvertedResidualK(nn.Module):
 
 
 class ShuffleNetV2K(nn.Module):
-    """ShuffleNetV2 with k=5 kernels in the stages, stride 16, 1x1 conv5."""
+    """ShuffleNetV2 with k=5 kernels in the stages, stride 16, 1x1 conv5.
 
-    stride = 16
+    Options, as the flax model has them: ``stage4_dilation`` (stage 4 at
+    stride 1 with dilated kernels when not 1), ``input_conv2_stride`` and
+    ``input_conv2_outchannels`` (a second 3x3 input conv), ``conv5_as_stage``
+    (two blocks in place of the 1x1 conv5) and ``non_linearity``.
+    """
 
-    def __init__(self, stages_repeats, stages_out_channels, *, kernel=5):
+    def __init__(self, stages_repeats: Sequence[int],
+                 stages_out_channels: Sequence[int], *, kernel=5,
+                 stage4_dilation=1, input_conv2_stride=0,
+                 input_conv2_outchannels: Optional[int] = None,
+                 conv5_as_stage=False, non_linearity='relu'):
         super().__init__()
         self.stages_repeats = list(stages_repeats)
         self.stages_out_channels = list(stages_out_channels)
+        self.kernel = kernel
+        self.stage4_dilation = stage4_dilation
+        self.input_conv2_stride = input_conv2_stride
+        self.conv5_as_stage = conv5_as_stage
+        self.non_linearity = non_linearity
+        style = dict(non_linearity=non_linearity)
         channels = self.stages_out_channels
-        self.input_block = ConvNormAct(3, channels[0], 3, stride=2)
-        blocks = []
+        self.input_block = ConvNormAct(3, channels[0], 3, stride=2, **style)
         in_features = channels[0]
-        for repeats, out_features in zip(self.stages_repeats, channels[1:4]):
-            blocks.append(InvertedResidualK(in_features, out_features, True,
-                                            stride=2, kernel=kernel))
+        self.input_conv2 = None
+        if input_conv2_stride:
+            out = input_conv2_outchannels or in_features
+            self.input_conv2 = ConvNormAct(in_features, out, 3,
+                                           stride=input_conv2_stride,
+                                           **style)
+            in_features = out
+
+        blocks = []
+        for repeats, out_features, dilation in zip(
+                self.stages_repeats, channels[1:4], [1, 1, stage4_dilation]):
+            stage_stride = 2 if dilation == 1 else 1
+            blocks.append(InvertedResidualK(
+                in_features, out_features, True, stride=stage_stride,
+                dilation=dilation, kernel=kernel, **style))
             blocks.extend(
                 InvertedResidualK(out_features, out_features, False,
-                                  kernel=kernel)
+                                  dilation=dilation, kernel=kernel, **style)
                 for _ in range(repeats - 1))
             in_features = out_features
         self.blocks = nn.Sequential(*blocks)
-        self.conv5 = ConvNormAct(in_features, channels[-1], 1)
+
+        out_features = channels[-1]
+        if conv5_as_stage:
+            # two blocks cost about the parameters of the 1x1 conv
+            self.conv5 = nn.Sequential(
+                InvertedResidualK(in_features, out_features,
+                                  in_features != out_features,
+                                  dilation=stage4_dilation, kernel=kernel,
+                                  **style),
+                InvertedResidualK(out_features, out_features, False,
+                                  dilation=stage4_dilation, kernel=kernel,
+                                  **style))
+        else:
+            self.conv5 = ConvNormAct(in_features, out_features, 1, **style)
+
+    @property
+    def stride(self):
+        s = 16
+        if self.input_conv2_stride:
+            s *= 2
+        if self.stage4_dilation != 1:
+            s //= 2
+        return s
 
     @property
     def out_features(self):
         return self.stages_out_channels[-1]
 
     def forward(self, x):
-        return self.conv5(self.blocks(self.input_block(x)))
+        x = self.input_block(x)
+        if self.input_conv2 is not None:
+            x = self.input_conv2(x)
+        return self.conv5(self.blocks(x))

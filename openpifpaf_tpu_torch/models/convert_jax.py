@@ -4,11 +4,13 @@
 ``openpifpaf_tpu/models/convert_torch.py::_map_shufflenetv2k`` writes for
 a ShuffleNetV2K ``Shell``:
 
-- ``base_net/ConvNormAct_0`` is the input block and the last
+- ``base_net/ConvNormAct_0`` is the input block, a 3x3
+  ``base_net/ConvNormAct_1`` is ``input_conv2`` and a 1x1 last
   ``base_net/ConvNormAct_*`` is conv5;
-- ``base_net/InvertedResidualK_b`` is ``base_net.blocks.b``: five
-  ``ConvNormAct`` for a stage's first block (branch1 then branch2), three
-  for the others (branch2);
+- ``base_net/InvertedResidualK_b`` is ``base_net.blocks.b`` (with
+  ``conv5_as_stage``, the last two are ``base_net.conv5.0`` and ``.1``):
+  five ``ConvNormAct`` for a stage's first block (branch1 then branch2),
+  three for the others (branch2);
 - ``head_nets_i/Conv_0`` is ``head_nets.i.conv``.
 
 Kernels go from HWIO to OIHW (depthwise ``(K, K, 1, C)`` to
@@ -40,14 +42,45 @@ def _index(name, kind):
     return int(match.group(1))
 
 
-def _conv_norm_act_names(base_path):
-    """Port module name for each ConvNormAct under ``base_net``."""
+def _conv_norm_act_names(base_params):
+    """Port module name for each ConvNormAct under ``base_net``, from the
+    flax auto-names and, for the top-level ones after the input block, the
+    kernel size: a 3x3 is ``input_conv2``, a 1x1 is ``conv5``. Without a
+    1x1 conv5 the last two blocks are ``conv5`` (``conv5_as_stage``)."""
     blocks = {}
-    for path in base_path:
+    for path in base_params:
         if path[0].startswith('InvertedResidualK_'):
             b = _index(path[0], 'InvertedResidualK')
             blocks.setdefault(b, set()).add(_index(path[1], 'ConvNormAct'))
-    names = {}
+    top = sorted({_index(path[0], 'ConvNormAct') for path in base_params
+                  if path[0].startswith('ConvNormAct_')})
+    if top[:1] != [0] or top != list(range(len(top))):
+        raise KeyError(f'base_net ConvNormAct {top}: not a ShuffleNetV2K')
+    names = {('ConvNormAct_0',): 'input_block'}
+    sizes = {i: np.shape(base_params.get(
+        (f'ConvNormAct_{i}', 'Conv_0', 'kernel')))[:1] for i in top[1:]}
+    one_by_one = [i for i in top[1:] if sizes[i] == (1,)]
+    three = [i for i in top[1:] if sizes[i] == (3,)]
+    if len(one_by_one) + len(three) != len(top) - 1:
+        raise KeyError(f'base_net ConvNormAct {top}: kernels of sizes '
+                       f'{sizes}, wanted 3x3 or 1x1')
+    if three not in ([], [1]) or len(one_by_one) > 1 \
+            or one_by_one[-1:] not in ([], top[-1:]):
+        raise KeyError(f'base_net ConvNormAct {top}: expected the input '
+                       'block, an optional 3x3 input_conv2 and an optional '
+                       '1x1 conv5')
+    if three:
+        names[('ConvNormAct_1',)] = 'input_conv2'
+    block_names = {b: f'blocks.{b}' for b in blocks}
+    if one_by_one:
+        names[(f'ConvNormAct_{one_by_one[0]}',)] = 'conv5'
+    else:
+        if len(blocks) < 2:
+            raise KeyError('base_net has no 1x1 conv5 and fewer than two '
+                           'blocks to stand in for it')
+        last = max(blocks)
+        block_names[last - 1] = 'conv5.0'
+        block_names[last] = 'conv5.1'
     for b, cnas in blocks.items():
         if cnas == set(range(5)):
             targets = ['branch1.0', 'branch1.1',
@@ -59,14 +92,7 @@ def _conv_norm_act_names(base_path):
                            f'{sorted(cnas)}: not a ShuffleNetV2K block')
         for i, target in enumerate(targets):
             names[(f'InvertedResidualK_{b}', f'ConvNormAct_{i}')] = \
-                f'blocks.{b}.{target}'
-    top = sorted({_index(path[0], 'ConvNormAct') for path in base_path
-                  if path[0].startswith('ConvNormAct_')})
-    if top != [0, 1]:
-        raise KeyError(f'base_net ConvNormAct {top}: only the input block '
-                       'and conv5 are ported (no input_conv2)')
-    names[('ConvNormAct_0',)] = 'input_block'
-    names[('ConvNormAct_1',)] = 'conv5'
+                f'{block_names[b]}.{target}'
     return names
 
 
@@ -91,8 +117,8 @@ def state_dict_from_jax(variables):
         used.add((id(tree), path))
         return tree[path]
 
-    base_paths = [p[1:] for p in params if p[0] == 'base_net']
-    cna_names = _conv_norm_act_names(base_paths)
+    cna_names = _conv_norm_act_names(
+        {p[1:]: v for p, v in params.items() if p[0] == 'base_net'})
     for module_path, name in cna_names.items():
         f = ('base_net',) + module_path
         t = f'base_net.{name}'

@@ -11,6 +11,7 @@ import logging
 import os
 
 from . import __version__, decoder
+from .predictor import BACKBONE_ENGINES, Predictor
 
 LOG = logging.getLogger(__name__)
 
@@ -30,6 +31,19 @@ def cli(args=None):
     parser.add_argument('--long-edge', default=None, type=int,
                         help='rescale the long side of the image')
     parser.add_argument('--batch-size', default=1, type=int)
+    parser.add_argument('--bf16', default=False, action='store_true',
+                        help='run the backbone in bfloat16; heads and '
+                             'decode stay float32')
+    parser.add_argument('--backbone-engine', default='auto',
+                        choices=BACKBONE_ENGINES,
+                        help='serving backbone engine: flax = the module '
+                             'graph; folded (= halves = stencil) = '
+                             'BatchNorm folded into the convs; dwpallas = '
+                             'folded with the depthwise CUDA kernel; '
+                             'pallas = folded with the fused-block CUDA '
+                             'kernel; auto = halves when every stage\'s '
+                             'channel halves are 128-multiples, flax '
+                             'otherwise')
     parser.add_argument('--json-output', default=None, nargs='?',
                         const=True, help='json output file or directory')
     parser.add_argument('--debug', default=False, action='store_true')
@@ -58,9 +72,9 @@ def out_name(arg, in_name, default_extension):
 
 def main(args=None):
     args = cli(args)
-    from .predictor import Predictor
-
-    predictor = Predictor(checkpoint=args.checkpoint)
+    predictor = Predictor(checkpoint=args.checkpoint,
+                          backbone_engine=args.backbone_engine,
+                          bf16=args.bf16)
     predictor.batch_size = args.batch_size
     predictor.long_edge = args.long_edge
     predictor.preprocess = predictor._build_preprocess()

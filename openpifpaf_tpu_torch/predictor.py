@@ -5,6 +5,7 @@ numpy arrays and datasets. The serving loop is strict: each batch is
 forwarded, decoded and yielded before the next one starts.
 """
 
+import copy
 import logging
 import time
 
@@ -12,6 +13,8 @@ import numpy as np
 import torch
 
 from . import decoder, transforms
+from .models import fused_inference
+from .models.basenetworks import ShuffleNetV2K
 from .models.factory import Factory
 from .plugins.coco.constants import cocokp_head_metas
 
@@ -54,6 +57,11 @@ def _load_rgb(file_name):
         return np.asarray(PIL.Image.open(f).convert('RGB'))
 
 
+#: ``--backbone-engine`` choices, as the JAX package has them
+BACKBONE_ENGINES = ('auto', 'flax', 'folded', 'halves', 'pallas', 'stencil',
+                    'dwpallas')
+
+
 class Predictor:
     batch_size = 1
     long_edge = None
@@ -62,10 +70,24 @@ class Predictor:
     size_bucket = 128
 
     def __init__(self, checkpoint=None, head_metas=None, *, model=None,
-                 device=None, json_data=False):
+                 device=None, json_data=False, backbone_engine='auto',
+                 bf16=False):
         """Without ``model``: a ``shufflenetv2k16`` with ``head_metas``
         (default: the cocokp heads), randomly initialised from seed 0.
-        ``device`` defaults to the first CUDA device if there is one."""
+        ``device`` defaults to the first CUDA device if there is one.
+
+        ``backbone_engine`` (:data:`BACKBONE_ENGINES`) picks the serving
+        backbone: ``'flax'`` the module graph, ``'folded'`` (and its
+        aliases ``'halves'``, ``'stencil'``) the BN-folded convs,
+        ``'dwpallas'`` the folded convs with the depthwise kernel,
+        ``'pallas'`` the folded convs with the fused-block kernel; ``'auto'``
+        takes ``'halves'`` when every stage's channel halves are multiples
+        of 128, the module graph otherwise (k16's 174). ``bf16`` runs the
+        backbone in bfloat16 (weights cast once) and the heads in float32.
+        """
+        if backbone_engine not in BACKBONE_ENGINES:
+            raise ValueError(f'unknown backbone engine {backbone_engine!r}; '
+                             f'one of {BACKBONE_ENGINES}')
         if checkpoint is not None:
             raise NotImplementedError(
                 'loading a checkpoint is not yet ported to PyTorch '
@@ -81,6 +103,9 @@ class Predictor:
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.head_metas = model.head_metas
+        self.backbone_engine = backbone_engine
+        self.bf16 = bf16
+        self._backbone = self._resolve_backbone_engine()
         self.processor = decoder.factory(self.head_metas)
         self.json_data = json_data
 
@@ -90,6 +115,45 @@ class Predictor:
         self.total_nn_time = 0.0
         self.total_decoder_time = 0.0
         self.total_images = 0
+
+    def _resolve_backbone_engine(self):
+        """The backbone forward ``fn(x) -> features`` (channels_last NCHW)
+        of ``backbone_engine`` and ``bf16``, or None for the module graph
+        in float32. Raises ``ValueError`` for an explicit engine on a
+        backbone that does not fold."""
+        engine = self.backbone_engine
+        base_net = self.model.base_net
+        if engine == 'auto':
+            foldable = isinstance(base_net, ShuffleNetV2K) and all(
+                (c // 2) % 128 == 0
+                for c in base_net.stages_out_channels[1:])
+            engine = 'halves' if foldable else 'flax'
+        dtype = torch.bfloat16 if self.bf16 else torch.float32
+        if engine == 'flax':
+            if not self.bf16:
+                return None
+            net = copy.deepcopy(base_net).to(dtype)
+            return lambda x: net(x.to(dtype))
+        try:
+            folded = fused_inference.build_fused_backbone(self.model, dtype)
+        except ValueError as e:
+            raise ValueError(f'backbone engine {engine!r}: {e}') from None
+        LOG.info('backbone engine: %s (%s)', engine, dtype)
+        if engine == 'pallas':
+            return fused_inference.build_pallas_forward(folded, dtype=dtype)
+        if engine == 'dwpallas':
+            folded = folded.with_mode('dwpallas')
+        return lambda x: folded(x.to(dtype))
+
+    def _forward(self, images):
+        """Per-head fields of a (B, H, W, 3) float32 batch on the device:
+        the backbone engine, then the heads on float32 features."""
+        if self._backbone is None:
+            return self.model(images)
+        x = images.permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        features = self._backbone(x).float()
+        return tuple(hn(features) for hn in self.model.head_nets)
 
     def _build_preprocess(self, long_edge=None):
         if long_edge is None:
@@ -129,7 +193,7 @@ class Predictor:
                                                   dtype=np.float32))
         images = torch.from_numpy(image_batch).to(self.device)
         with torch.inference_mode():
-            fields = self.model(images)
+            fields = self._forward(images)
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
         self.last_nn_time = time.perf_counter() - start

@@ -1,5 +1,6 @@
-"""The PyTorch port on a CUDA device: the hand-written CifHr kernel against
-its plain version, and the decode against the JAX poses of the golden file.
+"""The PyTorch port on a CUDA device: the hand-written kernels (CifHr,
+depthwise conv, fused block, branch2) against their plain versions, and the
+decode against the JAX poses of the golden file.
 
 Every test here needs a GPU (marker ``gpu``) and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a machine that
@@ -13,12 +14,16 @@ import pytest
 import torch
 
 from openpifpaf_tpu_torch.decoder import CifCaf
+from openpifpaf_tpu_torch.models import basenetworks, block_cuda, dw_cuda, \
+    shuffle_cuda
+from openpifpaf_tpu_torch.models.factory import Factory
 from openpifpaf_tpu_torch.models.shell import assign_strides
 from openpifpaf_tpu_torch.ops import cifhr, cifhr_cuda
 from openpifpaf_tpu_torch.plugins.coco.constants import cocokp_head_metas
+from openpifpaf_tpu_torch.predictor import Predictor
 
 from torch_port_helpers import GOLDEN, GOLDEN_STRIDE, assert_pose_gate, \
-    random_cells
+    backbone_kernel_inputs, random_cells
 
 pytestmark = pytest.mark.gpu
 
@@ -73,3 +78,114 @@ def test_cuda_decode_matches_golden_jax_poses(cuda):
                                 a.joint_scales[:, None]], axis=1)
                 for a in anns]
         assert_pose_gate(ours, list(golden[f'{name}_poses']))
+
+
+#: (kernel wrapper, its plain version, its launch counter)
+BACKBONE_KERNELS = {
+    'depthwise_conv': (dw_cuda.depthwise_conv, dw_cuda.depthwise_conv_plain,
+                       dw_cuda),
+    'shuffle_block': (shuffle_cuda.fused_block,
+                      shuffle_cuda.fused_block_plain, shuffle_cuda),
+    'shuffle_branch2': (block_cuda.branch2_apply,
+                        shuffle_cuda.branch2_plain, block_cuda),
+}
+
+
+def _check_backbone_kernel(name, shape, dtype, device, **kwargs):
+    """The kernel against its plain version, TF32 off: float32 within 1e-5
+    (summation order), bfloat16 within one rounding step of the largest
+    output."""
+    call, plain, counter = BACKBONE_KERNELS[name]
+    args, kw = backbone_kernel_inputs(name, shape, dtype=dtype,
+                                      device=device, **kwargs)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = counter.LAUNCHES
+        out = call(*args, **kw)
+        assert counter.LAUNCHES == before + 1
+        ref = plain(*args, **kw)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    tol = 1e-5 if dtype == torch.float32 else \
+        2.0 ** -7 * float(ref.float().abs().max())
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape,k,dilation,act,leaky', [
+    ((2, 40, 13, 17), 5, 1, False, False),     # batch 2, no act (the model)
+    ((1, 24, 15, 13), 5, 2, True, True),       # dilation 2, leaky
+    ((1, 32, 11, 9), 3, 1, True, False),       # k=3, ReLU
+    ((1, 174, 129, 161), 5, 1, False, False),  # k16 stage 2, 513x641 input
+])
+def test_depthwise_kernel_matches_plain(cuda, shape, k, dilation, act, leaky,
+                                        dtype):
+    _check_backbone_kernel('depthwise_conv', shape, dtype, cuda, k=k,
+                           dilation=dilation, act=act, leaky=leaky)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('name', ['shuffle_block', 'shuffle_branch2'])
+@pytest.mark.parametrize('shape,k,dilation,leaky', [
+    ((2, 24, 21, 17), 5, 1, False),    # batch 2, ragged tiles both ways
+    ((1, 12, 15, 13), 5, 2, False),    # dilation 2
+    ((1, 16, 12, 10), 5, 1, True),     # leaky ReLU
+    ((1, 12, 11, 9), 3, 1, False),     # k=3
+    ((1, 348, 65, 81), 5, 1, False),   # k16 stage 3, 513x641 input
+])
+def test_block_kernels_match_plain(cuda, name, shape, k, dilation, leaky,
+                                   dtype):
+    _check_backbone_kernel(name, shape, dtype, cuda, k=k, dilation=dilation,
+                           leaky=leaky)
+
+
+@pytest.mark.parametrize('name', sorted(BACKBONE_KERNELS))
+def test_backbone_kernels_raise_on_non_channels_last(cuda, name):
+    call, _, counter = BACKBONE_KERNELS[name]
+    args, kw = backbone_kernel_inputs(name, (1, 16, 9, 11), device=cuda)
+    before = counter.LAUNCHES
+    with pytest.raises(ValueError, match='channels_last'):
+        call(args[0].contiguous(), *args[1:], **kw)
+    assert counter.LAUNCHES == before
+
+
+@pytest.mark.parametrize('engine,bf16,counter', [
+    ('folded', False, None),
+    ('dwpallas', False, dw_cuda),
+    ('pallas', False, shuffle_cuda),
+    ('pallas', True, shuffle_cuda),
+    ('flax', True, None),
+])
+def test_predictor_engines_on_the_card(cuda, engine, bf16, counter):
+    """A narrow ShuffleNetV2K served by each engine on the card gives the
+    module graph's fields (float32, TF32 off: atol 1e-4; bfloat16
+    backbone: within 5% of each head's largest value), launching its
+    kernel once per non-first block (4 here)."""
+    model = Factory().from_scratch(
+        cocokp_head_metas(), base_net=basenetworks.ShuffleNetV2K(
+            [2, 3, 2], [16, 32, 64, 128, 128]))
+    module = Predictor(model=model, device=cuda, backbone_engine='flax')
+    served = Predictor(model=model, device=cuda, backbone_engine=engine,
+                       bf16=bf16)
+    image = np.random.RandomState(0).randn(1, 97, 129, 3).astype(np.float32)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = module.fields_batch(image)
+        before = counter.LAUNCHES if counter else 0
+        out = served.fields_batch(image)
+        after = counter.LAUNCHES if counter else 0
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert after - before == (4 if counter else 0)
+    for o, r in zip(out, ref):
+        assert o.dtype == torch.float32 and bool(torch.isfinite(o).all())
+        if bf16:
+            assert float((o - r).abs().max()) <= 0.05 * float(r.abs().max())
+        else:
+            torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4)

@@ -51,10 +51,10 @@ def _randomize(variables, seed):
     return jax.tree_util.tree_map_with_path(leaf, variables)
 
 
-def _jax_shell(repeats, channels):
+def _jax_shell(repeats, channels, **kwargs):
     metas = openpifpaf_tpu.datasets.factory('cocokp').head_metas
     base = jax_base.ShuffleNetV2K(stages_repeats=repeats,
-                                  stages_out_channels=channels)
+                                  stages_out_channels=channels, **kwargs)
     jax_assign_strides(metas, base.stride)
     return JaxShell(base_net=base, head_nets=tuple(
         JaxCompositeField4(meta=m) for m in metas))
@@ -85,6 +85,26 @@ def test_narrow_shufflenet_fields_match_flax(image_hw):
         np.float32)
     torch_model = Factory().from_scratch(
         cocokp_head_metas(), base_net=basenetworks.ShuffleNetV2K(*NARROW))
+    _compare(model, variables, torch_model, image)
+
+
+@pytest.mark.parametrize('channels,net_kwargs', [
+    (NARROW[1], {'non_linearity': 'leaky_relu'}),
+    (NARROW[1], {'stage4_dilation': 2}),
+    (NARROW[1], {'input_conv2_stride': 2, 'input_conv2_outchannels': 12}),
+    (NARROW[1], {'conv5_as_stage': True}),
+    ([8, 16, 32, 64, 80], {'conv5_as_stage': True}),
+])
+def test_backbone_options_fields_match_flax(channels, net_kwargs):
+    """The flax ShuffleNetV2K options, through the strict bridge."""
+    model = _jax_shell(NARROW[0], channels, **net_kwargs)
+    variables = model.init(jax.random.PRNGKey(0),
+                           jnp.zeros((1, 65, 65, 3)), train=True)
+    variables = _randomize(variables, seed=4)
+    image = np.random.RandomState(5).randn(2, 65, 97, 3).astype(np.float32)
+    base = basenetworks.ShuffleNetV2K(NARROW[0], channels, **net_kwargs)
+    assert base.stride == model.base_net.stride
+    torch_model = Factory().from_scratch(cocokp_head_metas(), base_net=base)
     _compare(model, variables, torch_model, image)
 
 

@@ -62,8 +62,10 @@ def test_every_port_module_imports_without_jax():
         check=False)
     assert done.returncode == 0, done.stderr
     report = json.loads(done.stdout.strip().splitlines()[-1])
-    assert 'openpifpaf_tpu_torch.predict' in report['modules']
-    assert 'openpifpaf_tpu_torch.ops.cifhr_cuda' in report['modules']
+    for name in ('predict', '_nvcc', 'ops.cifhr_cuda', 'models.dw_cuda',
+                 'models.shuffle_cuda', 'models.block_cuda',
+                 'models.fused_inference'):
+        assert f'openpifpaf_tpu_torch.{name}' in report['modules']
     assert report['loaded'] == []
 
 

@@ -3,7 +3,9 @@
 A narrow ShuffleNetV2K with random flax weights, bridged to the port,
 serves the same uint8 images through both ``Predictor.numpy_images``:
 the fields must agree (atol 1e-4, float32 convolutions in two frameworks)
-and the annotation lists must be equal. The confidence biases of the
+and the annotation lists must be equal. Each backbone engine of the port
+gives the fields of its module graph (atol 1e-5) and of the JAX Predictor's
+flax graph. The confidence biases of the
 heads are raised and the seed, keypoint and instance thresholds lowered
 (``THRESHOLDS``) so that the decode of these random-weight fields keeps
 poses to compare.
@@ -19,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch import nn
 
 import openpifpaf_tpu
 from openpifpaf_tpu.decoder.cifcaf import CifCaf as JaxCifCaf
@@ -79,6 +82,7 @@ def predictors():
         for (cls, k), value in saved.items():
             setattr(cls, k, value)
     jax_predictor.pipeline_decode = False
+    jax_predictor.backbone_engine = 'flax'
     return jax_predictor, port
 
 
@@ -125,6 +129,110 @@ def test_annotations_match_jax_predictor(predictors, batch_size):
                                        rtol=0)
             assert abs(a['score'] - b['score']) <= 0.00101
             assert a['category_id'] == b['category_id']
+
+
+def _batch(port):
+    return np.stack([port.preprocess(im, [], None)[0]
+                     for im in _images(2, seed=0)])
+
+
+@pytest.mark.parametrize('engine', ['folded', 'dwpallas', 'pallas',
+                                    'halves', 'stencil'])
+def test_engine_fields_match_module_graph_and_jax(predictors, engine):
+    jax_predictor, port = predictors
+    engine_port = Predictor(model=port.model, device='cpu',
+                            backbone_engine=engine)
+    assert engine_port._backbone is not None
+    batch = _batch(port)
+    with jax_f32():
+        ref = jax_predictor.fields_batch(batch)
+    module = port.fields_batch(batch)
+    out = engine_port.fields_batch(batch)
+    for o, m, r in zip(out, module, ref):
+        np.testing.assert_allclose(o.numpy(), m.numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=1e-4,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize('engine', ['flax', 'pallas'])
+def test_bf16_backbone_fields_close_to_float32(predictors, engine):
+    """bfloat16 backbone, float32 heads: finite fields within 5% of the
+    largest float32 value of each head."""
+    _, port = predictors
+    bf16 = Predictor(model=port.model, device='cpu', backbone_engine=engine,
+                     bf16=True)
+    batch = _batch(port)
+    for o, r in zip(bf16.fields_batch(batch), port.fields_batch(batch)):
+        assert o.dtype == torch.float32
+        assert bool(torch.isfinite(o).all())
+        assert float((o - r).abs().max()) <= 0.05 * float(r.abs().max())
+
+
+def test_auto_engine_policy():
+    """'auto' keeps k16 (174-channel halves) on the module graph and takes
+    'halves' (the folded graph) when every stage's halves are
+    128-multiples, as in ``tests/test_shuffle_pallas.py``."""
+    k16 = Predictor(device='cpu')
+    assert k16.backbone_engine == 'auto'
+    assert k16._backbone is None
+
+    aligned = Factory().from_scratch(
+        cocokp_head_metas(), base_net=basenetworks.ShuffleNetV2K(
+            [2, 2, 2], [16, 256, 256, 256, 256]))
+    auto = Predictor(model=aligned, device='cpu')
+    assert auto._backbone is not None
+    module = Predictor(model=aligned, device='cpu', backbone_engine='flax')
+    image = np.random.RandomState(2).randn(1, 33, 49, 3).astype(np.float32)
+    auto.size_bucket = module.size_bucket = 0
+    for o, r in zip(auto.fields_batch(image), module.fields_batch(image)):
+        np.testing.assert_allclose(o.numpy(), r.numpy(), atol=2e-5,
+                                   rtol=2e-4)
+
+
+class _ConvNet(nn.Module):
+    """A backbone that is not a ShuffleNetV2K."""
+    stride = 16
+    out_features = 8
+
+    def __init__(self):
+        super().__init__()
+        self.conv = nn.Conv2d(3, 8, 16, stride=16)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+@pytest.mark.parametrize('engine', ['folded', 'dwpallas', 'pallas',
+                                    'halves', 'stencil'])
+def test_explicit_engine_on_unfoldable_backbone_raises(engine):
+    model = Factory().from_scratch(cocokp_head_metas(), base_net=_ConvNet())
+    assert Predictor(model=model, device='cpu')._backbone is None  # auto
+    with pytest.raises(ValueError, match='only a ShuffleNetV2K'):
+        Predictor(model=model, device='cpu', backbone_engine=engine)
+
+
+def test_predict_cli_passes_engine_and_bf16(monkeypatch):
+    from openpifpaf_tpu_torch import predict
+
+    seen = []
+
+    class Recorder:
+        def __init__(self, **kwargs):
+            seen.append(kwargs)
+
+        def _build_preprocess(self):
+            return None
+
+        def images(self, names):
+            return iter(())
+
+    monkeypatch.setattr(predict, 'Predictor', Recorder)
+    predict.main(['image.jpg', '--backbone-engine', 'pallas', '--bf16'])
+    predict.main(['image.jpg'])
+    assert [(s['backbone_engine'], s['bf16']) for s in seen] == [
+        ('pallas', True), ('auto', False)]
+    with pytest.raises(SystemExit):
+        predict.cli(['image.jpg', '--backbone-engine', 'cudnn'])
 
 
 def test_predict_cli_writes_json(tmp_path):

@@ -50,6 +50,34 @@ def random_cells(n_fields, n_cells, hr_h, hr_w, seed, device):
             for a in (x, y, sigma, w)]
 
 
+def backbone_kernel_inputs(kernel, shape, *, k=5, dilation=1, act=False,
+                           leaky=False, dtype=torch.float32, device='cpu',
+                           seed=0):
+    """Seeded ``(args, kwargs)`` of a backbone kernel's wrapper:
+    ``'depthwise_conv'`` on a channels_last (N, C, H, W) activation, or a
+    block kernel (``'shuffle_block'``, ``'shuffle_branch2'``) on
+    (N, 2Cb, H, W), with 1x1 weights scaled by 1/sqrt(Cb) so that the
+    outputs stay of order one."""
+    from openpifpaf_tpu_torch.models.shuffle_cuda import BlockWeights
+
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(*size, scale=1.0):
+        return (scale * torch.randn(*size, generator=g)).to(device, dtype)
+
+    c = shape[1]
+    x = rand(*shape).contiguous(memory_format=torch.channels_last)
+    if kernel == 'depthwise_conv':
+        return ((x, rand(c, 1, k, k, scale=0.2), rand(c, scale=0.1)),
+                dict(dilation=dilation, act=act, leaky=leaky))
+    cb = c // 2
+    weights = BlockWeights(
+        w1=rand(cb, cb, scale=cb ** -0.5), b1=rand(cb, scale=0.1),
+        wdw=rand(cb, 1, k, k, scale=0.2), bdw=rand(cb, scale=0.1),
+        w3=rand(cb, cb, scale=cb ** -0.5), b3=rand(cb, scale=0.1))
+    return (x, weights), dict(k=k, dilation=dilation, leaky=leaky)
+
+
 def jitter(cif, caf, seed):
     """Break the bit-equal confidence ties of raw encoder targets with a
     1% per-cell jitter (the tie-free regime of
