@@ -7,8 +7,8 @@ Phases, each of which raises on failure (non-zero exit):
 1. device: a CUDA device is required; prints the card's name and power
    limit as nvidia-smi reports them;
 2. build: compiles the port's kernels (``openpifpaf_tpu_torch/csrc/*.cu``:
-   CifHr, depthwise conv, fused block) from the sources next to this
-   script, one nvcc per source, all started together;
+   CifHr, depthwise conv, fused block, the Mosaic lab's three) from the
+   sources next to this script, one nvcc per source, all started together;
 3. CifHr kernel vs plain: ``cifhr_cuda.accumulate`` against its plain
    PyTorch version on seeded random cells at the decode's shapes, atol
    1e-5, with both times from CUDA events;
@@ -36,9 +36,18 @@ Phases, each of which raises on failure (non-zero exit):
 8. branch2 path: ``block_cuda.build_mosaic_forward`` on the folded k16
    backbone gives the module graph's features with 13 branch2 launches;
 9. forward profile: each engine's batch-1 NN time (CUDA events) and, from
-   ``torch.profiler``, its device time, device ops and BatchNorm kernels.
+   ``torch.profiler``, its device time, device ops and BatchNorm kernels;
+10. lab: the Mosaic lab's kernels (``lab.kernels.lane_interleave``,
+    ``dw_valid``, ``branch2``) against their plain versions at the lab's
+    three stage shapes in float32 and bfloat16 with TF32 off, with kernel,
+    plain and library times (CUDA events) and the kernel's device time
+    alone (``torch.profiler``); then the lab's entry point
+    ``lab.mosaic_lab.main(['interleave', 'dw', 'branch2'])`` runs once with
+    the launch counts read around it.
 
-The second-to-last line is a JSON object describing the kernels, the last
+The second-to-last line is a JSON object describing the kernels (with each
+one's bound: the larger of its bytes over the card's memory rate and its
+operations over the peak rate of its type), the last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -54,6 +63,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, 'tests', 'golden', 'torch_decode_golden.npz')
@@ -66,7 +76,7 @@ IMAGE_HW = (481, 641)
 FIELD_HW = (33, 41)
 #: the image of the engine, branch2 and profile phases
 FORWARD_HW = (513, 641)
-SOURCES = ('cifhr.cu', 'depthwise.cu', 'shuffle_block.cu')
+SOURCES = ('cifhr.cu', 'depthwise.cu', 'shuffle_block.cu', 'mosaic_lab.cu')
 #: (Cb, H, W) of shufflenetv2k16's stages 2-4 for a 513x641 input: the
 #: activations of the non-first blocks are (N, 2 Cb, H, W)
 STAGES = ((174, 129, 161), (348, 65, 81), (696, 33, 41))
@@ -83,6 +93,17 @@ ENGINE_TOL = dict(rtol=1e-4, atol=1e-4)
 #: bfloat16 backbone vs float32: max abs error within this share of the
 #: head's largest field value
 BF16_FIELD_RTOL = 5e-2
+#: lab kernel vs plain, float32: summation order, as a share of the largest
+#: output (bfloat16: BF16_RTOL)
+LAB_F32_RTOL = 1e-5
+#: the card's published peaks (H100 SXM data sheet; dense, at 700 W):
+#: memory bytes/s, and operations/s by the inputs' type (float32 on CUDA
+#: cores, bfloat16 on tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+#: float operations of one pixel of a CifHr splat in cifhr.cu (distance,
+#: approx_exp, weighted add)
+CIFHR_OPS_PER_PIXEL = 13
 
 
 def log(*args):
@@ -106,13 +127,16 @@ def import_port():
         raise RuntimeError('openpifpaf_tpu_torch imported from '
                            f'{openpifpaf_tpu_torch.__file__}, not {ROOT}')
     from openpifpaf_tpu_torch import _nvcc
+    from openpifpaf_tpu_torch.lab import kernels as lab_kernels
+    from openpifpaf_tpu_torch.lab import mosaic_lab
     from openpifpaf_tpu_torch.models import block_cuda, dw_cuda, \
         fused_inference, shuffle_cuda
     from openpifpaf_tpu_torch.ops import cifhr, cifhr_cuda
     return types.SimpleNamespace(
         nvcc=_nvcc, cifhr=cifhr, cifhr_cuda=cifhr_cuda, dw_cuda=dw_cuda,
         shuffle_cuda=shuffle_cuda, block_cuda=block_cuda,
-        fused_inference=fused_inference)
+        fused_inference=fused_inference, lab_kernels=lab_kernels,
+        mosaic_lab=mosaic_lab)
 
 
 @contextlib.contextmanager
@@ -139,11 +163,15 @@ def launch_counters(port):
 def reset_launches(port):
     for module in launch_counters(port).values():
         module.LAUNCHES = 0
+    for name in port.lab_kernels.LAUNCHES:
+        port.lab_kernels.LAUNCHES[name] = 0
 
 
 def read_launches(port):
-    return {name: module.LAUNCHES
-            for name, module in launch_counters(port).items()}
+    counts = {name: module.LAUNCHES
+              for name, module in launch_counters(port).items()}
+    counts.update(port.lab_kernels.LAUNCHES)
+    return counts
 
 
 def phase_build(port):
@@ -169,28 +197,88 @@ def cuda_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def kernel_device_ms(calls, n):
-    """Device time per launch of the CifHr kernel alone, for each of
-    ``calls``, from one profiler session (a wrapper call also costs host
-    time, which the CUDA-event loop of :func:`cuda_ms` sees when the kernel
-    is short). None for all when the profiler did not record exactly ``n``
-    kernels per call."""
+def tensors_of(*args):
+    """The tensors among ``args``, a weights dataclass (``.tensors()``)
+    giving its own."""
+    out = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            out.append(a)
+        elif hasattr(a, 'tensors'):
+            out.extend(a.tensors())
+    return out
+
+
+def bound(inputs, outputs, ops, dtype):
+    """``(ms, 'bytes' or 'operations')``: the least time the card could take
+    for the work, the larger of each input read once and each output written
+    once at HBM_BYTES_PER_S, and ``ops`` operations at the peak rate of
+    ``dtype``."""
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in tensors_of(*inputs, *outputs))
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (bytes_ms, 'bytes') if bytes_ms >= ops_ms else \
+        (ops_ms, 'operations')
+
+
+def conv_ops(name, args, out):
+    """Operations of a backbone or lab kernel giving ``out`` from ``args``:
+    two per multiply-add of its depthwise taps and 1x1 products (biases,
+    activations and copies are not counted; the interleave only copies)."""
+    n, _, h, w = out.shape
+    if name in ('depthwise_conv', 'lab_dw_valid'):
+        k = args[1].shape[-1]
+        return 2 * k * k * out.numel()
+    if name in ('shuffle_block', 'shuffle_branch2', 'lab_branch2'):
+        w1, _, wdw = args[1].tensors()[:3]
+        cb, k = w1.shape[0], wdw.shape[-1]
+        return n * h * w * (4 * cb * cb + 2 * k * k * cb)
+    return 0
+
+
+def cifhr_splat_pixels(x, y, sigma, w, hr_h, hr_w):
+    """Map pixels within one sigma of a cell of non-zero weight, summed
+    over the cells: the splat work that these cells need."""
+    xs = torch.arange(hr_w, dtype=torch.float32, device=x.device)
+    ys = torch.arange(hr_h, dtype=torch.float32, device=x.device)
+    total = torch.zeros((), dtype=torch.int64, device=x.device)
+    for k in range(x.shape[1]):
+        d2 = (xs[None, None, :] - x[:, k, None, None]) ** 2 + \
+            (ys[None, :, None] - y[:, k, None, None]) ** 2
+        total += ((d2 <= sigma[:, k, None, None] ** 2)
+                  & (w[:, k, None, None] != 0)).sum()
+    return int(total)
+
+
+def kernel_device_ms(calls, n, kernel='cifhr_kernel'):
+    """Device time per launch of the kernel named ``kernel`` alone, for
+    each of ``calls`` (a wrapper call also costs host time, which the
+    CUDA-event loop of :func:`cuda_ms` sees when the kernel is short): one
+    profiler session per call, with one warm-up launch and ``n`` timed
+    ones. The profiler can miss the launches at the start of a session, so
+    the warm-up may go unrecorded; a call with fewer than ``n`` recorded
+    launches gets None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for fn in calls:
-            for _ in range(n):
+    out = []
+    for fn in calls:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n + 1):
                 fn()
             torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA
-                      and 'cifhr_kernel' in e.name),
-                     key=lambda e: e.time_range.start)
-    if len(kernels) != n * len(calls):
-        return [None] * len(calls)
-    return [sum(e.time_range.elapsed_us() for e in kernels[i:i + n]) / 1e3 / n
-            for i in range(0, len(kernels), n)]
+        kernels = sorted((e for e in prof.events()
+                          if e.device_type == DeviceType.CUDA
+                          and kernel in e.name),
+                         key=lambda e: e.time_range.start)[-n:]
+        if len(kernels) < n:
+            log(f'profiler recorded {len(kernels)} of {n} {kernel} launches')
+            out.append(None)
+        else:
+            out.append(sum(e.time_range.elapsed_us() for e in kernels)
+                       / 1e3 / n)
+    return out
 
 
 def phase_kernel(cifhr, cifhr_cuda, device, card):
@@ -213,15 +301,18 @@ def phase_kernel(cifhr, cifhr_cuda, device, card):
         ms = cuda_ms(call, 50)
         plain_ms = cuda_ms(lambda: cifhr.accumulate_dense(*cells, **kw), 3)
         calls.append(call)
-        results[(n_fields, n_cells)] = (err, ms, plain_ms)
+        ops = CIFHR_OPS_PER_PIXEL * cifhr_splat_pixels(*cells, *HR_SHAPE)
+        results[(n_fields, n_cells)] = (err, ms, plain_ms) + bound(
+            cells, [kernel], ops, torch.float32)
 
     device_ms = kernel_device_ms(calls, 20)
-    for ((n_fields, n_cells), (err, ms, plain_ms)), alone in zip(
-            results.items(), device_ms):
+    for ((n_fields, n_cells), (err, ms, plain_ms, bound_ms, bound_by)), \
+            alone in zip(results.items(), device_ms):
         alone = 'not measured' if alone is None else f'{alone:.4f} ms'
         log(f'kernel F={n_fields} K={n_cells} map={HR_SHAPE}: max_abs_err '
             f'{err} (atol {KERNEL_ATOL}), kernel {ms:.4f} ms per call '
-            f'(device time alone {alone}), plain {plain_ms:.3f} ms [{card}]')
+            f'(device time alone {alone}), plain {plain_ms:.3f} ms, bound '
+            f'{bound_ms:.4f} ms by {bound_by} [{card}]')
     return results
 
 
@@ -291,9 +382,41 @@ def check_fields_against_cpu(predictor, device):
     log('fields on the GPU match the CPU forward (TF32 off, atol 1e-4)')
 
 
+def compare_and_time(name, case, call, plain, library, args, kw, dtype,
+                     f32_tol, card):
+    """``call`` against ``plain`` on ``args``, raising beyond the
+    tolerance (float32: ``f32_tol(ref)``; bfloat16: one rounding step of
+    the largest output), then each one's time and ``library``'s (one
+    PyTorch call of the same function, or None) and the work's bound.
+    Returns the row as a dict."""
+    out = call(*args, **kw)
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    tol = f32_tol(ref) if dtype == torch.float32 else \
+        BF16_RTOL * float(ref.float().abs().max())
+    if not err <= tol:
+        raise AssertionError(f'{name} kernel vs plain at {case}: max abs '
+                             f'err {err}, tol {tol}')
+    row = dict(case=case, dtype=dtype, err=err, tol=tol,
+               ms=cuda_ms(functools.partial(call, *args, **kw), 20),
+               plain_ms=cuda_ms(functools.partial(plain, *args, **kw), 20),
+               library_ms=None if library is None else cuda_ms(
+                   functools.partial(library, *args), 20))
+    row['bound_ms'], row['bound_by'] = bound(args, [out],
+                                             conv_ops(name, args, out), dtype)
+    library_text = 'none' if library is None else \
+        f'{row["library_ms"]:.4f} ms'
+    log(f'{name} {case}: max_abs_err {err} (tol {tol:.3g}), kernel '
+        f'{row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, library '
+        f'{library_text}, bound {row["bound_ms"]:.4f} ms by '
+        f'{row["bound_by"]} per call [{card}]')
+    return row
+
+
 def phase_backbone_kernels(port, device, card):
     """Each backbone kernel against its plain version; returns
-    {name: [(case, dtype, err, tol, ms, plain_ms), ...]}."""
+    {name: [row of :func:`compare_and_time`, ...]}."""
     from torch_port_helpers import backbone_kernel_inputs
 
     kernels = {
@@ -319,25 +442,18 @@ def phase_backbone_kernels(port, device, card):
                     args, kw = backbone_kernel_inputs(
                         name, shape, k=k, dilation=dilation, act=leaky,
                         leaky=leaky, dtype=dtype, device=device, seed=i)
-                    out = call(*args, **kw)
-                    ref = plain(*args, **kw)
-                    torch.cuda.synchronize()
-                    err = float((out.float() - ref.float()).abs().max())
-                    tol = F32_ATOL if dtype == torch.float32 else \
-                        BF16_RTOL * float(ref.float().abs().max())
                     case = f'{tuple(shape)} k={k} d={dilation} ' \
                         f'leaky={leaky} {str(dtype)[6:]}'
-                    if not err <= tol:
-                        raise AssertionError(f'{name} kernel vs plain at '
-                                             f'{case}: max abs err {err}')
-                    ms = cuda_ms(functools.partial(call, *args, **kw), 20)
-                    plain_ms = cuda_ms(functools.partial(plain, *args, **kw),
-                                       20)
-                    results[name].append((case, dtype, err, tol, ms,
-                                          plain_ms))
-                    log(f'{name} {case}: max_abs_err {err} (tol {tol:.3g}), '
-                        f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per '
-                        f'call [{card}]')
+                    # one cuDNN call computes the depthwise conv without
+                    # an activation; no single call computes a block
+                    library = None
+                    if name == 'depthwise_conv' and not leaky:
+                        library = functools.partial(
+                            F.conv2d, padding=(k - 1) // 2 * dilation,
+                            dilation=dilation, groups=shape[1])
+                    results[name].append(compare_and_time(
+                        name, case, call, plain, library, args, kw, dtype,
+                        lambda ref: F32_ATOL, card))
     return results
 
 
@@ -528,6 +644,90 @@ def phase_profile(predictors, device, card):
             f'[{card}]')
 
 
+def phase_lab_kernels(port, device, card):
+    """Each lab kernel against its plain version at the lab's three stage
+    shapes, float32 and bfloat16, TF32 off; returns {name: [row, ...]}."""
+    from torch_port_helpers import lab_kernel_inputs
+
+    lab = port.lab_kernels
+    kernels = {
+        # (kernel, plain version, one PyTorch call of the same function)
+        'lab_interleave': (lab.lane_interleave, lab.lane_interleave_plain,
+                           lab.lane_interleave_plain),
+        'lab_dw_valid': (lab.dw_valid, lab.dw_valid_plain,
+                         lambda x, wt: F.conv2d(x, wt, groups=x.shape[1])),
+        'lab_branch2': (lab.branch2, lab.branch2_plain, None),
+    }
+    #: the kernels' names in csrc/mosaic_lab.cu
+    symbols = {'lab_interleave': 'interleave_kernel',
+               'lab_dw_valid': 'dw_valid_kernel',
+               'lab_branch2': 'branch2_kernel'}
+    results = {}
+    with no_tf32():
+        for name, (call, plain, library) in kernels.items():
+            results[name] = []
+            calls = []
+            for dtype in (torch.float32, torch.bfloat16):
+                for i, (stage, (h, w, c)) in enumerate(
+                        port.mosaic_lab.STAGES.items()):
+                    args = lab_kernel_inputs(name, h, w, c, dtype=dtype,
+                                             device=device, seed=i)
+                    results[name].append(compare_and_time(
+                        name, f'{stage} {(h, w, c)} {str(dtype)[6:]}', call,
+                        plain, library, args, {}, dtype,
+                        lambda ref: LAB_F32_RTOL * float(ref.abs().max()),
+                        card))
+                    calls.append(functools.partial(call, *args))
+            # the kernel's own time, without the wrapper's host time
+            for row, alone in zip(results[name], kernel_device_ms(
+                    calls, 10, symbols[name])):
+                row['device_ms'] = alone
+                alone = 'not measured' if alone is None else f'{alone:.4f} ms'
+                log(f'{name} {row["case"]}: device time alone {alone} '
+                    f'[{card}]')
+    return results
+
+
+def phase_lab(port, card):
+    """The lab's entry point on its three kernels, every launch count set
+    to 0 just before and read just after; returns the lab kernels'
+    launches."""
+    reset_launches(port)
+    results = port.mosaic_lab.main(['interleave', 'dw', 'branch2'])
+    counts = read_launches(port)
+    lab_names = list(port.lab_kernels.LAUNCHES)
+    for name, n in counts.items():
+        if (n == 0) == (name in lab_names):
+            raise AssertionError(f'lab run: {n} launches of {name}')
+    if len(results) != 3 * len(port.mosaic_lab.STAGES):
+        raise AssertionError(f'lab run: {len(results)} results')
+    for r in results:
+        if not (r['kernel_s'] > 0 and r['library_s'] > 0):
+            raise AssertionError(f'lab run: no time in {r}')
+        if r['op'] == 'branch2' and not r['rel_diff'] <= BF16_RTOL:
+            raise AssertionError(f'lab run: branch2 kernel vs plain {r}')
+    log(f'lab entry point: launches {counts}')
+    return {name: counts[name] for name in lab_names}
+
+
+def kernel_entry(name, source, replaces, launches, rows, row):
+    """One kernel's entry of the JSON line: times and bound of ``row``,
+    the largest error of all ``rows``."""
+    return {
+        'name': name,
+        'route': 'cuda',
+        'source': f'openpifpaf_tpu_torch/csrc/{source}',
+        'replaces': replaces,
+        'launches': launches,
+        'max_abs_err': max(r['err'] for r in rows),
+        'ms': row['ms'],
+        'plain_ms': row['plain_ms'],
+        'bound_ms': row['bound_ms'],
+        'bound_by': row['bound_by'],
+        'library_ms': row['library_ms'],
+    }
+
+
 def main():
     if not torch.cuda.is_available():
         sys.stderr.write('chip_smoke.py needs a CUDA device\n')
@@ -549,18 +749,17 @@ def main():
     launches['shuffle_branch2'] = phase_branch2(port, predictor, device,
                                                 card)
     phase_profile(predictors, device, card)
+    lab_results = phase_lab_kernels(port, device, card)
+    launches.update(phase_lab(port, card))
 
-    _, ms, plain_ms = kernel_results[(17, 256)]
-    entries = [{
-        'name': 'cifhr_accumulate',
-        'route': 'cuda',
-        'source': 'openpifpaf_tpu_torch/csrc/cifhr.cu',
-        'replaces': 'openpifpaf_tpu/ops/cifhr_pallas.py:53',
-        'launches': launches['cifhr_accumulate'],
-        'max_abs_err': max(r[0] for r in kernel_results.values()),
-        'ms': ms,
-        'plain_ms': plain_ms,
-    }]
+    # no single PyTorch call computes the CifHr map
+    cifhr_rows = [dict(err=r[0], ms=r[1], plain_ms=r[2], bound_ms=r[3],
+                       bound_by=r[4], library_ms=None)
+                  for r in kernel_results.values()]
+    entries = [kernel_entry('cifhr_accumulate', 'cifhr.cu',
+                            'openpifpaf_tpu/ops/cifhr_pallas.py:53',
+                            launches['cifhr_accumulate'], cifhr_rows,
+                            cifhr_rows[0])]
     replaces = {
         'depthwise_conv': ('depthwise.cu', 'models/dw_pallas.py:38'),
         'shuffle_block': ('shuffle_block.cu', 'models/shuffle_pallas.py:108'),
@@ -569,16 +768,17 @@ def main():
     for name, (source, tpu) in replaces.items():
         rows = backbone_results[name]
         # times at the first stage's shape in float32
-        entries.append({
-            'name': name,
-            'route': 'cuda',
-            'source': f'openpifpaf_tpu_torch/csrc/{source}',
-            'replaces': f'openpifpaf_tpu/{tpu}',
-            'launches': launches[name],
-            'max_abs_err': max(r[2] for r in rows),
-            'ms': rows[0][4],
-            'plain_ms': rows[0][5],
-        })
+        entries.append(kernel_entry(name, source, f'openpifpaf_tpu/{tpu}',
+                                    launches[name], rows, rows[0]))
+    lab_replaces = {'lab_interleave': 56, 'lab_dw_valid': 84,
+                    'lab_branch2': 124}
+    for name, line in lab_replaces.items():
+        rows = lab_results[name]
+        # times at the lab's first stage in bfloat16, as the lab runs
+        row = rows[len(port.mosaic_lab.STAGES)]
+        entries.append(kernel_entry(name, 'mosaic_lab.cu',
+                                    f'tools/mosaic_lab.py:{line}',
+                                    launches[name], rows, row))
     log(json.dumps({'kernels': entries}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu',

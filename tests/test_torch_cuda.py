@@ -1,6 +1,7 @@
 """The PyTorch port on a CUDA device: the hand-written kernels (CifHr,
-depthwise conv, fused block, branch2) against their plain versions, and the
-decode against the JAX poses of the golden file.
+depthwise conv, fused block, branch2, and the Mosaic lab's interleave,
+VALID depthwise and branch2) against their plain versions, and the decode
+against the JAX poses of the golden file.
 
 Every test here needs a GPU (marker ``gpu``) and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a machine that
@@ -14,6 +15,8 @@ import pytest
 import torch
 
 from openpifpaf_tpu_torch.decoder import CifCaf
+from openpifpaf_tpu_torch.lab import kernels as lab_kernels
+from openpifpaf_tpu_torch.lab import mosaic_lab
 from openpifpaf_tpu_torch.models import basenetworks, block_cuda, dw_cuda, \
     shuffle_cuda
 from openpifpaf_tpu_torch.models.factory import Factory
@@ -23,7 +26,7 @@ from openpifpaf_tpu_torch.plugins.coco.constants import cocokp_head_metas
 from openpifpaf_tpu_torch.predictor import Predictor
 
 from torch_port_helpers import GOLDEN, GOLDEN_STRIDE, assert_pose_gate, \
-    backbone_kernel_inputs, random_cells
+    backbone_kernel_inputs, lab_kernel_inputs, random_cells
 
 pytestmark = pytest.mark.gpu
 
@@ -189,3 +192,81 @@ def test_predictor_engines_on_the_card(cuda, engine, bf16, counter):
             assert float((o - r).abs().max()) <= 0.05 * float(r.abs().max())
         else:
             torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4)
+
+
+#: (kernel wrapper, its plain version), by launch counter name
+LAB_KERNELS = {
+    'lab_interleave': (lab_kernels.lane_interleave,
+                       lab_kernels.lane_interleave_plain),
+    'lab_dw_valid': (lab_kernels.dw_valid, lab_kernels.dw_valid_plain),
+    'lab_branch2': (lab_kernels.branch2, lab_kernels.branch2_plain),
+}
+
+
+def _check_lab_kernel(name, shape, dtype, device, **kw):
+    """The lab kernel against its plain version, TF32 off: float32 within
+    1e-5 of the largest output (summation order), bfloat16 within one
+    rounding step of it."""
+    call, plain = LAB_KERNELS[name]
+    args = lab_kernel_inputs(name, *shape, dtype=dtype, device=device,
+                             seed=sum(shape))
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = lab_kernels.LAUNCHES[name]
+        out = call(*args, **kw)
+        assert lab_kernels.LAUNCHES[name] == before + 1
+        ref = plain(*args)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    scale = float(ref.float().abs().max())
+    tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * scale
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('name', sorted(LAB_KERNELS))
+@pytest.mark.parametrize('shape', [
+    (9, 11, 8),       # C and W off 128 and 16, one ragged tile
+    (13, 7, 24),      # several row tiles, a narrow image
+    (61, 81, 348),    # k16 stage 3 (the lab's stage3)
+])
+def test_lab_kernels_match_plain(cuda, name, shape, dtype):
+    _check_lab_kernel(name, shape, dtype, cuda)
+
+
+@pytest.mark.parametrize('r_tile', [4, 8, 16])
+def test_lab_branch2_tile_rows(cuda, r_tile):
+    """The branch2 kernel at the lab's stage2 for each tile height that
+    fits the card's shared memory there."""
+    _check_lab_kernel('lab_branch2', (121, 161, 174), torch.bfloat16, cuda,
+                      r_tile=r_tile)
+
+
+def test_lab_branch2_refuses_a_tile_that_does_not_fit(cuda):
+    args = lab_kernel_inputs('lab_branch2', 31, 41, 696, dtype=torch.bfloat16,
+                             device=cuda)
+    before = lab_kernels.LAUNCHES['lab_branch2']
+    with pytest.raises(ValueError, match='shared memory'):
+        lab_kernels.branch2(*args, r_tile=8)
+    assert lab_kernels.LAUNCHES['lab_branch2'] == before
+
+
+def test_lab_entry_point_on_the_card(cuda, capsys):
+    """``mosaic_lab.main`` with the names that ``chip_smoke.py`` does not
+    run: the plain branch2 alone and the tile-row sweep, which reports the
+    tiles that do not fit without launching them."""
+    before = lab_kernels.LAUNCHES['lab_branch2']
+    results = mosaic_lab.main(['branch2_xla', 'rtile'])
+    out = capsys.readouterr().out
+    assert [(r['stage'], r['r_tile']) for r in results] == [
+        ('stage2', 8), ('stage2', 16), ('stage3', 8)]
+    assert lab_kernels.LAUNCHES['lab_branch2'] > before
+    assert all(r['kernel_s'] > 0 and r['rel_diff'] <= 2.0 ** -7
+               for r in results)
+    assert out.count('does not fit') == 3 + 4 + 3
+    assert out.count('branch2 plain') == 3 + len(results)

@@ -64,7 +64,8 @@ def test_every_port_module_imports_without_jax():
     report = json.loads(done.stdout.strip().splitlines()[-1])
     for name in ('predict', '_nvcc', 'ops.cifhr_cuda', 'models.dw_cuda',
                  'models.shuffle_cuda', 'models.block_cuda',
-                 'models.fused_inference'):
+                 'models.fused_inference', 'lab.kernels', 'lab.timing',
+                 'lab.mosaic_lab'):
         assert f'openpifpaf_tpu_torch.{name}' in report['modules']
     assert report['loaded'] == []
 

@@ -78,6 +78,44 @@ def backbone_kernel_inputs(kernel, shape, *, k=5, dilation=1, act=False,
     return (x, weights), dict(k=k, dilation=dilation, leaky=leaky)
 
 
+def lab_arrays(kernel, h, w, c, *, k=5, seed=0):
+    """Seeded float32 numpy inputs of a Mosaic lab kernel whose output is
+    (h, w, c), by the lab's names (``tools/mosaic_lab.py``):
+    ``'lab_interleave'`` a, b; ``'lab_dw_valid'`` x (haloed), wt;
+    ``'lab_branch2'`` x2 with real data in its halo, 1x1 matrices scaled
+    by 1/sqrt(C) so that the outputs stay of order one, biases of both
+    signs."""
+    rng = np.random.RandomState(seed)
+    pad = k // 2
+
+    def randn(*shape, scale=1.0):
+        return (scale * rng.randn(*shape)).astype(np.float32)
+
+    if kernel == 'lab_interleave':
+        return dict(a=randn(h, w, c), b=randn(h, w, c))
+    x = randn(h + 2 * pad, w + 2 * pad, c)
+    if kernel == 'lab_dw_valid':
+        return dict(x=x, wt=randn(k, k, c, scale=0.2))
+    return dict(x2=x, w1=randn(c, c, scale=c ** -0.5), b1=randn(c, scale=0.3),
+                wd=randn(k, k, c, scale=0.2), bd=randn(c, scale=0.1),
+                w3=randn(c, c, scale=c ** -0.5), b3=randn(c, scale=0.3))
+
+
+def lab_kernel_inputs(kernel, h, w, c, *, k=5, dtype=torch.float32,
+                      device='cpu', seed=0):
+    """The positional arguments of a lab kernel's wrapper
+    (:mod:`openpifpaf_tpu_torch.lab.kernels`) on :func:`lab_arrays`."""
+    from openpifpaf_tpu_torch.lab.kernels import Branch2Weights, \
+        from_lab_arrays
+
+    t = from_lab_arrays(dtype, device,
+                        **lab_arrays(kernel, h, w, c, k=k, seed=seed))
+    if kernel == 'lab_branch2':
+        x2 = t.pop('x2')
+        return x2, Branch2Weights(**t)
+    return tuple(t.values())
+
+
 def jitter(cif, caf, seed):
     """Break the bit-equal confidence ties of raw encoder targets with a
     1% per-cell jitter (the tie-free regime of
