@@ -16,7 +16,10 @@ Phases, each of which raises on failure (non-zero exit):
    ``shuffle_cuda.fused_block`` and ``block_cuda.branch2_apply`` against
    their plain versions at the three stage shapes of shufflenetv2k16 for
    one 513x641 image, plus a dilated leaky case, in float32 and bfloat16
-   with TF32 off, with both times from CUDA events;
+   with TF32 off: each call's launch plan, the per-call times (CUDA
+   events), the kernel's device time alone and the library call's (cuDNN,
+   all its device ops) from ``torch.profiler``, and at stage 2 the
+   kernel's device time with a cold L2 (96 MB written between calls);
 5. golden decode: ``CifCaf.batch_decode`` on the fields of
    ``tests/golden/torch_decode_golden.npz`` (written with the JAX package)
    must give the stored JAX poses within the tie-free parity gate, go
@@ -255,29 +258,15 @@ def kernel_device_ms(calls, n, kernel='cifhr_kernel'):
     """Device time per launch of the kernel named ``kernel`` alone, for
     each of ``calls`` (a wrapper call also costs host time, which the
     CUDA-event loop of :func:`cuda_ms` sees when the kernel is short): one
-    profiler session per call, with one warm-up launch and ``n`` timed
-    ones. The profiler can miss the launches at the start of a session, so
-    the warm-up may go unrecorded; a call with fewer than ``n`` recorded
-    launches gets None."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    profiler session of ``n`` launches per call after warm-up launches
+    (``lab.timing.device_ms``); None where it recorded too few."""
+    from openpifpaf_tpu_torch.lab.timing import device_ms
 
     out = []
     for fn in calls:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n + 1):
-                fn()
-            torch.cuda.synchronize()
-        kernels = sorted((e for e in prof.events()
-                          if e.device_type == DeviceType.CUDA
-                          and kernel in e.name),
-                         key=lambda e: e.time_range.start)[-n:]
-        if len(kernels) < n:
-            log(f'profiler recorded {len(kernels)} of {n} {kernel} launches')
-            out.append(None)
-        else:
-            out.append(sum(e.time_range.elapsed_us() for e in kernels)
-                       / 1e3 / n)
+        out.append(device_ms(fn, n, kernel))
+        if out[-1] is None:
+            log(f'profiler recorded fewer than {n} {kernel} launches')
     return out
 
 
@@ -307,7 +296,8 @@ def phase_kernel(cifhr, cifhr_cuda, device, card):
 
     device_ms = kernel_device_ms(calls, 20)
     for ((n_fields, n_cells), (err, ms, plain_ms, bound_ms, bound_by)), \
-            alone in zip(results.items(), device_ms):
+            alone in zip(list(results.items()), device_ms):
+        results[(n_fields, n_cells)] += (alone,)
         alone = 'not measured' if alone is None else f'{alone:.4f} ms'
         log(f'kernel F={n_fields} K={n_cells} map={HR_SHAPE}: max_abs_err '
             f'{err} (atol {KERNEL_ATOL}), kernel {ms:.4f} ms per call '
@@ -414,9 +404,43 @@ def compare_and_time(name, case, call, plain, library, args, kw, dtype,
     return row
 
 
+def launch_plan(port, name, args, kw):
+    """The launch plan the wrapper of backbone kernel ``name`` takes for
+    ``args``, as text."""
+    x = args[0]
+    n, c, h, w = x.shape
+    if name == 'depthwise_conv':
+        p = port.dw_cuda.plan(n, h, w, c, k=args[1].shape[-1],
+                              dilation=kw['dilation'], dtype=x.dtype,
+                              align=port.dw_cuda.alignment(x))
+        return (f'vec {p.vec}, {p.nv} vectors x {p.groups} groups, tile '
+                f'{p.strips * port.dw_cuda.strip_rows(p.vec)}x{p.tw}, '
+                f'{p.threads} threads, {p.ctas} CTAs, {p.smem} shared bytes')
+    wt = args[1]
+    p = port.shuffle_cuda.plan(n, h, w, c // 2, k=kw['k'],
+                               dilation=kw['dilation'], dtype=x.dtype,
+                               align=port.dw_cuda.alignment(x, wt.w1, wt.w3))
+    resident = port.shuffle_cuda.resident_clusters(p, dtype=x.dtype,
+                                                   device=x.device)
+    return (f'tile {p.th}x{p.tw}, cluster {p.cluster} x {p.slice} channels, '
+            f'{p.ctas} CTAs ({resident} clusters resident at once), '
+            f'{p.smem} shared bytes, {p.vb}-byte copies')
+
+
+#: the backbone kernels' names in their sources
+BACKBONE_SYMBOLS = {'depthwise_conv': 'depthwise_kernel',
+                    'shuffle_block': 'shuffle_block_kernel',
+                    'shuffle_branch2': 'shuffle_block_kernel'}
+#: bytes written between calls for a cold-L2 time (the card's L2 is 50 MB)
+FLUSH_BYTES = 96 << 20
+
+
 def phase_backbone_kernels(port, device, card):
-    """Each backbone kernel against its plain version; returns
+    """Each backbone kernel against its plain version, with its launch
+    plan, its device time alone and the library call's (``torch.profiler``)
+    and, at stage 2, its device time with a cold L2; returns
     {name: [row of :func:`compare_and_time`, ...]}."""
+    from openpifpaf_tpu_torch.lab.timing import device_ms
     from torch_port_helpers import backbone_kernel_inputs
 
     kernels = {
@@ -431,10 +455,12 @@ def phase_backbone_kernels(port, device, card):
     # model), and a small dilated leaky case
     cases = [((1, 2 * cb, h, w), 5, 1, False) for cb, h, w in STAGES]
     cases.append(((2, 24, 13, 17), 5, 2, True))
+    flush_buffer = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
     results = {}
     with no_tf32():
         for name, (call, plain) in kernels.items():
             results[name] = []
+            symbol = BACKBONE_SYMBOLS[name]
             for dtype in (torch.float32, torch.bfloat16):
                 for i, (shape, k, dilation, leaky) in enumerate(cases):
                     if name == 'depthwise_conv' and i < len(STAGES):
@@ -451,10 +477,27 @@ def phase_backbone_kernels(port, device, card):
                         library = functools.partial(
                             F.conv2d, padding=(k - 1) // 2 * dilation,
                             dilation=dilation, groups=shape[1])
-                    results[name].append(compare_and_time(
+                    row = compare_and_time(
                         name, case, call, plain, library, args, kw, dtype,
-                        lambda ref: F32_ATOL, card))
+                        lambda ref: F32_ATOL, card)
+                    fn = functools.partial(call, *args, **kw)
+                    row['device_ms'] = device_ms(fn, 20, symbol)
+                    row['library_device_ms'] = None if library is None \
+                        else device_ms(functools.partial(library, *args), 20)
+                    row['cold_ms'] = device_ms(
+                        fn, 10, symbol, between=flush_buffer.zero_) \
+                        if i == 0 else None
+                    results[name].append(row)
+                    plan = launch_plan(port, name, args, kw)
+                    log(f'{name} {case}: plan {plan}; device time alone '
+                        f'{fmt_ms(row["device_ms"])}, cold L2 '
+                        f'{fmt_ms(row["cold_ms"])}, library device '
+                        f'{fmt_ms(row["library_device_ms"])} [{card}]')
     return results
+
+
+def fmt_ms(ms):
+    return 'not measured' if ms is None else f'{ms:.4f} ms'
 
 
 def make_requests():
@@ -725,6 +768,8 @@ def kernel_entry(name, source, replaces, launches, rows, row):
         'bound_ms': row['bound_ms'],
         'bound_by': row['bound_by'],
         'library_ms': row['library_ms'],
+        'device_ms': row['device_ms'],
+        'library_device_ms': row.get('library_device_ms'),
     }
 
 
@@ -754,7 +799,7 @@ def main():
 
     # no single PyTorch call computes the CifHr map
     cifhr_rows = [dict(err=r[0], ms=r[1], plain_ms=r[2], bound_ms=r[3],
-                       bound_by=r[4], library_ms=None)
+                       bound_by=r[4], library_ms=None, device_ms=r[5])
                   for r in kernel_results.values()]
     entries = [kernel_entry('cifhr_accumulate', 'cifhr.cu',
                             'openpifpaf_tpu/ops/cifhr_pallas.py:53',

@@ -6,13 +6,20 @@ beside this file, and is loaded with ``ctypes``. A library is keyed on the
 source's bytes and the flags, so an edited source or a changed flag builds
 anew and an unchanged one is reused. Nothing is compiled at import: the
 first call of a kernel's wrapper on a CUDA tensor builds its library.
+
+    python -m openpifpaf_tpu_torch._nvcc depthwise.cu shuffle_block.cu
+
+prints each kernel's registers and spills as ``ptxas -v`` reports them.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
+import sys
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -32,10 +39,11 @@ def _nvcc():
     return os.path.join(CUDA_HOME, 'bin', 'nvcc')
 
 
-def build(source):
-    """Compile ``csrc/<source>`` unless a library for this exact source and
-    these flags exists. Returns the library's path."""
-    path = os.path.join(CSRC, source)
+def build(source, csrc=CSRC):
+    """Compile ``<csrc>/<source>`` (by default the port's ``csrc/``) unless a
+    library for this exact source and these flags exists. Returns the
+    library's path."""
+    path = os.path.join(csrc, source)
     with open(path, 'rb') as f:
         digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
@@ -78,3 +86,52 @@ def launch(fn, device, *args):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'{fn.__name__} launch failed: CUDA error {err}')
+
+
+def ptxas_report(source):
+    """``(kernel, registers, spill stores, spill loads)`` of each kernel of
+    ``csrc/<source>``, from ``nvcc -Xptxas -v`` on a cubin with the
+    library's flags (the cubin goes to ``_build/``)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cubin = os.path.join(BUILD_DIR, f'{os.path.splitext(source)[0]}.cubin')
+    flags = [f for f in NVCC_FLAGS if f not in ('-shared', '-Xcompiler',
+                                                '-fPIC')]
+    done = subprocess.run(
+        [_nvcc(), *flags, '-cubin', '-Xptxas', '-v', '-o', cubin,
+         os.path.join(CSRC, source)], capture_output=True, text=True,
+        check=False)
+    if done.returncode != 0:
+        raise RuntimeError(f'nvcc failed on {source}:\n{done.stderr}')
+    rows, name, spills = [], None, (0, 0)
+    for line in (done.stdout + done.stderr).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and name:
+            rows.append((name, int(m.group(1))) + spills)
+            name, spills = None, (0, 0)
+    demangle = os.path.join(os.path.dirname(_nvcc()), 'cu++filt')
+    if os.path.exists(demangle):
+        names = subprocess.run(
+            [demangle], input='\n'.join(r[0] for r in rows),
+            capture_output=True, text=True, check=False).stdout.splitlines()
+        if len(names) == len(rows):
+            rows = [(n,) + r[1:] for n, r in zip(names, rows)]
+    return rows
+
+
+def main(sources):
+    with ThreadPoolExecutor(len(sources)) as pool:
+        for source, rows in zip(sources, pool.map(ptxas_report, sources)):
+            for name, regs, stores, loads in rows:
+                print(f'{source}: {name}: {regs} registers, spill stores '
+                      f'{stores} B, spill loads {loads} B')
+
+
+if __name__ == '__main__':
+    main(sys.argv[1:])

@@ -1,5 +1,7 @@
-"""Device time per call, by the slope of two chains of back-to-back calls
-(the CUDA counterpart of ``bench.py::time_op``)."""
+"""Device time per call: by the slope of two chains of back-to-back calls
+(the CUDA counterpart of ``bench.py::time_op``), and from
+``torch.profiler`` for the kernels alone."""
+
 
 import numpy as np
 import torch
@@ -36,3 +38,42 @@ def time_op(fn, n_lo=4, n_hi=16, repeats=5):
         t_hi = chain(n_hi)
         slopes.append((t_hi - t_lo) / (n_hi - n_lo))
     return max(float(np.median(slopes)), 1e-9)
+
+
+def device_ms(fn, n, kernel=None, between=None, warmup=3):
+    """Milliseconds of device time per call of ``fn`` (no arguments) from
+    ``torch.profiler``: ``warmup`` calls, then one session of ``n`` calls.
+    It counts the kernels whose name holds ``kernel`` (one per call), or
+    every device op of the calls when ``kernel`` is None. ``between``, when
+    given, runs before each call and its ops are not counted (it must
+    launch no kernel named ``kernel``; with ``kernel`` None it is not
+    allowed). The profiler can miss the first launches of a session: the
+    mean is over the last calls whose ops were recorded, None when that is
+    fewer than half of ``n``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise RuntimeError('device_ms times CUDA work and needs a CUDA '
+                           'device')
+    if kernel is None and between is not None:
+        raise ValueError('device_ms: between needs a kernel name')
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            if between is not None:
+                between()
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and (kernel is None or kernel in e.name)),
+                    key=lambda e: e.time_range.start)
+    per_call = 1 if kernel is not None else max(1, round(len(events) / n))
+    calls = min(n, len(events) // per_call)
+    if calls < max(1, n // 2):
+        return None
+    events = events[-calls * per_call:]
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / calls

@@ -10,7 +10,9 @@ computation as the fused block of :mod:`.shuffle_cuda` without the
 interleave, so it is that kernel's ``interleave=False`` mode: it reads x2
 at a channel offset of ``Cb`` of the whole input and writes branch2's
 (N, Cb, H, W) output; :func:`run_segment` interleaves in PyTorch, as the
-JAX package does in XLA.
+JAX package does in XLA. The design (a cluster of CTAs per output tile,
+channel slices per CTA, tensor-core products in bfloat16, the launch plan
+chosen per call) and what bounds it are those of :mod:`.shuffle_cuda`.
 
 :func:`branch2_apply` runs :func:`branch2_plain` for a tensor on the CPU;
 for a CUDA tensor it launches the kernel or raises.

@@ -4,17 +4,25 @@
 Replaces the Pallas TPU kernel ``openpifpaf_tpu/models/dw_pallas.py::
 _dw_kernel`` (driven by ``depthwise_conv``): a stride-1 'SAME' KxK
 depthwise convolution with dilation, plus bias, plus an optional ReLU or
-leaky ReLU. The kernel runs one thread per output element of the NHWC
-activation (a channels_last tensor), channels fastest, with bounds checks
-for the zero padding and the batch in the grid; it sums in float32 for
-float32 and bfloat16 storage alike (the TPU kernel sums in the storage
-type).
+leaky ReLU, on the NHWC activation (a channels_last tensor). It sums in
+float32 for float32 and bfloat16 storage alike (the TPU kernel sums in the
+storage type).
+
+On the H100 the function is bound by bytes (25 multiply-adds per element
+at K=5). The kernel stages a CTA's haloed tile of one channel group in
+shared memory with ``cp.async``, in vectors as wide as the pixel stride
+allows, keeps each thread's taps in registers and slides a window of input
+rows down a strip of 8 outputs, so that a staged value is loaded once per
+thread and serves up to K outputs. :func:`plan` picks the vector width,
+channel groups and tile per call so that the grid fills the card.
 
 :func:`depthwise_conv` runs :func:`depthwise_conv_plain` for a tensor on
 the CPU; for a CUDA tensor it launches the kernel or raises.
 """
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -26,8 +34,91 @@ from .basenetworks import activation
 LAUNCHES = 0
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
              + [ctypes.c_void_p])
+
+#: the kernel sizes the kernel is built for
+KERNEL_SIZES = (3, 5, 7)
+MAX_THREADS = 256
+#: channel vectors per CTA at most
+MAX_VECTORS = 32
+#: strips (one thread's work) a launch should have at least: 16 warps per
+#: SM of the H100, which the kernel needs to hide its loads' latency (at
+#: k16's stages 3 and 4, 2-channel vectors ran faster than wider ones)
+MIN_STRIPS = 132 * 16 * 32
+#: the H100's SMs, and the shared memory a CTA may use
+SMS = 132
+SMEM_LIMIT = 227 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Launch plan of the depthwise kernel."""
+    vec: int      # channels per vector load (1, 2, 4 or 8)
+    nv: int       # channel vectors per CTA
+    groups: int   # channel groups (grid y)
+    tw: int       # tile columns
+    strips: int   # strips of strip_rows(vec) rows per tile (= dilation)
+    threads: int  # nv * tw * strips
+    smem: int     # shared bytes of the haloed tile
+    ctas: int
+
+
+def strip_rows(vec):
+    """Output rows per thread (``strip_rows`` in csrc/depthwise.cu)."""
+    return 4 if vec == 8 else 8
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n, h, w, c, *, k, dilation, dtype, align=16) -> Plan:
+    """The launch plan for an (n, h, w, c) activation whose tensors are
+    aligned to ``align`` bytes: the widest vector (at most 16 bytes) that
+    divides C and the alignment and still leaves :data:`MIN_STRIPS`
+    threads' strips of work (the narrowest legal one where none does), and
+    one strip per dilation phase. Then the widest tile (16 columns first:
+    the halo's share of the staged tile falls with the width) and the
+    fewest channel groups (at most :data:`MAX_VECTORS` vectors, at least 4
+    unless C is narrower) that give two CTAs per SM; where none does, the
+    plan with the most CTAs."""
+    size = torch.finfo(dtype).bits // 8
+    legal = [v for v in (8, 4, 2, 1) if v * size <= 16 and c % v == 0
+             and align % (v * size) == 0]
+    vec = next((v for v in legal
+                if n * -(-h // strip_rows(v)) * w * (c // v) >= MIN_STRIPS),
+               legal[-1])
+    nvec = c // vec
+    halo = (k - 1) // 2 * dilation
+    strips = dilation
+    th = strips * strip_rows(vec)
+    rows = -(-h // th)
+    best = None
+    for tw in (16, 8, 4, 2, 1):
+        for nv in range(min(nvec, MAX_VECTORS), min(nvec, 4) - 1, -1):
+            groups = -(-nvec // nv)
+            smem = (th + 2 * halo) * (tw + 2 * halo) * nv * vec * size
+            if nv * tw * strips > MAX_THREADS or smem > SMEM_LIMIT:
+                continue
+            p = Plan(vec=vec, nv=nv, groups=groups, tw=tw, strips=strips,
+                     threads=nv * tw * strips, smem=smem,
+                     ctas=rows * -(-w // tw) * groups * n)
+            if p.ctas >= 2 * SMS:
+                return p
+            if best is None or p.ctas > best.ctas:
+                best = p
+    if best is None:
+        raise ValueError(f'depthwise kernel: no plan fits a CTA for '
+                         f'(N, H, W, C) = {(n, h, w, c)}, k={k}, '
+                         f'dilation={dilation}')
+    return best
+
+
+def alignment(*tensors):
+    """The largest power of two, at most 16, dividing every data pointer."""
+    align = 16
+    for t in tensors:
+        while t.data_ptr() % align:
+            align //= 2
+    return align
 
 
 def depthwise_conv_plain(x, kernel, bias, *, dilation=1, act=True,
@@ -57,9 +148,9 @@ def _check(x, kernel, bias):
                          f'{x.dtype}')
     c = x.shape[1]
     k = kernel.shape[-1]
-    if kernel.shape != (c, 1, k, k) or k % 2 == 0:
-        raise ValueError(f'kernel must be ({c}, 1, K, K) with K odd, got '
-                         f'{tuple(kernel.shape)}')
+    if kernel.shape != (c, 1, k, k) or k not in KERNEL_SIZES:
+        raise ValueError(f'kernel must be ({c}, 1, K, K) with K in '
+                         f'{KERNEL_SIZES}, got {tuple(kernel.shape)}')
     if bias.shape != (c,):
         raise ValueError(f'bias must be ({c},), got {tuple(bias.shape)}')
     if x.numel() >= 2 ** 31:
@@ -90,9 +181,13 @@ def depthwise_conv(x, kernel, bias, *, dilation=1, act=True, leaky=False):
     bias = bias.contiguous()
     out = torch.empty_like(x, memory_format=torch.channels_last)
     n, c, h, w = x.shape
+    k = kernel.shape[-1]
+    p = plan(n, h, w, c, k=k, dilation=dilation, dtype=x.dtype,
+             align=alignment(x, out))
     _nvcc.launch(_nvcc.function('depthwise.cu', 'depthwise_conv', _ARGTYPES),
                  x.device, DTYPES[x.dtype], x.data_ptr(), kernel.data_ptr(),
-                 bias.data_ptr(), out.data_ptr(), n, h, w, c,
-                 kernel.shape[-1], dilation, (2 if leaky else 1) if act else 0)
+                 bias.data_ptr(), out.data_ptr(), n, h, w, c, k, dilation,
+                 (2 if leaky else 1) if act else 0, p.vec, p.nv, p.groups,
+                 p.tw, p.strips, p.threads, p.smem)
     LAUNCHES += 1
     return out

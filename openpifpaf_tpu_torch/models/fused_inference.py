@@ -13,11 +13,14 @@ Engines over the fold:
   (the Predictor's ``'folded'``; the TPU layout workarounds ``'halves'``
   and ``'stencil'`` are aliases of it);
 - mode ``'dwpallas'``: every stride-1 depthwise conv through the CUDA
-  kernel of :mod:`.dw_cuda`, the rest on cuDNN;
+  kernel of :mod:`.dw_cuda` (byte-bound: shared-memory tiles in vectors
+  as wide as the pixel stride allows, each thread a strip of outputs with
+  its taps in registers);
 - :func:`build_pallas_forward`: every non-first stride-1 block through the
-  fused-block CUDA kernel of :mod:`.shuffle_cuda`;
+  fused-block CUDA kernel of :mod:`.shuffle_cuda` (y1 and z on chip; a
+  cluster of CTAs per tile splits the channels, tensor cores in bfloat16);
 - ``block_cuda.build_mosaic_forward``: the same blocks through the branch2
-  kernel, interleaved in PyTorch.
+  mode of that kernel, interleaved in PyTorch.
 The stem, the strided first-in-stage blocks and conv5 stay on cuDNN in
 every engine, as they stay on XLA convolutions in the JAX package.
 """

@@ -13,10 +13,23 @@ that the block reads its input once and writes its output once:
 
 The TPU kernel pads each channel half to 128 lanes in a halo-framed,
 flattened array and folds the interleave into one-hot scatter matmuls.
-Here the activation stays a plain channels_last ``(N, 2Cb, H, W)`` tensor,
-the split is a pointer offset of ``Cb``, and the interleave an output index
-map. The same source computes branch2 alone (``interleave=False``), which
+Here the activation stays a plain channels_last ``(N, 2Cb, H, W)`` tensor
+(padded to a multiple of 16 channels in shared memory only), the split is
+a pointer offset of ``Cb``, and the interleave an output index map. The
+same source computes branch2 alone (``interleave=False``), which
 :mod:`.block_cuda` wraps.
+
+On the H100 the block is bound by bytes in bfloat16 and by the two 1x1
+products in float32. A thread-block cluster of CTAs shares one output
+tile, each CTA a slice of the channels: the first 1x1's accumulators stay
+in registers while x2's haloed tile and W1 stream through shared memory
+with ``cp.async`` (x2 read once per CTA), the depthwise taps run on y1 in
+shared memory, each CTA writes its slice of z into every CTA of the
+cluster, and after a cluster barrier each computes its slice of the second
+1x1. In bfloat16 both products run on tensor cores (``mma.sync``), in
+float32 on CUDA cores as register-tiled outer products. :func:`plan`
+picks the tile and the cluster per call so that the grid fills the card;
+the kernel refuses a plan that does not fit.
 
 :func:`fused_block` runs :func:`fused_block_plain` for a tensor on the
 CPU; for a CUDA tensor it launches the kernel or raises.
@@ -24,21 +37,135 @@ CPU; for a CUDA tensor it launches the kernel or raises.
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from .. import _nvcc
 from .basenetworks import activation, channel_interleave2
-from .dw_cuda import DTYPES
+from .dw_cuda import DTYPES, alignment
 
 #: kernel launches made by :func:`fused_block` in this process
 LAUNCHES = 0
 
 #: the kernel's largest halo, (k - 1) // 2 * dilation
 MAX_HALO = 4
+#: the kernel sizes the kernel is built for
+KERNEL_SIZES = (3, 5, 7)
 _ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
-             + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+
+# the kernel's constants (csrc/shuffle_block.cu)
+WARPS = 8
+KS = 32          # input channels per staged K-slice
+MT1 = 9          # 16-pixel m-tiles of the haloed tile, at most
+MT2 = 4          # 16-pixel m-tiles of the output tile, at most
+NT = 3           # 8-channel n-tiles per warp, at most
+STRIP_ROWS = 8   # output rows per depthwise strip, at most
+MAX_SLICE = WARPS * NT * 8
+MAX_CLUSTER = 8
+#: clusters the H100 runs at once, by cluster size, at one CTA per SM (the
+#: kernel's registers allow no more): cudaOccupancyMaxActiveClusters on an
+#: NVIDIA H100 80GB HBM3 (shuffle_cuda.resident_clusters). The SMs of a
+#: cluster share a GPC, so 4 and 8 leave SMs idle.
+RESIDENT_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15}
+#: the H100's SMs and the shared memory a CTA (and an SM) may use
+SMS = 132
+SMEM_LIMIT = 227 * 1024
+#: a CTA's fixed cost (staging latency, barriers) in the plan's units of
+#: work (multiply-adds on CUDA cores)
+CTA_OVERHEAD = 50000
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Launch plan of the block kernel."""
+    th: int       # output tile rows
+    tw: int       # output tile columns
+    cluster: int  # CTAs per tile, each owning `slice` channels
+    slice: int
+    vb: int       # bytes per staged vector
+    smem: int     # shared bytes per CTA
+    ctas: int
+
+    @property
+    def cb_pad(self):
+        return self.cluster * self.slice
+
+
+def shared_bytes(th, tw, cluster, slice_, *, k, halo, size):
+    """Shared bytes of one CTA (``Layout`` in csrc/shuffle_block.cu)."""
+    pin = (th + 2 * halo) * (tw + 2 * halo)
+    m_pad = -(-pin // 16) * 16
+    tp_pad = -(-(th * tw) // 16) * 16
+    pe = 16 // size
+    ws = slice_ + pe
+    ring1 = 2 * (m_pad * (KS + pe) + KS * ws) * size
+    taps = (pin * (slice_ + 4) + (k * k + 1) * slice_) * 4
+    ring2 = (2 * KS + tp_pad) * ws * size  # W3's buffers, the tile's x1
+    a_bytes = -(-max(ring1, taps, ring2) // 16) * 16
+    z_bytes = -(-(tp_pad * (cluster * slice_ + pe) * size) // 16) * 16
+    return a_bytes + z_bytes + (m_pad + tp_pad) * 8
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n, h, w, cb, *, k, dilation, dtype, align=16) -> Plan:
+    """The launch plan for the block on an (n, h, w, 2 cb) activation whose
+    tensors are aligned to ``align`` bytes.
+
+    The channels are split over the smallest cluster of 1, 2, 4 or 8 CTAs
+    that gives each CTA at most :data:`MAX_SLICE` channels (``slice``, a
+    multiple of 16), so that the first 1x1's accumulators fit the
+    registers; the output tile keeps the haloed tile within :data:`MT1`
+    m-tiles and the output within :data:`MT2`. Of the plans that fit 227 KB, those with a CTA for each
+    SM come first; among them the least estimated time: one CTA's work
+    (the two 1x1s over the haloed and the output tile, both at 1/16 the
+    cost on tensor cores in bfloat16, the taps, the bytes it stages, a
+    fixed :data:`CTA_OVERHEAD`) times the waves of clusters
+    (:data:`RESIDENT_CLUSTERS` run at once)."""
+    size = torch.finfo(dtype).bits // 8
+    halo = (k - 1) // 2 * dilation
+    vb = next(v for v in (16, 8, 4, 2) if v >= size and (cb * size) % v == 0
+              and align % v == 0)
+    mma = 16 if dtype == torch.bfloat16 else 1
+    best, best_key = None, None
+    # the smallest cluster whose slice fits: a larger one only stages x2
+    # again in more CTAs and sends z to more of them
+    for cluster in sorted(RESIDENT_CLUSTERS):
+        slice_ = -(-(-(-cb // cluster)) // 16) * 16
+        if slice_ <= MAX_SLICE and cluster * slice_ - slice_ < cb:
+            break
+    else:
+        raise ValueError(f'block kernel: Cb={cb} does not split over '
+                         f'{MAX_CLUSTER} CTAs of {MAX_SLICE} channels')
+    cb_pad = cluster * slice_
+    for th in range(1, STRIP_ROWS * dilation + 1):
+        for tw in range(1, 65):
+            pin = (th + 2 * halo) * (tw + 2 * halo)
+            if -(-pin // 16) > MT1 or -(-(th * tw) // 16) > MT2:
+                continue
+            smem = shared_bytes(th, tw, cluster, slice_, k=k, halo=halo,
+                                size=size)
+            if smem > SMEM_LIMIT:
+                continue
+            ctas = -(-h // th) * -(-w // tw) * n * cluster
+            m_pad = -(-pin // 16) * 16
+            tp_pad = -(-(th * tw) // 16) * 16
+            work = (slice_ * (m_pad + tp_pad) * cb_pad / mma
+                    + th * tw * slice_ * k * k
+                    + (m_pad * cb_pad + 2 * cb_pad * slice_) * size / 4
+                    + CTA_OVERHEAD)
+            waves = -(-ctas // (cluster * RESIDENT_CLUSTERS[cluster]))
+            key = (ctas < SMS, waves * work)
+            if best_key is None or key < best_key:
+                best_key = key
+                best = Plan(th=th, tw=tw, cluster=cluster, slice=slice_,
+                            vb=vb, smem=smem, ctas=ctas)
+    if best is None:
+        raise ValueError(f'block kernel: no plan fits a CTA for Cb={cb}, '
+                         f'k={k}, dilation={dilation}, {dtype}')
+    return best
 
 
 @dataclasses.dataclass
@@ -117,18 +244,34 @@ def launch(x, weights, *, k, dilation, leaky, interleave):
                              f'{t.device}, wanted contiguous {shape} '
                              f'{x.dtype} on {x.device}')
     halo = (k - 1) // 2 * dilation
-    if k % 2 == 0 or not 1 <= halo <= MAX_HALO:
-        raise ValueError(f'block kernel takes odd k with (k - 1) // 2 * '
-                         f'dilation in 1..{MAX_HALO}, got k={k}, '
-                         f'dilation={dilation}')
+    if k not in KERNEL_SIZES or not 1 <= halo <= MAX_HALO:
+        raise ValueError(f'block kernel takes k in {KERNEL_SIZES} with '
+                         f'(k - 1) // 2 * dilation in 1..{MAX_HALO}, got '
+                         f'k={k}, dilation={dilation}')
     out = torch.empty((n, c2 if interleave else cb, h, w), dtype=x.dtype,
                       device=x.device, memory_format=torch.channels_last)
+    p = plan(n, h, w, cb, k=k, dilation=dilation, dtype=x.dtype,
+             align=alignment(x, weights.w1, weights.w3))
     _nvcc.launch(_nvcc.function('shuffle_block.cu', 'shuffle_block',
                                 _ARGTYPES),
                  x.device, DTYPES[x.dtype], int(interleave), x.data_ptr(),
                  *[t.data_ptr() for t in weights.tensors()], out.data_ptr(),
-                 n, h, w, cb, k, dilation, 2 if leaky else 1)
+                 n, h, w, cb, k, dilation, 2 if leaky else 1, p.th, p.tw,
+                 p.cluster, p.slice, p.vb, p.smem)
     return out
+
+
+def resident_clusters(p, *, dtype, device):
+    """How many clusters of plan ``p`` (at k=5) the card at ``device`` runs
+    at once, from ``cudaOccupancyMaxActiveClusters``: the CTAs of a wave."""
+    n = ctypes.c_int(0)
+    fn = _nvcc.function('shuffle_block.cu', 'shuffle_block_clusters',
+                        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
+    with torch.cuda.device(device):
+        err = fn(DTYPES[dtype], 5, p.cluster, p.smem, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f'cudaOccupancyMaxActiveClusters: CUDA error {err}')
+    return n.value
 
 
 def fused_block(x, weights, *, k, dilation=1, leaky=False):

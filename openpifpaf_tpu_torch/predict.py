@@ -31,6 +31,10 @@ def cli(args=None):
     parser.add_argument('--long-edge', default=None, type=int,
                         help='rescale the long side of the image')
     parser.add_argument('--batch-size', default=1, type=int)
+    parser.add_argument('--device', default='cuda',
+                        help='torch device of the forward and the decode; '
+                             '"cpu" runs on the CPU (the counterpart of '
+                             'JAX_PLATFORMS=cpu)')
     parser.add_argument('--bf16', default=False, action='store_true',
                         help='run the backbone in bfloat16; heads and '
                              'decode stay float32')
@@ -72,7 +76,7 @@ def out_name(arg, in_name, default_extension):
 
 def main(args=None):
     args = cli(args)
-    predictor = Predictor(checkpoint=args.checkpoint,
+    predictor = Predictor(checkpoint=args.checkpoint, device=args.device,
                           backbone_engine=args.backbone_engine,
                           bf16=args.bf16)
     predictor.batch_size = args.batch_size

@@ -74,7 +74,8 @@ class Predictor:
                  bf16=False):
         """Without ``model``: a ``shufflenetv2k16`` with ``head_metas``
         (default: the cocokp heads), randomly initialised from seed 0.
-        ``device`` defaults to the first CUDA device if there is one.
+        ``device`` defaults to the first CUDA device; without one it
+        raises, and the CPU is run only when asked for (``device='cpu'``).
 
         ``backbone_engine`` (:data:`BACKBONE_ENGINES`) picks the serving
         backbone: ``'flax'`` the module graph, ``'folded'`` (and its
@@ -99,7 +100,10 @@ class Predictor:
                 head_metas or cocokp_head_metas(),
                 generator=torch.Generator().manual_seed(0))
         if device is None:
-            device = 'cuda' if torch.cuda.is_available() else 'cpu'
+            if not torch.cuda.is_available():
+                raise RuntimeError("Predictor: no CUDA device found; pass "
+                                   "device='cpu' to run on the CPU")
+            device = 'cuda'
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.head_metas = model.head_metas

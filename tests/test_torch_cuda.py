@@ -125,6 +125,16 @@ def _check_backbone_kernel(name, shape, dtype, device, **kwargs):
     ((1, 24, 15, 13), 5, 2, True, True),       # dilation 2, leaky
     ((1, 32, 11, 9), 3, 1, True, False),       # k=3, ReLU
     ((1, 174, 129, 161), 5, 1, False, False),  # k16 stage 2, 513x641 input
+    ((1, 348, 65, 81), 5, 1, False, False),    # k16 stage 3
+    ((1, 696, 33, 41), 5, 1, False, False),    # k16 stage 4
+    # one for each vector width of the plan: odd C (1 channel), C = 174
+    # (2), C = 64 on a batch wide enough for 16-byte vectors (4 channels in
+    # float32, 8 in bfloat16)
+    ((1, 35, 11, 9), 5, 1, True, False),
+    ((1, 174, 13, 17), 5, 1, False, False),
+    ((8, 64, 64, 80), 5, 1, False, False),
+    ((1, 48, 19, 23), 5, 2, False, False),     # halo 4: strips by phase
+    ((1, 24, 30, 33), 7, 1, True, False),      # k=7
 ])
 def test_depthwise_kernel_matches_plain(cuda, shape, k, dilation, act, leaky,
                                         dtype):
@@ -140,6 +150,16 @@ def test_depthwise_kernel_matches_plain(cuda, shape, k, dilation, act, leaky,
     ((1, 16, 12, 10), 5, 1, True),     # leaky ReLU
     ((1, 12, 11, 9), 3, 1, False),     # k=3
     ((1, 348, 65, 81), 5, 1, False),   # k16 stage 3, 513x641 input
+    ((1, 1392, 33, 41), 5, 1, False),  # k16 stage 4: a cluster of 4
+    # plans: one CTA per 2x4 tile; clusters of 2, 4 and 8 CTAs of 112
+    # channels; odd Cb (2-byte copies in bfloat16); halo 4 (strips by
+    # dilation phase)
+    ((1, 48, 40, 50), 5, 1, False),
+    ((1, 400, 24, 30), 5, 1, False),
+    ((1, 800, 12, 14), 5, 1, False),
+    ((1, 1600, 9, 11), 5, 1, False),
+    ((1, 30, 9, 11), 5, 1, False),
+    ((1, 64, 30, 40), 5, 2, False),
 ])
 def test_block_kernels_match_plain(cuda, name, shape, k, dilation, leaky,
                                    dtype):

@@ -1,0 +1,130 @@
+"""Launch plans of the port's backbone kernels, computed in Python before
+any launch (``models/dw_cuda.py::plan``, ``models/shuffle_cuda.py::plan``).
+
+The kernels refuse a plan that does not cover the tensor or fit a CTA; these
+tests hold the plans on the CPU at the shapes the serving path gives them:
+k16's three stages for a 513x641 input, and the channel widths of every
+``shufflenetv2k*`` net option.
+"""
+
+import pytest
+import torch
+
+from openpifpaf_tpu_torch.models import dw_cuda, shuffle_cuda
+from openpifpaf_tpu_torch.models.factory import BASE_FACTORIES
+
+#: (Cb, H, W) of shufflenetv2k16's stages 2-4 for a 513x641 input
+K16_STAGES = ((174, 129, 161), (348, 65, 81), (696, 33, 41))
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _net_stages(name):
+    """(Cb, H, W) of a ShuffleNetV2K net option's stages 2-4 at 513x641."""
+    channels = BASE_FACTORIES[name]().stages_out_channels
+    return [(channels[i] // 2, h, w)
+            for i, (h, w) in zip((1, 2, 3), ((129, 161), (65, 81), (33, 41)))]
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('cb,h,w', K16_STAGES)
+def test_block_plan_fills_the_card_at_k16_stages(cb, h, w, dtype):
+    p = shuffle_cuda.plan(1, h, w, cb, k=5, dilation=1, dtype=dtype)
+    assert p.smem <= shuffle_cuda.SMEM_LIMIT
+    assert p.ctas >= shuffle_cuda.SMS
+    assert p.ctas == -(-h // p.th) * -(-w // p.tw) * p.cluster
+    assert p.slice % 16 == 0 and p.slice <= shuffle_cuda.MAX_SLICE
+    assert p.cb_pad - p.slice < cb <= p.cb_pad
+    assert p.smem == shuffle_cuda.shared_bytes(
+        p.th, p.tw, p.cluster, p.slice, k=5, halo=2,
+        size=torch.finfo(dtype).bits // 8)
+
+
+def test_block_plan_splits_stage4_over_a_cluster():
+    """At stage 4 (Cb = 696) one CTA cannot hold the channels' first-1x1
+    accumulators: they are split over a cluster, 16-padded to 704."""
+    for dtype in DTYPES:
+        p = shuffle_cuda.plan(1, 33, 41, 696, k=5, dilation=1, dtype=dtype)
+        assert 2 <= p.cluster <= 4 and p.cb_pad == 704
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('net', sorted(n for n in BASE_FACTORIES
+                                       if n.startswith('shufflenetv2k')))
+def test_block_plan_fits_every_net_width(net, dtype):
+    for cb, h, w in _net_stages(net):
+        p = shuffle_cuda.plan(1, h, w, cb, k=5, dilation=1, dtype=dtype)
+        assert p.smem <= shuffle_cuda.SMEM_LIMIT, (net, cb, p)
+        assert p.cb_pad >= cb and p.cluster <= shuffle_cuda.MAX_CLUSTER
+
+
+@pytest.mark.parametrize('cb,dtype,align,vb', [
+    (174, torch.bfloat16, 16, 4),  # rows of 348 bytes: 4-byte vectors
+    (174, torch.float32, 16, 8),
+    (348, torch.bfloat16, 16, 8),
+    (696, torch.bfloat16, 16, 16),
+    (15, torch.bfloat16, 16, 2),   # odd Cb: 2-byte copies
+    (696, torch.float32, 4, 4),    # a tensor aligned to 4 bytes only
+])
+def test_block_plan_vector_width(cb, dtype, align, vb):
+    assert shuffle_cuda.plan(1, 9, 11, cb, k=5, dilation=1, dtype=dtype,
+                             align=align).vb == vb
+
+
+@pytest.mark.parametrize('k,dilation', [(3, 1), (5, 1), (5, 2), (3, 4)])
+def test_block_plan_keeps_the_register_tiles(k, dilation):
+    """The haloed tile stays within the first 1x1's 9 m-tiles, the output
+    tile within the second's 4, a strip within 8 rows."""
+    halo = (k - 1) // 2 * dilation
+    for dtype in DTYPES:
+        p = shuffle_cuda.plan(2, 40, 50, 100, k=k, dilation=dilation,
+                              dtype=dtype)
+        assert (p.th + 2 * halo) * (p.tw + 2 * halo) <= 16 * shuffle_cuda.MT1
+        assert p.th * p.tw <= 16 * shuffle_cuda.MT2
+        assert -(-p.th // dilation) <= shuffle_cuda.STRIP_ROWS
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('c,h,w', [(cb, h, w) for cb, h, w in K16_STAGES])
+def test_depthwise_plan_at_k16_stages(c, h, w, dtype):
+    p = dw_cuda.plan(1, h, w, c, k=5, dilation=1, dtype=dtype)
+    # 2 channels divide every stage's pixel stride; wider vectors would
+    # leave fewer strips than the card needs
+    assert p.vec == 2
+    assert -(-h // dw_cuda.strip_rows(2)) * w * c // 2 >= dw_cuda.MIN_STRIPS
+    assert p.nv * p.groups * p.vec >= c > (p.groups - 1) * p.nv * p.vec
+    assert p.threads == p.nv * p.tw * p.strips <= dw_cuda.MAX_THREADS
+    assert p.smem <= dw_cuda.SMEM_LIMIT
+    assert p.ctas >= 2 * dw_cuda.SMS
+
+
+@pytest.mark.parametrize('c,dtype,align,vec', [
+    (174, torch.bfloat16, 16, 2),
+    (174, torch.float32, 16, 2),
+    (348, torch.bfloat16, 16, 4),
+    (348, torch.float32, 16, 4),
+    (696, torch.bfloat16, 16, 8),
+    (696, torch.float32, 16, 4),
+    (175, torch.float32, 16, 1),   # odd C
+    (696, torch.bfloat16, 4, 2),   # a tensor aligned to 4 bytes only
+])
+def test_depthwise_plan_vector_width(c, dtype, align, vec):
+    """The widest vector the pixel stride and the alignment allow, where
+    the batch gives enough strips; the narrowest legal one where not."""
+    assert dw_cuda.plan(16, 64, 80, c, k=5, dilation=1, dtype=dtype,
+                        align=align).vec == vec
+    assert dw_cuda.plan(1, 13, 17, c, k=5, dilation=1, dtype=dtype,
+                        align=align).vec == 1
+
+
+@pytest.mark.parametrize('dilation', [1, 2, 3])
+def test_depthwise_plan_strips_cover_dilation_phases(dilation):
+    p = dw_cuda.plan(1, 40, 50, 64, k=5, dilation=dilation,
+                     dtype=torch.float32)
+    assert p.strips % dilation == 0
+
+
+def test_alignment():
+    t = torch.zeros(16, dtype=torch.bfloat16)
+    assert dw_cuda.alignment(t) == 16
+    assert dw_cuda.alignment(t[1:]) == 2
+    assert dw_cuda.alignment(t, t[4:]) == 8

@@ -228,9 +228,9 @@ def test_predict_cli_passes_engine_and_bf16(monkeypatch):
 
     monkeypatch.setattr(predict, 'Predictor', Recorder)
     predict.main(['image.jpg', '--backbone-engine', 'pallas', '--bf16'])
-    predict.main(['image.jpg'])
-    assert [(s['backbone_engine'], s['bf16']) for s in seen] == [
-        ('pallas', True), ('auto', False)]
+    predict.main(['image.jpg', '--device', 'cpu'])
+    assert [(s['backbone_engine'], s['bf16'], s['device']) for s in seen] == [
+        ('pallas', True, 'cuda'), ('auto', False, 'cpu')]
     with pytest.raises(SystemExit):
         predict.cli(['image.jpg', '--backbone-engine', 'cudnn'])
 
@@ -248,8 +248,8 @@ def test_predict_cli_writes_json(tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS='1')
     done = subprocess.run(
         [sys.executable, '-m', 'openpifpaf_tpu_torch.predict', *names,
-         '--long-edge', '97', '--batch-size', '2', '--json-output',
-         str(tmp_path)],
+         '--long-edge', '97', '--batch-size', '2', '--device', 'cpu',
+         '--json-output', str(tmp_path)],
         cwd=str(tmp_path), env=env, capture_output=True, text=True,
         timeout=600, check=False)
     assert done.returncode == 0, done.stderr
@@ -261,6 +261,17 @@ def test_predict_cli_writes_json(tmp_path):
         for ann in predictions:
             assert len(ann['keypoints']) == 17 * 3
             assert set(ann) == {'keypoints', 'bbox', 'score', 'category_id'}
+
+
+def test_predictor_without_cuda_raises(monkeypatch):
+    """No silent CPU fallback: without a CUDA device the default device
+    raises, and the CPU runs only when asked for."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    model = Factory().from_scratch(
+        cocokp_head_metas(), base_net=basenetworks.ShuffleNetV2K(*NARROW))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Predictor(model=model)
+    assert Predictor(model=model, device='cpu').device.type == 'cpu'
 
 
 def test_checkpoint_is_not_yet_ported():
