@@ -7,8 +7,9 @@ Phases, each of which raises on failure (non-zero exit):
 1. device: a CUDA device is required; prints the card's name and power
    limit as nvidia-smi reports them;
 2. build: compiles the port's kernels (``openpifpaf_tpu_torch/csrc/*.cu``:
-   CifHr, depthwise conv, fused block, the Mosaic lab's three) from the
-   sources next to this script, one nvcc per source, all started together;
+   CifHr, depthwise conv with the lab's VALID mode, fused block with the
+   lab's branch2 mode, the lab's interleave) from the sources next to this
+   script, one nvcc per source, all started together;
 3. CifHr kernel vs plain: ``cifhr_cuda.accumulate`` against its plain
    PyTorch version on seeded random cells at the decode's shapes, atol
    1e-5, with both times from CUDA events;
@@ -40,13 +41,15 @@ Phases, each of which raises on failure (non-zero exit):
    backbone gives the module graph's features with 13 branch2 launches;
 9. forward profile: each engine's batch-1 NN time (CUDA events) and, from
    ``torch.profiler``, its device time, device ops and BatchNorm kernels;
-10. lab: the Mosaic lab's kernels (``lab.kernels.lane_interleave``,
-    ``dw_valid``, ``branch2``) against their plain versions at the lab's
-    three stage shapes in float32 and bfloat16 with TF32 off, with kernel,
-    plain and library times (CUDA events) and the kernel's device time
-    alone (``torch.profiler``); then the lab's entry point
-    ``lab.mosaic_lab.main(['interleave', 'dw', 'branch2'])`` runs once with
-    the launch counts read around it.
+10. lab: the Mosaic lab's kernels (``lab.kernels.lane_interleave``;
+    ``dw_valid`` and ``branch2``, the VALID and lab modes of the depthwise
+    and fused-block kernels) against their plain versions at the lab's
+    three stage shapes in float32 and bfloat16 with TF32 off: each call's
+    launch plan, kernel, plain and library times (CUDA events), the
+    kernel's device time alone and the library call's (``torch.profiler``);
+    then the lab's entry point ``lab.mosaic_lab.main(['interleave', 'dw',
+    'branch2'])`` runs once with every launch count read around it (a lab
+    run moves the lab's counters only).
 
 The second-to-last line is a JSON object describing the kernels (with each
 one's bound: the larger of its bytes over the card's memory rate and its
@@ -254,23 +257,8 @@ def cifhr_splat_pixels(x, y, sigma, w, hr_h, hr_w):
     return int(total)
 
 
-def kernel_device_ms(calls, n, kernel='cifhr_kernel'):
-    """Device time per launch of the kernel named ``kernel`` alone, for
-    each of ``calls`` (a wrapper call also costs host time, which the
-    CUDA-event loop of :func:`cuda_ms` sees when the kernel is short): one
-    profiler session of ``n`` launches per call after warm-up launches
-    (``lab.timing.device_ms``); None where it recorded too few."""
-    from openpifpaf_tpu_torch.lab.timing import device_ms
-
-    out = []
-    for fn in calls:
-        out.append(device_ms(fn, n, kernel))
-        if out[-1] is None:
-            log(f'profiler recorded fewer than {n} {kernel} launches')
-    return out
-
-
 def phase_kernel(cifhr, cifhr_cuda, device, card):
+    from openpifpaf_tpu_torch.lab.timing import device_ms
     from torch_port_helpers import random_cells
 
     kw = dict(hr_h=HR_SHAPE[0], hr_w=HR_SHAPE[1])
@@ -294,9 +282,11 @@ def phase_kernel(cifhr, cifhr_cuda, device, card):
         results[(n_fields, n_cells)] = (err, ms, plain_ms) + bound(
             cells, [kernel], ops, torch.float32)
 
-    device_ms = kernel_device_ms(calls, 20)
+    # the kernel alone (a wrapper call also costs host time, which the
+    # CUDA-event loop of cuda_ms sees when the kernel is short)
+    alone_ms = [device_ms(call, 20, 'cifhr_kernel') for call in calls]
     for ((n_fields, n_cells), (err, ms, plain_ms, bound_ms, bound_by)), \
-            alone in zip(list(results.items()), device_ms):
+            alone in zip(list(results.items()), alone_ms):
         results[(n_fields, n_cells)] += (alone,)
         alone = 'not measured' if alone is None else f'{alone:.4f} ms'
         log(f'kernel F={n_fields} K={n_cells} map={HR_SHAPE}: max_abs_err '
@@ -405,21 +395,35 @@ def compare_and_time(name, case, call, plain, library, args, kw, dtype,
 
 
 def launch_plan(port, name, args, kw):
-    """The launch plan the wrapper of backbone kernel ``name`` takes for
-    ``args``, as text."""
+    """The launch plan the wrapper of backbone or lab kernel ``name`` takes
+    for ``args``, as text."""
     x = args[0]
     n, c, h, w = x.shape
-    if name == 'depthwise_conv':
-        p = port.dw_cuda.plan(n, h, w, c, k=args[1].shape[-1],
-                              dilation=kw['dilation'], dtype=x.dtype,
-                              align=port.dw_cuda.alignment(x))
+    align = port.dw_cuda.alignment
+    if name == 'lab_interleave':
+        ctas = min(-(-x.numel() // 256), 1 << 20)
+        return f'{ctas} CTAs of 256 threads, one (a, b) pair per thread'
+    if name in ('depthwise_conv', 'lab_dw_valid'):
+        k = args[1].shape[-1]
+        valid = name == 'lab_dw_valid'
+        if valid:  # planned for the output's size
+            h, w = h - k + 1, w - k + 1
+        p = port.dw_cuda.plan(n, h, w, c, k=k,
+                              dilation=kw.get('dilation', 1), dtype=x.dtype,
+                              align=align(x), valid=valid)
         return (f'vec {p.vec}, {p.nv} vectors x {p.groups} groups, tile '
                 f'{p.strips * port.dw_cuda.strip_rows(p.vec)}x{p.tw}, '
                 f'{p.threads} threads, {p.ctas} CTAs, {p.smem} shared bytes')
     wt = args[1]
-    p = port.shuffle_cuda.plan(n, h, w, c // 2, k=kw['k'],
-                               dilation=kw['dilation'], dtype=x.dtype,
-                               align=port.dw_cuda.alignment(x, wt.w1, wt.w3))
+    if name == 'lab_branch2':
+        k = wt.wd.shape[-1]
+        p = port.lab_kernels.branch2_plan(
+            n, h - k + 1, w - k + 1, c, k=k, dtype=x.dtype,
+            align=align(x, wt.w1, wt.w3))
+    else:
+        p = port.shuffle_cuda.plan(n, h, w, c // 2, k=kw['k'],
+                                   dilation=kw['dilation'], dtype=x.dtype,
+                                   align=align(x, wt.w1, wt.w3))
     resident = port.shuffle_cuda.resident_clusters(p, dtype=x.dtype,
                                                    device=x.device)
     return (f'tile {p.th}x{p.tw}, cluster {p.cluster} x {p.slice} channels, '
@@ -687,9 +691,18 @@ def phase_profile(predictors, device, card):
             f'[{card}]')
 
 
+#: the lab kernels' sources and their kernels' names there
+LAB_SYMBOLS = {'lab_interleave': ('mosaic_lab.cu', 'interleave_kernel'),
+               'lab_dw_valid': ('depthwise.cu', 'depthwise_kernel'),
+               'lab_branch2': ('shuffle_block.cu', 'shuffle_block_kernel')}
+
+
 def phase_lab_kernels(port, device, card):
     """Each lab kernel against its plain version at the lab's three stage
-    shapes, float32 and bfloat16, TF32 off; returns {name: [row, ...]}."""
+    shapes, float32 and bfloat16, TF32 off, with its launch plan, its
+    device time alone and the library call's (``torch.profiler``); returns
+    {name: [row, ...]}."""
+    from openpifpaf_tpu_torch.lab.timing import device_ms
     from torch_port_helpers import lab_kernel_inputs
 
     lab = port.lab_kernels
@@ -701,33 +714,31 @@ def phase_lab_kernels(port, device, card):
                          lambda x, wt: F.conv2d(x, wt, groups=x.shape[1])),
         'lab_branch2': (lab.branch2, lab.branch2_plain, None),
     }
-    #: the kernels' names in csrc/mosaic_lab.cu
-    symbols = {'lab_interleave': 'interleave_kernel',
-               'lab_dw_valid': 'dw_valid_kernel',
-               'lab_branch2': 'branch2_kernel'}
     results = {}
     with no_tf32():
         for name, (call, plain, library) in kernels.items():
             results[name] = []
-            calls = []
+            symbol = LAB_SYMBOLS[name][1]
             for dtype in (torch.float32, torch.bfloat16):
                 for i, (stage, (h, w, c)) in enumerate(
                         port.mosaic_lab.STAGES.items()):
                     args = lab_kernel_inputs(name, h, w, c, dtype=dtype,
                                              device=device, seed=i)
-                    results[name].append(compare_and_time(
+                    row = compare_and_time(
                         name, f'{stage} {(h, w, c)} {str(dtype)[6:]}', call,
                         plain, library, args, {}, dtype,
                         lambda ref: LAB_F32_RTOL * float(ref.abs().max()),
-                        card))
-                    calls.append(functools.partial(call, *args))
-            # the kernel's own time, without the wrapper's host time
-            for row, alone in zip(results[name], kernel_device_ms(
-                    calls, 10, symbols[name])):
-                row['device_ms'] = alone
-                alone = 'not measured' if alone is None else f'{alone:.4f} ms'
-                log(f'{name} {row["case"]}: device time alone {alone} '
-                    f'[{card}]')
+                        card)
+                    # the kernel's own time, without the wrapper's host time
+                    row['device_ms'] = device_ms(
+                        functools.partial(call, *args), 10, symbol)
+                    row['library_device_ms'] = None if library is None \
+                        else device_ms(functools.partial(library, *args), 10)
+                    results[name].append(row)
+                    log(f'{name} {row["case"]}: plan '
+                        f'{launch_plan(port, name, args, {})}; device time '
+                        f'alone {fmt_ms(row["device_ms"])}, library device '
+                        f'{fmt_ms(row["library_device_ms"])} [{card}]')
     return results
 
 
@@ -821,7 +832,7 @@ def main():
         rows = lab_results[name]
         # times at the lab's first stage in bfloat16, as the lab runs
         row = rows[len(port.mosaic_lab.STAGES)]
-        entries.append(kernel_entry(name, 'mosaic_lab.cu',
+        entries.append(kernel_entry(name, LAB_SYMBOLS[name][0],
                                     f'tools/mosaic_lab.py:{line}',
                                     launches[name], rows, row))
     log(json.dumps({'kernels': entries}))

@@ -1,12 +1,19 @@
 // Stride-1 'SAME' KxK depthwise convolution + bias + optional ReLU or leaky
 // ReLU (slope 0.01) on NHWC activations, i.e. the memory of a channels_last
-// NCHW PyTorch tensor.
+// NCHW PyTorch tensor; or, in its VALID mode, the conv alone (no bias, no
+// activation) of an input whose halo is data: (H + K - 1, W + K - 1) pixels
+// in, (H, W) out.
 //
-// Replaces the Pallas TPU kernel
-// openpifpaf_tpu/models/dw_pallas.py::_dw_kernel (driven by
-// depthwise_conv). The TPU kernel zero-pads the activation to (8, 128)-
-// aligned row tiles, reads each tile's halo through a second block view and
-// loops over the images of a batch; none of that carries over.
+// Replaces two Pallas TPU kernels:
+// - openpifpaf_tpu/models/dw_pallas.py::_dw_kernel (driven by
+//   depthwise_conv), the 'SAME' mode. The TPU kernel zero-pads the
+//   activation to (8, 128)-aligned row tiles, reads each tile's halo through
+//   a second block view and loops over the images of a batch; none of that
+//   carries over.
+// - tools/mosaic_lab.py::dw_kernel, the VALID mode: the Mosaic lab's 5x5
+//   depthwise conv of a pre-haloed input. The staged tile's origin is the
+//   output tile's origin in the input, and nothing is zero-filled for the
+//   conv (a staged pixel that an output reads lies inside the input).
 //
 // What bounds it on the H100: bytes. At K=5 it does 25 multiply-adds per
 // element, far below the card's ratio of operations to HBM bytes, so its
@@ -16,8 +23,8 @@
 // instructions per output:
 // - A CTA owns one image's channel group (at most 32 channel vectors) and a
 //   spatial tile. It stages the tile's haloed input in shared memory with
-//   cp.async (zero-filled outside the image, which is the conv's padding),
-//   each copy as wide as one channel vector.
+//   cp.async (zero-filled outside the image, which is the 'SAME' conv's
+//   padding), each copy as wide as one channel vector.
 // - The vector width VEC is the widest that the pixel stride allows: 16
 //   bytes (float4, 8 bf16) where C * sizeof(T) is a multiple of 16, else 8,
 //   4 or one channel (odd C). k16's stage 2 (C = 174) gets 2 channels.
@@ -37,8 +44,8 @@
 //
 // Storage is float32 or bfloat16 (the weights and bias in the same type as
 // the activation); the sum is taken in float32 in both, tap by tap in
-// ascending (ky, kx) order by fused multiply-adds from zero, bias last, and
-// the output is rounded once.
+// ascending (ky, kx) order by fused multiply-adds from zero, bias last (none
+// in the VALID mode), and the output is rounded once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,7 +109,9 @@ struct Plan {
   size_t smem;
 };
 
-template <typename T, int VEC, int K>
+// VALID: the input is (height + 2 halo, width + 2 halo) pixels, its halo
+// data; no bias is read and no activation applied
+template <typename T, int VEC, int K, bool VALID>
 __global__ void __launch_bounds__(MAX_THREADS) depthwise_kernel(
     const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
     T* __restrict__ out, int height, int width, int channels, int dilation,
@@ -131,13 +140,27 @@ __global__ void __launch_bounds__(MAX_THREADS) depthwise_kernel(
     int row = pix / sw, col = pix % sw;
     const int col_step = step % sw, row_step = step / sw;
     for (; pix < n_pix; pix += step) {
-      const int gy = y0 - halo + row, gx = x0 - halo + col;
-      const bool inside = gy >= 0 && gy < height && gx >= 0 && gx < width &&
-                          vec0 + v < nvec;
-      const T* src = inside ? x + (image + (int64_t)gy * width + gx) *
-                                      channels + (int64_t)(vec0 + v) * VEC
-                            : x;
-      stage<sizeof(V)>(&tile[pix * nv + v], src, inside);
+      if constexpr (VALID) {
+        // the input is (height + 2 halo, width + 2 halo) pixels, and the
+        // tile starts at the output tile's origin in it
+        const int in_h = height + 2 * halo, in_w = width + 2 * halo;
+        const int gy = y0 + row, gx = x0 + col;
+        const bool inside = gy < in_h && gx < in_w && vec0 + v < nvec;
+        const T* src =
+            inside ? x + ((int64_t)blockIdx.z * in_h * in_w +
+                          (int64_t)gy * in_w + gx) * channels +
+                         (int64_t)(vec0 + v) * VEC
+                   : x;
+        stage<sizeof(V)>(&tile[pix * nv + v], src, inside);
+      } else {
+        const int gy = y0 - halo + row, gx = x0 - halo + col;
+        const bool inside = gy >= 0 && gy < height && gx >= 0 &&
+                            gx < width && vec0 + v < nvec;
+        const T* src = inside ? x + (image + (int64_t)gy * width + gx) *
+                                        channels + (int64_t)(vec0 + v) * VEC
+                              : x;
+        stage<sizeof(V)>(&tile[pix * nv + v], src, inside);
+      }
       col += col_step;
       row += row_step;
       if (col >= sw) {
@@ -166,8 +189,10 @@ __global__ void __launch_bounds__(MAX_THREADS) depthwise_kernel(
     for (int t = 0; t < K * K; ++t)
       wr[t][e] = w[(int64_t)(c + e) * K * K + t];
   float bias[VEC];
+  if constexpr (!VALID) {
 #pragma unroll
-  for (int e = 0; e < VEC; ++e) bias[e] = to_float(b[c + e]);
+    for (int e = 0; e < VEC; ++e) bias[e] = to_float(b[c + e]);
+  }
 
   // this strip's rows are d apart: tile rows rbase + r * d
   const int rbase = (q / d) * R * d + q % d;
@@ -208,18 +233,24 @@ __global__ void __launch_bounds__(MAX_THREADS) depthwise_kernel(
     if (oy >= height) continue;
     V o;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e)
-      o.v[e] = from_float<T>(activate(acc[r][e] + bias[e], act));
+    for (int e = 0; e < VEC; ++e) {
+      // no bias in the VALID mode, and act 0: through activate() all the
+      // same, or its float32 kernels take ~60% more registers
+      if constexpr (VALID)
+        o.v[e] = from_float<T>(activate(acc[r][e], act));
+      else
+        o.v[e] = from_float<T>(activate(acc[r][e] + bias[e], act));
+    }
     *reinterpret_cast<V*>(out + (image + (int64_t)oy * width + ox) *
                                     channels + c) = o;
   }
 }
 
-template <typename T, int VEC, int K>
+template <typename T, int VEC, int K, bool VALID>
 int launch_k(const Plan& p, const void* x, const void* w, const void* b,
              void* out, int batch, int height, int width, int channels,
              int dilation, int act, cudaStream_t stream) {
-  auto kernel = depthwise_kernel<T, VEC, K>;
+  auto kernel = depthwise_kernel<T, VEC, K, VALID>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return (int)err;
@@ -232,22 +263,25 @@ int launch_k(const Plan& p, const void* x, const void* w, const void* b,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool VALID>
 int by_k(const Plan& p, const void* x, const void* w, const void* b,
          void* out, int batch, int height, int width, int channels, int k,
          int dilation, int act, cudaStream_t s) {
   switch (k) {
-    case 3: return launch_k<T, VEC, 3>(p, x, w, b, out, batch, height, width,
-                                       channels, dilation, act, s);
-    case 5: return launch_k<T, VEC, 5>(p, x, w, b, out, batch, height, width,
-                                       channels, dilation, act, s);
-    case 7: return launch_k<T, VEC, 7>(p, x, w, b, out, batch, height, width,
-                                       channels, dilation, act, s);
+    case 3: return launch_k<T, VEC, 3, VALID>(p, x, w, b, out, batch, height,
+                                              width, channels, dilation, act,
+                                              s);
+    case 5: return launch_k<T, VEC, 5, VALID>(p, x, w, b, out, batch, height,
+                                              width, channels, dilation, act,
+                                              s);
+    case 7: return launch_k<T, VEC, 7, VALID>(p, x, w, b, out, batch, height,
+                                              width, channels, dilation, act,
+                                              s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
+template <typename T, bool VALID>
 int launch(const Plan& p, const void* x, const void* w, const void* b,
            void* out, int batch, int height, int width, int channels, int k,
            int dilation, int act, cudaStream_t s) {
@@ -264,47 +298,63 @@ int launch(const Plan& p, const void* x, const void* w, const void* b,
       tiles >= ((int64_t)1 << 31) || p.groups > 65535 || batch > 65535 ||
       p.smem != (size_t)(th + 2 * halo) * (p.tw + 2 * halo) * p.nv * p.vec *
                     sizeof(T) ||
-      p.smem > 227 * 1024)
+      p.smem > 227 * 1024 || (VALID && act != 0))
     return (int)cudaErrorInvalidValue;
   switch (p.vec) {
-    case 1: return by_k<T, 1>(p, x, w, b, out, batch, height, width,
-                              channels, k, dilation, act, s);
-    case 2: return by_k<T, 2>(p, x, w, b, out, batch, height, width,
-                              channels, k, dilation, act, s);
-    case 4: return by_k<T, 4>(p, x, w, b, out, batch, height, width,
-                              channels, k, dilation, act, s);
+    case 1: return by_k<T, 1, VALID>(p, x, w, b, out, batch, height, width,
+                                     channels, k, dilation, act, s);
+    case 2: return by_k<T, 2, VALID>(p, x, w, b, out, batch, height, width,
+                                     channels, k, dilation, act, s);
+    case 4: return by_k<T, 4, VALID>(p, x, w, b, out, batch, height, width,
+                                     channels, k, dilation, act, s);
     case 8:
       if constexpr (sizeof(T) == 2)
-        return by_k<T, 8>(p, x, w, b, out, batch, height, width, channels, k,
-                          dilation, act, s);
+        return by_k<T, 8, VALID>(p, x, w, b, out, batch, height, width,
+                                 channels, k, dilation, act, s);
       [[fallthrough]];
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+template <bool VALID>
+int by_dtype(int dtype, const Plan& p, const void* x, const void* w,
+             const void* b, void* out, int batch, int height, int width,
+             int channels, int k, int dilation, int act, cudaStream_t s) {
+  if (dtype == 0)
+    return launch<float, VALID>(p, x, w, b, out, batch, height, width,
+                                channels, k, dilation, act, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, VALID>(p, x, w, b, out, batch, height,
+                                        width, channels, k, dilation, act, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. x and out (batch, height, width, channels),
-// w (channels, k, k), b (channels,), all contiguous and of that type; k 3, 5
-// or 7. The plan (models/dw_cuda.py::plan): vec channels per vector (x and
-// out aligned to it), nv vectors per CTA in groups channel groups, tiles of
-// tw columns by strips * 8 rows (strips a multiple of dilation), threads =
-// nv * tw * strips, smem its shared bytes. A plan that does not cover the
-// tensor or fit a CTA is refused. Returns the CUDA error of the launch (0
-// on success).
-extern "C" int depthwise_conv(int dtype, const void* x, const void* w,
-                              const void* b, void* out, int batch, int height,
-                              int width, int channels, int k, int dilation,
-                              int act, int vec, int nv, int groups, int tw,
-                              int strips, int threads, int smem,
-                              void* stream) {
+// dtype: 0 float32, 1 bfloat16. valid 0 ('SAME'): x and out (batch, height,
+// width, channels), b (channels,); valid 1: x (batch, height + 2 halo,
+// width + 2 halo, channels) with halo = (k - 1) / 2 * dilation, out (batch,
+// height, width, channels), b unused (may be null) and act 0. w (channels,
+// k, k); every tensor contiguous and of the dtype; k 3, 5 or 7. The plan
+// (models/dw_cuda.py::plan, for the output's size): vec channels per vector
+// (x and out aligned to it), nv vectors per CTA in groups channel groups,
+// tiles of tw columns by strips * 8 rows (strips a multiple of dilation),
+// threads = nv * tw * strips, smem its shared bytes. A plan that does not
+// cover the tensor or fit a CTA is refused. Returns the CUDA error of the
+// launch (0 on success).
+extern "C" int depthwise_conv(int dtype, int valid, const void* x,
+                              const void* w, const void* b, void* out,
+                              int batch, int height, int width, int channels,
+                              int k, int dilation, int act, int vec, int nv,
+                              int groups, int tw, int strips, int threads,
+                              int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Plan p{vec, nv, groups, tw, strips, threads, (size_t)smem};
-  if (dtype == 0)
-    return launch<float>(p, x, w, b, out, batch, height, width, channels, k,
-                         dilation, act, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(p, x, w, b, out, batch, height, width,
-                                 channels, k, dilation, act, s);
+  if (valid == 0)
+    return by_dtype<false>(dtype, p, x, w, b, out, batch, height, width,
+                           channels, k, dilation, act, s);
+  if (valid == 1)
+    return by_dtype<true>(dtype, p, x, w, b, out, batch, height, width,
+                          channels, k, dilation, act, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,14 +8,20 @@
 //
 // on NHWC activations (the memory of a channels_last NCHW tensor).
 //
-// Replaces two Pallas TPU kernels:
-// - openpifpaf_tpu/models/shuffle_pallas.py::_block_kernel (INTERLEAVE=true):
-//   the whole block, with the interleave that the TPU kernel folds into
-//   one-hot scatter matmuls. Here it is an output index map, which copies
-//   x1 exactly whatever its sign.
-// - openpifpaf_tpu/models/block_pallas.py::_branch2_kernel
-//   (INTERLEAVE=false): branch2 only, written as (N, H, W, Cb); the caller
-//   interleaves.
+// Replaces three Pallas TPU kernels, one mode each:
+// - openpifpaf_tpu/models/shuffle_pallas.py::_block_kernel (BLOCK): the
+//   whole block, with the interleave that the TPU kernel folds into one-hot
+//   scatter matmuls. Here it is an output index map, which copies x1
+//   exactly whatever its sign.
+// - openpifpaf_tpu/models/block_pallas.py::_branch2_kernel (BRANCH2):
+//   branch2 only, written as (N, H, W, Cb); the caller interleaves.
+// - tools/mosaic_lab.py::branch2_kernel (LAB): the Mosaic lab's branch2,
+//   ReLU and dilation 1, on an x2 of its own whose halo is data: (N, H + 2
+//   halo, W + 2 halo, Cb) in, (N, H, W, Cb) out. The haloed tile's offsets
+//   are the input's own (nothing outside the image to zero), y1 is rounded
+//   to the storage type before the depthwise conv as in the TPU kernel,
+//   and b1, the taps and their bias and b3 are float32 in either storage
+//   type.
 // The TPU kernels pad the two channel halves to 128 lanes in HBM and move
 // rows with hand-made DMAs. Here the split is a pointer offset of Cb into
 // the block's input and the tensors in HBM are not padded: channels are
@@ -51,10 +57,11 @@
 //   in Python (models/shuffle_cuda.py::plan) so that the grid fills the
 //   card; the kernel checks the plan and refuses one that does not fit.
 //
-// Storage is float32 or bfloat16 (weights in the activation's type); every
-// sum is taken in float32, y1 stays float32 (zero outside the image, the
-// depthwise conv's padding), z is rounded to the storage type before the
-// second 1x1 and the output is rounded once.
+// Storage is float32 or bfloat16 (weights in the activation's type, but
+// for the LAB mode's float32 biases and taps); every sum is taken in
+// float32, y1 stays float32 (zero outside the image, the depthwise conv's
+// padding; rounded to the storage type in the LAB mode), z is rounded to the
+// storage type before the second 1x1 and the output is rounded once.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -78,6 +85,11 @@ constexpr int MAX_SLICE = WARPS * NT * 8;
 constexpr int MAX_CLUSTER = 8;
 constexpr int MAX_SMEM = 227 * 1024;
 
+// the kernel's modes (`mode` of the C entry)
+constexpr int BRANCH2 = 0;  // branch2 of x's second channel half
+constexpr int BLOCK = 1;    // the whole block, interleaved with x1
+constexpr int LAB = 2;      // the lab's branch2 of a pre-haloed x2
+
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -90,6 +102,12 @@ __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+
+// the value of v rounded to the storage type, as a float
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_float(from_float<T>(v));
 }
 
 // two and four consecutive elements
@@ -108,15 +126,16 @@ __device__ __forceinline__ float activate(float v, int act) {
   return fmaxf(v, 0.f);
 }
 
+// b1, wdw, bdw and b3 are of the storage type, float32 in the LAB mode
 struct BlockArgs {
-  const void* x;    // (N, H, W, 2 Cb)
+  const void* x;    // (N, H, W, 2 Cb); LAB: x2 (N, H + 2 halo, W + 2 halo, Cb)
   const void* w1;   // (Cb, Cb) [in, out]
   const void* b1;   // (Cb,)
   const void* wdw;  // (Cb, K, K)
   const void* bdw;  // (Cb,)
   const void* w3;   // (Cb, Cb) [in, out]
   const void* b3;   // (Cb,)
-  void* out;        // (N, H, W, 2 Cb) interleaved, or (N, H, W, Cb)
+  void* out;        // BLOCK (N, H, W, 2 Cb) interleaved, else (N, H, W, Cb)
   int height, width, cb, dilation, act;
   // the plan: output tile th x tw, CTAs per cluster, channels per CTA,
   // bytes per staged vector (a divisor of 16 that aligns every row)
@@ -374,25 +393,28 @@ __device__ __forceinline__ void warp_product(float (&acc)[MT][NT][4],
 
 // ---------------------------------------------------------------- kernel
 
-template <typename T, int K, bool INTERLEAVE>
+template <typename T, int K, int MODE>
 __global__ void __launch_bounds__(THREADS) shuffle_block_kernel(BlockArgs a) {
+  constexpr bool INTERLEAVE = MODE == BLOCK;
+  // the biases' and taps' type
+  using P = typename std::conditional<MODE == LAB, float, T>::type;
   cg::cluster_group cluster = cg::this_cluster();
   const Layout L(a, K, sizeof(T));
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* region_a = smem;
   T* zbuf = reinterpret_cast<T*>(smem + L.a_bytes);
-  // x2 offset of each haloed tile row and pixel of each output tile row in
-  // the image, -1 outside it
+  // x2 offset of each haloed tile row in x and pixel of each output tile
+  // row in the image, -1 outside the input and the output
   int64_t* x2_off = reinterpret_cast<int64_t*>(smem + L.a_bytes + L.z_bytes);
   int64_t* out_px = x2_off + L.m_tiles * 16;
 
   const T* __restrict__ x = static_cast<const T*>(a.x);
   const T* __restrict__ w1 = static_cast<const T*>(a.w1);
-  const T* __restrict__ b1 = static_cast<const T*>(a.b1);
-  const T* __restrict__ wdw = static_cast<const T*>(a.wdw);
-  const T* __restrict__ bdw = static_cast<const T*>(a.bdw);
+  const P* __restrict__ b1 = static_cast<const P*>(a.b1);
+  const P* __restrict__ wdw = static_cast<const P*>(a.wdw);
+  const P* __restrict__ bdw = static_cast<const P*>(a.bdw);
   const T* __restrict__ w3 = static_cast<const T*>(a.w3);
-  const T* __restrict__ b3 = static_cast<const T*>(a.b3);
+  const P* __restrict__ b3 = static_cast<const P*>(a.b3);
   T* __restrict__ out = static_cast<T*>(a.out);
 
   const int height = a.height, width = a.width, cb = a.cb, c2 = 2 * cb;
@@ -408,11 +430,25 @@ __global__ void __launch_bounds__(THREADS) shuffle_block_kernel(BlockArgs a) {
   const int g = lane >> 2, t = lane & 3;
   const int n_tiles = slice / 8;
 
-  for (int p = tid; p < L.m_tiles * 16; p += THREADS) {
-    const int gy = y0 - L.halo + p / L.pw, gx = x0 - L.halo + p % L.pw;
-    x2_off[p] = p < L.pin && gy >= 0 && gy < height && gx >= 0 && gx < width
-                    ? (image_pixel0 + (int64_t)gy * width + gx) * c2 + cb
-                    : -1;
+  if constexpr (MODE == LAB) {
+    // x2 is a tensor of its own, (height + 2 halo, width + 2 halo) pixels of
+    // cb channels, its halo data: the haloed tile starts at the output
+    // tile's origin and is outside x2 only beyond its far edges
+    const int in_h = height + 2 * L.halo, in_w = width + 2 * L.halo;
+    const int64_t in_pixel0 = (int64_t)blockIdx.y * in_h * in_w;
+    for (int p = tid; p < L.m_tiles * 16; p += THREADS) {
+      const int gy = y0 + p / L.pw, gx = x0 + p % L.pw;
+      x2_off[p] = p < L.pin && gy < in_h && gx < in_w
+                      ? (in_pixel0 + (int64_t)gy * in_w + gx) * cb
+                      : -1;
+    }
+  } else {
+    for (int p = tid; p < L.m_tiles * 16; p += THREADS) {
+      const int gy = y0 - L.halo + p / L.pw, gx = x0 - L.halo + p % L.pw;
+      x2_off[p] = p < L.pin && gy >= 0 && gy < height && gx >= 0 && gx < width
+                      ? (image_pixel0 + (int64_t)gy * width + gx) * c2 + cb
+                      : -1;
+    }
   }
   for (int p = tid; p < L.tp_tiles * 16; p += THREADS) {
     const int oy = y0 + p / a.tw, ox = x0 + p % a.tw;
@@ -473,7 +509,8 @@ __global__ void __launch_bounds__(THREADS) shuffle_block_kernel(BlockArgs a) {
   for (int c = tid; c < slice; c += THREADS)
     bt[c] = c0 + c < cb ? to_float(bdw[c0 + c]) : 0.f;
 
-  // ---- y1 = act(acc1 + b1), zero outside the image and beyond Cb
+  // ---- y1 = act(acc1 + b1), zero outside the image and beyond Cb; in the
+  // LAB mode rounded to the storage type
 #pragma unroll
   for (int mt = 0; mt < MT1; ++mt) {
     if (mt >= L.m_tiles) break;
@@ -496,6 +533,10 @@ __global__ void __launch_bounds__(THREADS) shuffle_block_kernel(BlockArgs a) {
         v.y = inside && c0 + c + 1 < cb
                   ? activate(acc1[mt][j][2 * h + 1] + bias1, act)
                   : 0.f;
+        if constexpr (MODE == LAB) {
+          v.x = round_to<T>(v.x);
+          v.y = round_to<T>(v.y);
+        }
         *reinterpret_cast<float2*>(y1 + p * L.ys + c) = v;
       }
     }
@@ -670,9 +711,9 @@ bool plan_fits(const BlockArgs& a, int k, int size, size_t smem) {
          L.bytes() == smem && smem <= (size_t)MAX_SMEM;
 }
 
-template <typename T, int K, bool INTERLEAVE>
+template <typename T, int K, int MODE>
 int launch(const BlockArgs& a, int batch, size_t smem, cudaStream_t stream) {
-  auto kernel = shuffle_block_kernel<T, K, INTERLEAVE>;
+  auto kernel = shuffle_block_kernel<T, K, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -696,9 +737,9 @@ int launch(const BlockArgs& a, int batch, size_t smem, cudaStream_t stream) {
 }
 
 // clusters of the plan's size and shared memory that the card holds at once
-template <typename T, int K, bool INTERLEAVE>
+template <typename T, int K, int MODE>
 int max_clusters(const BlockArgs& a, size_t smem, int* clusters) {
-  auto kernel = shuffle_block_kernel<T, K, INTERLEAVE>;
+  auto kernel = shuffle_block_kernel<T, K, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -716,35 +757,43 @@ int max_clusters(const BlockArgs& a, size_t smem, int* clusters) {
   return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
 
-template <typename T, bool INTERLEAVE>
+template <typename T, int MODE>
 int by_k(const BlockArgs& a, int k, int batch, size_t smem, cudaStream_t s) {
   switch (k) {
-    case 3: return launch<T, 3, INTERLEAVE>(a, batch, smem, s);
-    case 5: return launch<T, 5, INTERLEAVE>(a, batch, smem, s);
-    case 7: return launch<T, 7, INTERLEAVE>(a, batch, smem, s);
+    case 3: return launch<T, 3, MODE>(a, batch, smem, s);
+    case 5: return launch<T, 5, MODE>(a, batch, smem, s);
+    case 7: return launch<T, 7, MODE>(a, batch, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-int by_mode(const BlockArgs& a, int interleave, int k, int batch, size_t smem,
+int by_mode(const BlockArgs& a, int mode, int k, int batch, size_t smem,
             cudaStream_t s) {
   if (!plan_fits(a, k, sizeof(T), smem)) return (int)cudaErrorInvalidValue;
-  return interleave ? by_k<T, true>(a, k, batch, smem, s)
-                    : by_k<T, false>(a, k, batch, smem, s);
+  switch (mode) {
+    case BRANCH2: return by_k<T, BRANCH2>(a, k, batch, smem, s);
+    case BLOCK: return by_k<T, BLOCK>(a, k, batch, smem, s);
+    case LAB:
+      if (a.dilation != 1 || a.act != 1) return (int)cudaErrorInvalidValue;
+      return by_k<T, LAB>(a, k, batch, smem, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16; interleave: 1 writes the whole block's
-// (N, H, W, 2 Cb) output, 0 branch2's (N, H, W, Cb); k 3, 5 or 7; act: 1
-// ReLU, 2 leaky. The plan (models/shuffle_cuda.py::plan): output tiles of
-// th x tw pixels, clusters of `cluster` CTAs of `slice` channels each, x2
-// and the weight rows staged in vectors of vb bytes, two K-slices at a
-// time, smem shared bytes per CTA; a plan that does not cover the block or
-// fit a CTA is refused.
+// dtype: 0 float32, 1 bfloat16; mode: 1 (BLOCK) writes the whole block's
+// (N, H, W, 2 Cb) output, 0 (BRANCH2) branch2's (N, H, W, Cb), 2 (LAB) the
+// lab's branch2 (N, H, W, Cb) of x2 = x (N, H + 2 halo, W + 2 halo, Cb) with
+// float32 b1, wdw, bdw and b3, act 1 and dilation 1; height and width are
+// the output's; k 3, 5 or 7; act: 1 ReLU, 2 leaky. The plan
+// (models/shuffle_cuda.py::plan): output tiles of th x tw pixels, clusters
+// of `cluster` CTAs of `slice` channels each, x2 and the weight rows staged
+// in vectors of vb bytes, two K-slices at a time, smem shared bytes per
+// CTA; a plan that does not cover the block or fit a CTA is refused.
 // Returns the CUDA error of the launch (0 on success).
-extern "C" int shuffle_block(int dtype, int interleave, const void* x,
+extern "C" int shuffle_block(int dtype, int mode, const void* x,
                              const void* w1, const void* b1, const void* wdw,
                              const void* bdw, const void* w3, const void* b3,
                              void* out, int batch, int height, int width,
@@ -758,9 +807,9 @@ extern "C" int shuffle_block(int dtype, int interleave, const void* x,
                     tw,  cluster, slice, vb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return by_mode<float>(a, interleave, k, batch, (size_t)smem, s);
+    return by_mode<float>(a, mode, k, batch, (size_t)smem, s);
   if (dtype == 1)
-    return by_mode<__nv_bfloat16>(a, interleave, k, batch, (size_t)smem, s);
+    return by_mode<__nv_bfloat16>(a, mode, k, batch, (size_t)smem, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -772,8 +821,8 @@ extern "C" int shuffle_block_clusters(int dtype, int k, int cluster,
   BlockArgs a{};
   a.cluster = cluster;
   if (dtype == 0 && k == 5)
-    return max_clusters<float, 5, true>(a, (size_t)smem, clusters);
+    return max_clusters<float, 5, BLOCK>(a, (size_t)smem, clusters);
   if (dtype == 1 && k == 5)
-    return max_clusters<__nv_bfloat16, 5, true>(a, (size_t)smem, clusters);
+    return max_clusters<__nv_bfloat16, 5, BLOCK>(a, (size_t)smem, clusters);
   return (int)cudaErrorInvalidValue;
 }

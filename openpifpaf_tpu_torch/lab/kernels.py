@@ -1,15 +1,19 @@
-"""The lab's kernels: wrappers of ``csrc/mosaic_lab.cu``.
+"""The lab's kernels: wrappers of hand-written CUDA kernels.
 
 Replace the Pallas TPU kernels of ``tools/mosaic_lab.py``:
 
 - :func:`lane_interleave` (``interleave_kernel``): ``out[..., 2i] =
-  a[..., i]``, ``out[..., 2i + 1] = b[..., i]``;
+  a[..., i]``, ``out[..., 2i + 1] = b[..., i]``; ``csrc/mosaic_lab.cu``;
 - :func:`dw_valid` (``dw_kernel``): VALID KxK depthwise conv of a
   pre-haloed input, no bias, no activation, summed in float32 and rounded
-  once (the TPU kernel sums in the storage type);
+  once (the TPU kernel sums in the storage type); the VALID mode of the
+  backbone's depthwise kernel, ``csrc/depthwise.cu``
+  (:func:`..models.dw_cuda.launch`, planned by ``dw_cuda.plan``);
 - :func:`branch2` (``branch2_kernel``): ``relu(z . W3 + b3)`` with ``z =
   dw(relu(x2 . W1 + b1)) + bd`` on an input whose halo is real data; y1
-  and z are rounded to the storage type, as in the TPU kernel.
+  and z are rounded to the storage type, as in the TPU kernel; the lab
+  mode of the fused-block kernel, ``csrc/shuffle_block.cu``
+  (:func:`..models.shuffle_cuda.call`, planned by ``shuffle_cuda.plan``).
 
 Activations are channels_last ``(N, C, H, W)`` tensors (the lab's HWC
 arrays with N = 1); 1x1 matrices are ``[in, out]``, depthwise weights
@@ -27,28 +31,14 @@ import torch
 import torch.nn.functional as F
 
 from .. import _nvcc
-from ..models.dw_cuda import DTYPES
+from ..models import dw_cuda, shuffle_cuda
+from ..models.dw_cuda import DTYPES, alignment
 
-SOURCE = 'mosaic_lab.cu'
-#: kernel launches made by each wrapper in this process
+#: kernel launches made by each wrapper in this process (the backbone
+#: wrappers' counters do not move)
 LAUNCHES = {'lab_interleave': 0, 'lab_dw_valid': 0, 'lab_branch2': 0}
-#: the branch2 kernel's tile columns, and the shared-memory constants of
-#: ``branch2_shared_bytes`` in ``csrc/mosaic_lab.cu``
-TILE_W = 8
-_PG, _XS, _CI, _CC, _YS = 128, 33, 32, 64, 65
-#: dynamic shared memory one CTA may use on the H100
-MAX_SHARED_BYTES = 232448
-#: the TPU kernel's default tile rows are 16; the CUDA kernel's are 4
-DEFAULT_R_TILE = 4
-
-_ARGTYPES = {
-    'lab_interleave': [ctypes.c_int] + [ctypes.c_void_p] * 3
-    + [ctypes.c_int] * 2 + [ctypes.c_void_p],
-    'lab_dw_valid': [ctypes.c_int] + [ctypes.c_void_p] * 3
-    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-    'lab_branch2': [ctypes.c_int] + [ctypes.c_void_p] * 8
-    + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-}
+_INTERLEAVE_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 #: lab array name -> its layout; the names of ``tools/mosaic_lab.py``
 LAB_LAYOUTS = {'a': 'hwc', 'b': 'hwc', 'x': 'hwc', 'x2': 'hwc',
@@ -94,11 +84,12 @@ def from_lab_arrays(dtype, device='cpu', **arrays):
     return out
 
 
-def branch2_shared_bytes(c, k, r_tile):
-    """Dynamic shared memory of one CTA of the branch2 kernel, in bytes."""
-    halo = k // 2
-    pin = (r_tile + 2 * halo) * (TILE_W + 2 * halo)
-    return 4 * (_PG * _XS + _CI * _CC + pin * _YS + r_tile * TILE_W * c)
+def branch2_plan(n, h, w, c, *, k=5, dtype, align=16, r_tile=None):
+    """The launch plan of :func:`branch2` for an (n, h, w, c) output: the
+    fused-block kernel's (``shuffle_cuda.plan``), with ``r_tile`` tile rows
+    or the plan's choice; raises ValueError where none fits a CTA."""
+    return shuffle_cuda.plan(n, h, w, c, k=k, dilation=1, dtype=dtype,
+                             align=align, th=r_tile)
 
 
 # ---------------------------------------------------------------- plain
@@ -166,12 +157,6 @@ def _route(what, x):
     return True
 
 
-def _launch(symbol, device, *args):
-    _nvcc.launch(_nvcc.function(SOURCE, symbol, _ARGTYPES[symbol]), device,
-                 *args)
-    LAUNCHES[symbol] += 1
-
-
 def lane_interleave(a, b):
     """(N, C, H, W) channels_last a and b, float32 or bfloat16 ->
     (N, 2C, H, W) channels_last with channel 2i from a and 2i + 1 from b."""
@@ -186,8 +171,11 @@ def lane_interleave(a, b):
                          f'got {tuple(a.shape)}')
     out = torch.empty((n, 2 * c, h, w), dtype=a.dtype, device=a.device,
                       memory_format=torch.channels_last)
-    _launch('lab_interleave', a.device, DTYPES[a.dtype], a.data_ptr(),
-            b.data_ptr(), out.data_ptr(), n * h * w, c)
+    _nvcc.launch(_nvcc.function('mosaic_lab.cu', 'lab_interleave',
+                                _INTERLEAVE_ARGTYPES),
+                 a.device, DTYPES[a.dtype], a.data_ptr(), b.data_ptr(),
+                 out.data_ptr(), n * h * w, c)
+    LAUNCHES['lab_interleave'] += 1
     return out
 
 
@@ -202,25 +190,25 @@ def dw_valid(x, weight):
     k = weight.shape[-1]
     _check_tensor('dw_valid', 'weight', weight, (c, 1, k, k), x.dtype,
                   x.device)
+    if k not in dw_cuda.KERNEL_SIZES:
+        raise ValueError(f'dw_valid takes K in {dw_cuda.KERNEL_SIZES}, got '
+                         f'{k}')
     if hin < k or win < k:
         raise ValueError(f'dw_valid: input {hin}x{win} smaller than K={k}')
     if x.numel() >= 2 ** 31:
         raise ValueError(f'dw_valid takes fewer than 2^31 elements, got '
                          f'{tuple(x.shape)}')
-    h, w = hin - k + 1, win - k + 1
-    out = torch.empty((n, c, h, w), dtype=x.dtype, device=x.device,
-                      memory_format=torch.channels_last)
-    _launch('lab_dw_valid', x.device, DTYPES[x.dtype], x.data_ptr(),
-            weight.data_ptr(), out.data_ptr(), n, h, w, c, k)
+    out = dw_cuda.launch(x, weight, None)
+    LAUNCHES['lab_dw_valid'] += 1
     return out
 
 
-def branch2(x2, weights, *, r_tile=DEFAULT_R_TILE):
+def branch2(x2, weights, *, r_tile=None):
     """The lab's branch2 on x2: (N, C, H + 2h, W + 2h) channels_last,
     float32 or bfloat16, its halo real data; ``weights`` a
-    :class:`Branch2Weights` with odd K. ``r_tile`` is the kernel's tile
-    rows (a multiple of 4), unused by the plain version. Returns
-    (N, C, H, W) channels_last."""
+    :class:`Branch2Weights` with K 3, 5 or 7. ``r_tile`` is the kernel's
+    tile rows (None: the plan's choice; see :func:`branch2_plan`), unused
+    by the plain version. Returns (N, C, H, W) channels_last."""
     if not _route('branch2', x2):
         return branch2_plain(x2, weights)
     _check_activation('branch2', x2)
@@ -233,21 +221,18 @@ def branch2(x2, weights, *, r_tile=DEFAULT_R_TILE):
     for name, (shape, dtype) in want.items():
         _check_tensor('branch2', name, getattr(weights, name), shape, dtype,
                       x2.device)
-    if k % 2 == 0 or hin <= 2 * halo or win <= 2 * halo:
-        raise ValueError(f'branch2: odd K and an input larger than its '
-                         f'halo, got K={k} and {hin}x{win}')
-    if r_tile <= 0 or r_tile % 4:
-        raise ValueError(f'branch2: r_tile must be a positive multiple of '
-                         f'4, got {r_tile}')
-    need = branch2_shared_bytes(c, k, r_tile)
-    if need > MAX_SHARED_BYTES:
-        raise ValueError(f'branch2: r_tile={r_tile} at C={c} needs {need} '
-                         f'bytes of shared memory, more than '
-                         f'{MAX_SHARED_BYTES}')
+    if k not in shuffle_cuda.KERNEL_SIZES or hin <= 2 * halo \
+            or win <= 2 * halo:
+        raise ValueError(f'branch2: K in {shuffle_cuda.KERNEL_SIZES} and an '
+                         f'input larger than its halo, got K={k} and '
+                         f'{hin}x{win}')
     h, w = hin - 2 * halo, win - 2 * halo
+    p = branch2_plan(n, h, w, c, k=k, dtype=x2.dtype,
+                     align=alignment(x2, weights.w1, weights.w3),
+                     r_tile=r_tile)
     out = torch.empty((n, c, h, w), dtype=x2.dtype, device=x2.device,
                       memory_format=torch.channels_last)
-    _launch('lab_branch2', x2.device, DTYPES[x2.dtype], x2.data_ptr(),
-            *[t.data_ptr() for t in weights.tensors()], out.data_ptr(),
-            n, h, w, c, k, r_tile)
+    shuffle_cuda.call(shuffle_cuda.LAB, x2, weights, out, k=k, dilation=1,
+                      act=1, p=p)
+    LAUNCHES['lab_branch2'] += 1
     return out

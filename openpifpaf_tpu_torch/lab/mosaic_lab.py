@@ -3,13 +3,16 @@ k16's stage geometries (the port of ``tools/mosaic_lab.py``):
 
   interleave  : lane interleave (channel_shuffle's core), CUDA kernel vs
                 ``torch.stack``
-  dw          : VALID 5x5 depthwise, CUDA kernel vs cuDNN's grouped conv
-  branch2     : the repeat block's branch2 (1x1, dw 5x5, 1x1), CUDA kernel
-                vs its plain version (cuDNN's three convs), with useful
-                TFLOP/s and the relative difference between the two
+  dw          : VALID 5x5 depthwise (the depthwise kernel's VALID mode) vs
+                cuDNN's grouped conv
+  branch2     : the repeat block's branch2 (1x1, dw 5x5, 1x1; the fused
+                block kernel's lab mode) vs its plain version (cuDNN's
+                three convs), with useful TFLOP/s and the relative
+                difference between the two
   branch2_xla : the plain version alone
   rtile       : the branch2 kernel at tile rows 8, 16, 24, 32 and 40; a
-                value whose shared memory does not fit is reported, not run
+                height for which no launch plan fits (the kernel's strips
+                hold at most 8 rows) is reported, not run
 
 Usage (needs a CUDA device; the default names are ``dw branch2``):
 
@@ -94,8 +97,10 @@ def _useful_tflops(h, w, c, seconds):
 
 
 def bench_branch2(name, h, w, c, *, card, device, k=5, dtype=torch.bfloat16,
-                  r_tile=kernels.DEFAULT_R_TILE):
+                  r_tile=None):
     x2, weights = branch2_inputs(h, w, c, device=device, k=k, dtype=dtype)
+    r_tile = kernels.branch2_plan(1, h, w, c, k=k, dtype=dtype,
+                                  r_tile=r_tile).th
     out = kernels.branch2(x2, weights, r_tile=r_tile).float()
     expect = kernels.branch2_plain(x2, weights).float()
     rel = float((out - expect).abs().max()) / max(
@@ -121,15 +126,15 @@ def bench_branch2_xla(name, h, w, c, *, card, device, k=5,
     return t
 
 
-def bench_rtile(name, h, w, c, *, card, device, k=5):
+def bench_rtile(name, h, w, c, *, card, device, k=5, dtype=torch.bfloat16):
     results = []
     for rt in RTILES:
         if rt > h:
             continue
-        need = kernels.branch2_shared_bytes(c, k, rt)
-        if need > kernels.MAX_SHARED_BYTES:
-            _line(f'{name} rtile {rt}: does not fit, {need} bytes of shared '
-                  f'memory > {kernels.MAX_SHARED_BYTES}', card)
+        try:
+            kernels.branch2_plan(1, h, w, c, k=k, dtype=dtype, r_tile=rt)
+        except ValueError as e:
+            _line(f'{name} rtile {rt}: does not fit, {e}', card)
             continue
         results.append(bench_branch2(name, h, w, c, card=card, device=device,
                                      k=k, r_tile=rt))

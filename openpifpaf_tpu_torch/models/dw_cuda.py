@@ -6,7 +6,9 @@ _dw_kernel`` (driven by ``depthwise_conv``): a stride-1 'SAME' KxK
 depthwise convolution with dilation, plus bias, plus an optional ReLU or
 leaky ReLU, on the NHWC activation (a channels_last tensor). It sums in
 float32 for float32 and bfloat16 storage alike (the TPU kernel sums in the
-storage type).
+storage type). The same kernel has a VALID mode, the conv alone of an
+input whose halo is data, which the Mosaic lab's ``dw_valid``
+(:mod:`..lab.kernels`) launches through :func:`launch`.
 
 On the H100 the function is bound by bytes (25 multiply-adds per element
 at K=5). The kernel stages a CTA's haloed tile of one channel group in
@@ -34,8 +36,8 @@ from .basenetworks import activation
 LAUNCHES = 0
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
-             + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+             + [ctypes.c_int] * 14 + [ctypes.c_void_p])
 
 #: the kernel sizes the kernel is built for
 KERNEL_SIZES = (3, 5, 7)
@@ -49,6 +51,11 @@ MIN_STRIPS = 132 * 16 * 32
 #: the H100's SMs, and the shared memory a CTA may use
 SMS = 132
 SMEM_LIMIT = 227 * 1024
+#: the VALID mode's plan: vectors of at most this many channels (wider
+#: ones hold their taps in the storage type and need ~250 registers), and
+#: this many vectors per CTA
+VALID_MAX_VEC = 4
+VALID_VECTORS = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,30 +77,41 @@ def strip_rows(vec):
 
 
 @functools.lru_cache(maxsize=None)
-def plan(n, h, w, c, *, k, dilation, dtype, align=16) -> Plan:
-    """The launch plan for an (n, h, w, c) activation whose tensors are
-    aligned to ``align`` bytes: the widest vector (at most 16 bytes) that
-    divides C and the alignment and still leaves :data:`MIN_STRIPS`
-    threads' strips of work (the narrowest legal one where none does), and
-    one strip per dilation phase. Then the widest tile (16 columns first:
-    the halo's share of the staged tile falls with the width) and the
-    fewest channel groups (at most :data:`MAX_VECTORS` vectors, at least 4
-    unless C is narrower) that give two CTAs per SM; where none does, the
-    plan with the most CTAs."""
+def plan(n, h, w, c, *, k, dilation, dtype, align=16, valid=False) -> Plan:
+    """The launch plan for an (n, h, w, c) output whose tensors are aligned
+    to ``align`` bytes; ``valid`` plans the VALID mode, whose input is
+    (n, h + 2 halo, w + 2 halo, c).
+
+    'SAME': the widest vector (at most 16 bytes) that divides C and the
+    alignment and still leaves :data:`MIN_STRIPS` threads' strips of work
+    (the narrowest legal one where none does), one strip per dilation
+    phase, and the fewest channel groups (at most :data:`MAX_VECTORS`
+    vectors, at least 4 unless C is narrower). VALID: the widest legal
+    vector of at most :data:`VALID_MAX_VEC` channels, two strips per
+    dilation phase (16-row tiles, less halo per output) and channel groups
+    of :data:`VALID_VECTORS` vectors: small CTAs, many per SM, which at the
+    Mosaic lab's stages on the H100 beat the 'SAME' rule's plans in both
+    types. Then, in both, the widest tile (16 columns first: the halo's
+    share of the staged tile falls with the width) that gives two CTAs per
+    SM; where none does, the plan with the most CTAs."""
     size = torch.finfo(dtype).bits // 8
     legal = [v for v in (8, 4, 2, 1) if v * size <= 16 and c % v == 0
              and align % (v * size) == 0]
-    vec = next((v for v in legal
-                if n * -(-h // strip_rows(v)) * w * (c // v) >= MIN_STRIPS),
-               legal[-1])
+    if valid:
+        vec = next(v for v in legal if v <= VALID_MAX_VEC)
+    else:
+        vec = next((v for v in legal if n * -(-h // strip_rows(v)) * w
+                    * (c // v) >= MIN_STRIPS), legal[-1])
     nvec = c // vec
     halo = (k - 1) // 2 * dilation
-    strips = dilation
+    strips = 2 * dilation if valid else dilation
     th = strips * strip_rows(vec)
     rows = -(-h // th)
+    vectors = [min(nvec, VALID_VECTORS)] if valid else \
+        range(min(nvec, MAX_VECTORS), min(nvec, 4) - 1, -1)
     best = None
     for tw in (16, 8, 4, 2, 1):
-        for nv in range(min(nvec, MAX_VECTORS), min(nvec, 4) - 1, -1):
+        for nv in vectors:
             groups = -(-nvec // nv)
             smem = (th + 2 * halo) * (tw + 2 * halo) * nv * vec * size
             if nv * tw * strips > MAX_THREADS or smem > SMEM_LIMIT:
@@ -162,6 +180,31 @@ def _check(x, kernel, bias):
                              f'{x.dtype} on {x.device}')
 
 
+def launch(x, kernel, bias, *, dilation=1, act=0):
+    """Launch the kernel on the checked channels_last CUDA tensor ``x``
+    with contiguous ``kernel`` (C, 1, K, K) and return its (N, C, H, W)
+    output: 'SAME' with ``bias`` (C,) and ``act`` (0 none, 1 ReLU, 2
+    leaky), or VALID when ``bias`` is None (x is then (N, C, H + 2 halo,
+    W + 2 halo), its halo data, and ``act`` 0). Counts nothing: the
+    wrappers do."""
+    valid = bias is None
+    n, c, h, w = x.shape
+    k = kernel.shape[-1]
+    if valid:
+        halo = (k - 1) // 2 * dilation
+        h, w = h - 2 * halo, w - 2 * halo
+    out = torch.empty((n, c, h, w), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
+    p = plan(n, h, w, c, k=k, dilation=dilation, dtype=x.dtype,
+             align=alignment(x, out), valid=valid)
+    _nvcc.launch(_nvcc.function('depthwise.cu', 'depthwise_conv', _ARGTYPES),
+                 x.device, DTYPES[x.dtype], int(valid), x.data_ptr(),
+                 kernel.data_ptr(), 0 if valid else bias.data_ptr(),
+                 out.data_ptr(), n, h, w, c, k, dilation, act, p.vec, p.nv,
+                 p.groups, p.tw, p.strips, p.threads, p.smem)
+    return out
+
+
 def depthwise_conv(x, kernel, bias, *, dilation=1, act=True, leaky=False):
     """Stride-1 'SAME' depthwise conv + bias + optional activation.
 
@@ -177,17 +220,7 @@ def depthwise_conv(x, kernel, bias, *, dilation=1, act=True, leaky=False):
         raise ValueError(f'depthwise kernel needs a CUDA tensor, got '
                          f'{x.device}')
     _check(x, kernel, bias)
-    kernel = kernel.contiguous()
-    bias = bias.contiguous()
-    out = torch.empty_like(x, memory_format=torch.channels_last)
-    n, c, h, w = x.shape
-    k = kernel.shape[-1]
-    p = plan(n, h, w, c, k=k, dilation=dilation, dtype=x.dtype,
-             align=alignment(x, out))
-    _nvcc.launch(_nvcc.function('depthwise.cu', 'depthwise_conv', _ARGTYPES),
-                 x.device, DTYPES[x.dtype], x.data_ptr(), kernel.data_ptr(),
-                 bias.data_ptr(), out.data_ptr(), n, h, w, c, k, dilation,
-                 (2 if leaky else 1) if act else 0, p.vec, p.nv, p.groups,
-                 p.tw, p.strips, p.threads, p.smem)
+    out = launch(x, kernel.contiguous(), bias.contiguous(),
+                 dilation=dilation, act=(2 if leaky else 1) if act else 0)
     LAUNCHES += 1
     return out

@@ -16,8 +16,10 @@ flattened array and folds the interleave into one-hot scatter matmuls.
 Here the activation stays a plain channels_last ``(N, 2Cb, H, W)`` tensor
 (padded to a multiple of 16 channels in shared memory only), the split is
 a pointer offset of ``Cb``, and the interleave an output index map. The
-same source computes branch2 alone (``interleave=False``), which
-:mod:`.block_cuda` wraps.
+same source computes branch2 alone (mode :data:`BRANCH2`), which
+:mod:`.block_cuda` wraps, and the Mosaic lab's branch2 on an input whose
+halo is data (mode :data:`LAB`), which ``lab.kernels.branch2`` launches
+through :func:`call`.
 
 On the H100 the block is bound by bytes in bfloat16 and by the two 1x1
 products in float32. A thread-block cluster of CTAs shares one output
@@ -55,6 +57,9 @@ MAX_HALO = 4
 KERNEL_SIZES = (3, 5, 7)
 _ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
              + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+#: the kernel's modes: branch2 of x's second channel half, the whole block,
+#: the lab's branch2 of a pre-haloed x2
+BRANCH2, BLOCK, LAB = 0, 1, 2
 
 # the kernel's constants (csrc/shuffle_block.cu)
 WARPS = 8
@@ -110,9 +115,11 @@ def shared_bytes(th, tw, cluster, slice_, *, k, halo, size):
 
 
 @functools.lru_cache(maxsize=None)
-def plan(n, h, w, cb, *, k, dilation, dtype, align=16) -> Plan:
+def plan(n, h, w, cb, *, k, dilation, dtype, align=16, th=None) -> Plan:
     """The launch plan for the block on an (n, h, w, 2 cb) activation whose
-    tensors are aligned to ``align`` bytes.
+    tensors are aligned to ``align`` bytes (in the lab mode, for the
+    (n, h, w, cb) output of a pre-haloed x2, whose pixel stride cb gives
+    the same copies); ``th`` fixes the tile rows, else the plan picks them.
 
     The channels are split over the smallest cluster of 1, 2, 4 or 8 CTAs
     that gives each CTA at most :data:`MAX_SLICE` channels (``slice``, a
@@ -140,7 +147,11 @@ def plan(n, h, w, cb, *, k, dilation, dtype, align=16) -> Plan:
         raise ValueError(f'block kernel: Cb={cb} does not split over '
                          f'{MAX_CLUSTER} CTAs of {MAX_SLICE} channels')
     cb_pad = cluster * slice_
-    for th in range(1, STRIP_ROWS * dilation + 1):
+    rows = range(1, STRIP_ROWS * dilation + 1)
+    asked = '' if th is None else f', {th} tile rows'
+    if th is not None:
+        rows = [th] if th in rows else []
+    for th in rows:
         for tw in range(1, 65):
             pin = (th + 2 * halo) * (tw + 2 * halo)
             if -(-pin // 16) > MT1 or -(-(th * tw) // 16) > MT2:
@@ -164,7 +175,10 @@ def plan(n, h, w, cb, *, k, dilation, dtype, align=16) -> Plan:
                             vb=vb, smem=smem, ctas=ctas)
     if best is None:
         raise ValueError(f'block kernel: no plan fits a CTA for Cb={cb}, '
-                         f'k={k}, dilation={dilation}, {dtype}')
+                         f'k={k}, dilation={dilation}, {dtype}{asked} (at '
+                         f'most {STRIP_ROWS * dilation} tile rows, {MT1} '
+                         f'haloed and {MT2} output m-tiles, {SMEM_LIMIT} '
+                         f'shared bytes)')
     return best
 
 
@@ -252,13 +266,23 @@ def launch(x, weights, *, k, dilation, leaky, interleave):
                       device=x.device, memory_format=torch.channels_last)
     p = plan(n, h, w, cb, k=k, dilation=dilation, dtype=x.dtype,
              align=alignment(x, weights.w1, weights.w3))
+    call(BLOCK if interleave else BRANCH2, x, weights, out, k=k,
+         dilation=dilation, act=2 if leaky else 1, p=p)
+    return out
+
+
+def call(mode, x, weights, out, *, k, dilation, act, p):
+    """The kernel's C entry in ``mode`` on checked CUDA tensors: input
+    ``x``, ``weights`` (:class:`BlockWeights`, or the lab's float32-biased
+    ones), ``out`` (N, C, H, W) whose H and W are the output's, plan
+    ``p``."""
+    n, _, h, w = out.shape
     _nvcc.launch(_nvcc.function('shuffle_block.cu', 'shuffle_block',
                                 _ARGTYPES),
-                 x.device, DTYPES[x.dtype], int(interleave), x.data_ptr(),
+                 x.device, DTYPES[x.dtype], mode, x.data_ptr(),
                  *[t.data_ptr() for t in weights.tensors()], out.data_ptr(),
-                 n, h, w, cb, k, dilation, 2 if leaky else 1, p.th, p.tw,
+                 n, h, w, weights.w1.shape[0], k, dilation, act, p.th, p.tw,
                  p.cluster, p.slice, p.vb, p.smem)
-    return out
 
 
 def resident_clusters(p, *, dtype, device):

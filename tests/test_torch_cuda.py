@@ -223,24 +223,31 @@ LAB_KERNELS = {
 }
 
 
-def _check_lab_kernel(name, shape, dtype, device, **kw):
+def _backbone_launches():
+    return [m.LAUNCHES for m in (dw_cuda, shuffle_cuda, block_cuda)]
+
+
+def _check_lab_kernel(name, shape, dtype, device, batch=1, **kw):
     """The lab kernel against its plain version, TF32 off: float32 within
     1e-5 of the largest output (summation order), bfloat16 within one
-    rounding step of it."""
+    rounding step of it. The launch counts in the lab's counter only."""
     call, plain = LAB_KERNELS[name]
     args = lab_kernel_inputs(name, *shape, dtype=dtype, device=device,
-                             seed=sum(shape))
+                             seed=sum(shape), batch=batch)
     saved = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
         before = lab_kernels.LAUNCHES[name]
+        backbone = _backbone_launches()
         out = call(*args, **kw)
         assert lab_kernels.LAUNCHES[name] == before + 1
+        assert _backbone_launches() == backbone
         ref = plain(*args)
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.allow_tf32 = saved
-    assert out.shape == ref.shape and out.dtype == dtype
+    assert out.shape == ref.shape and out.shape[0] == batch
+    assert out.dtype == dtype
     assert out.is_contiguous(memory_format=torch.channels_last)
     scale = float(ref.float().abs().max())
     tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * scale
@@ -259,34 +266,50 @@ def test_lab_kernels_match_plain(cuda, name, shape, dtype):
     _check_lab_kernel(name, shape, dtype, cuda)
 
 
-@pytest.mark.parametrize('r_tile', [4, 8, 16])
-def test_lab_branch2_tile_rows(cuda, r_tile):
-    """The branch2 kernel at the lab's stage2 for each tile height that
-    fits the card's shared memory there."""
-    _check_lab_kernel('lab_branch2', (121, 161, 174), torch.bfloat16, cuda,
-                      r_tile=r_tile)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('name', sorted(LAB_KERNELS))
+@pytest.mark.parametrize('batch,shape', [
+    (2, (13, 17, 24)),   # batch 2, ragged tiles both ways
+    (1, (9, 11, 37)),    # odd C: 2-byte copies in bfloat16
+    (2, (31, 41, 696)),  # the lab's stage4 at batch 2: a cluster of 4
+])
+def test_lab_kernels_batch_and_odd_channels(cuda, name, batch, shape,
+                                            dtype):
+    _check_lab_kernel(name, shape, dtype, cuda, batch=batch)
 
 
-def test_lab_branch2_refuses_a_tile_that_does_not_fit(cuda):
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('r_tile', [None, 4, 8])
+def test_lab_branch2_tile_rows(cuda, r_tile, dtype):
+    """The branch2 kernel at the lab's stage2 and stage4 for each tile
+    height a plan fits (a depthwise strip holds at most 8 rows), and the
+    plan's own choice."""
+    for shape in ((121, 161, 174), (31, 41, 696)):
+        _check_lab_kernel('lab_branch2', shape, dtype, cuda, r_tile=r_tile)
+
+
+@pytest.mark.parametrize('r_tile', [16, 40])
+def test_lab_branch2_refuses_a_tile_that_does_not_fit(cuda, r_tile):
     args = lab_kernel_inputs('lab_branch2', 31, 41, 696, dtype=torch.bfloat16,
                              device=cuda)
     before = lab_kernels.LAUNCHES['lab_branch2']
-    with pytest.raises(ValueError, match='shared memory'):
-        lab_kernels.branch2(*args, r_tile=8)
+    with pytest.raises(ValueError, match='no plan fits'):
+        lab_kernels.branch2(*args, r_tile=r_tile)
     assert lab_kernels.LAUNCHES['lab_branch2'] == before
 
 
 def test_lab_entry_point_on_the_card(cuda, capsys):
     """``mosaic_lab.main`` with the names that ``chip_smoke.py`` does not
     run: the plain branch2 alone and the tile-row sweep, which reports the
-    tiles that do not fit without launching them."""
+    heights for which no plan fits without launching them."""
     before = lab_kernels.LAUNCHES['lab_branch2']
     results = mosaic_lab.main(['branch2_xla', 'rtile'])
     out = capsys.readouterr().out
     assert [(r['stage'], r['r_tile']) for r in results] == [
-        ('stage2', 8), ('stage2', 16), ('stage3', 8)]
+        ('stage2', 8), ('stage3', 8), ('stage4', 8)]
     assert lab_kernels.LAUNCHES['lab_branch2'] > before
     assert all(r['kernel_s'] > 0 and r['rel_diff'] <= 2.0 ** -7
                for r in results)
-    assert out.count('does not fit') == 3 + 4 + 3
+    # 16-40 rows at stages 2 and 3; 16 and 24 at stage4 (31 rows)
+    assert out.count('does not fit') == 4 + 4 + 2
     assert out.count('branch2 plain') == 3 + len(results)

@@ -16,6 +16,8 @@ from openpifpaf_tpu_torch.models.factory import BASE_FACTORIES
 #: (Cb, H, W) of shufflenetv2k16's stages 2-4 for a 513x641 input
 K16_STAGES = ((174, 129, 161), (348, 65, 81), (696, 33, 41))
 DTYPES = (torch.float32, torch.bfloat16)
+#: (H, W, C) outputs of the Mosaic lab's stages (``lab/mosaic_lab.py``)
+LAB_STAGES = ((121, 161, 174), (61, 81, 348), (31, 41, 696))
 
 
 def _net_stages(name):
@@ -116,10 +118,30 @@ def test_depthwise_plan_vector_width(c, dtype, align, vec):
                         align=align).vec == 1
 
 
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('h,w,c', LAB_STAGES)
+def test_depthwise_valid_plan_at_lab_stages(h, w, c, dtype):
+    """The lab's VALID depthwise conv (``lab.kernels.dw_valid``) is planned
+    for its (H, W) output: the widest vector of at most 4 channels that
+    the pixel stride allows (2 at C = 174, 4 at 348 and 696), 4 vectors
+    per CTA, 16-row tiles of 16 columns, and at least two CTAs per SM."""
+    p = dw_cuda.plan(1, h, w, c, k=5, dilation=1, dtype=dtype, valid=True)
+    assert p.vec == (2 if c == 174 else 4)
+    assert (p.nv, p.tw, p.strips) == (dw_cuda.VALID_VECTORS, 16, 2)
+    assert p.nv * p.groups * p.vec >= c > (p.groups - 1) * p.nv * p.vec
+    assert p.threads == p.nv * p.tw * p.strips <= dw_cuda.MAX_THREADS
+    th = p.strips * dw_cuda.strip_rows(p.vec)
+    assert th == 16
+    assert p.smem == (th + 4) * (p.tw + 4) * p.nv * p.vec * \
+        torch.finfo(dtype).bits // 8 <= dw_cuda.SMEM_LIMIT
+    assert p.ctas == -(-h // th) * -(-w // p.tw) * p.groups >= 2 * dw_cuda.SMS
+
+
 @pytest.mark.parametrize('dilation', [1, 2, 3])
-def test_depthwise_plan_strips_cover_dilation_phases(dilation):
+@pytest.mark.parametrize('valid', [False, True])
+def test_depthwise_plan_strips_cover_dilation_phases(dilation, valid):
     p = dw_cuda.plan(1, 40, 50, 64, k=5, dilation=dilation,
-                     dtype=torch.float32)
+                     dtype=torch.float32, valid=valid)
     assert p.strips % dilation == 0
 
 

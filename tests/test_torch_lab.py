@@ -31,6 +31,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from openpifpaf_tpu_torch.lab import kernels, timing
 from openpifpaf_tpu_torch.lab import mosaic_lab as port_lab
+from openpifpaf_tpu_torch.models import shuffle_cuda
 
 from torch_port_helpers import jax_f32, lab_arrays, one_torch_thread
 
@@ -186,18 +187,28 @@ def test_wrappers_raise_off_cpu_and_cuda(call):
     assert kernels.LAUNCHES == before
 
 
-@pytest.mark.parametrize('c,fits', [
-    # (C, the tile rows of the lab's sweep whose CTA fits the H100's
-    # shared memory); the default of 4 fits at every stage
-    (174, (4, 8, 16)),
-    (348, (4, 8)),
-    (696, (4,)),
-])
-def test_branch2_shared_memory_by_tile_rows(c, fits):
-    ok = tuple(rt for rt in (4,) + port_lab.RTILES
-               if kernels.branch2_shared_bytes(c, 5, rt)
-               <= kernels.MAX_SHARED_BYTES)
-    assert ok == fits
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('stage', sorted(port_lab.STAGES))
+def test_branch2_plans_by_tile_rows(stage, dtype):
+    """The lab's branch2 is the fused-block kernel's lab mode: at each lab
+    stage a plan fits tile heights 4 and 8 of the sweep (a depthwise strip
+    holds at most 8 rows), the default plan fits a CTA's 227 KB, and the
+    plans cover the channels."""
+    h, w, c = port_lab.STAGES[stage]
+    fits = []
+    for rt in (4,) + port_lab.RTILES:
+        try:
+            p = kernels.branch2_plan(1, h, w, c, dtype=dtype, r_tile=rt)
+        except ValueError as e:
+            assert 'no plan fits' in str(e)
+            continue
+        assert p.th == rt and p.cb_pad - p.slice < c <= p.cb_pad
+        fits.append(rt)
+    assert tuple(fits) == (4, 8)
+    p = kernels.branch2_plan(1, h, w, c, dtype=dtype)
+    assert p.smem <= shuffle_cuda.SMEM_LIMIT
+    assert p.slice % 16 == 0 and p.cb_pad - p.slice < c <= p.cb_pad
+    assert p.ctas == -(-h // p.th) * -(-w // p.tw) * p.cluster
 
 
 def test_entry_point_refuses_the_cpu():

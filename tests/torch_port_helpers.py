@@ -102,14 +102,21 @@ def lab_arrays(kernel, h, w, c, *, k=5, seed=0):
 
 
 def lab_kernel_inputs(kernel, h, w, c, *, k=5, dtype=torch.float32,
-                      device='cpu', seed=0):
+                      device='cpu', seed=0, batch=1):
     """The positional arguments of a lab kernel's wrapper
-    (:mod:`openpifpaf_tpu_torch.lab.kernels`) on :func:`lab_arrays`."""
-    from openpifpaf_tpu_torch.lab.kernels import Branch2Weights, \
-        from_lab_arrays
+    (:mod:`openpifpaf_tpu_torch.lab.kernels`) on :func:`lab_arrays`; with
+    ``batch`` > 1, image i's activations are those of seed ``seed + i``."""
+    from openpifpaf_tpu_torch.lab.kernels import LAB_LAYOUTS, \
+        Branch2Weights, from_lab_arrays
 
-    t = from_lab_arrays(dtype, device,
-                        **lab_arrays(kernel, h, w, c, k=k, seed=seed))
+    images = [from_lab_arrays(dtype, device,
+                              **lab_arrays(kernel, h, w, c, k=k, seed=seed + i))
+              for i in range(batch)]
+    t = images[0]
+    for name in t:
+        if LAB_LAYOUTS[name] == 'hwc':
+            t[name] = torch.cat([im[name] for im in images]).contiguous(
+                memory_format=torch.channels_last)
     if kernel == 'lab_branch2':
         x2 = t.pop('x2')
         return x2, Branch2Weights(**t)
