@@ -11,8 +11,12 @@ Phases, each of which raises on failure (non-zero exit):
    lab's branch2 mode, the lab's interleave) from the sources next to this
    script, one nvcc per source, all started together;
 3. CifHr kernel vs plain: ``cifhr_cuda.accumulate`` against its plain
-   PyTorch version on seeded random cells at the decode's shapes, atol
-   1e-5, with both times from CUDA events;
+   PyTorch version, bit for bit, on seeded random cells at the decode's
+   shapes (F, K) = (17, 256), (17, 1024), (133, 256) and on the golden
+   file's sparse and crowd cells at both tiers' budgets: each call's launch
+   plan, one device op per call (``torch.profiler``), the call time (CUDA
+   events), the device time alone, with a cold L2 (96 MB written between
+   calls) and the card's write floor (``zero_`` of the map);
 4. backbone kernels vs plain: ``dw_cuda.depthwise_conv``,
    ``shuffle_cuda.fused_block`` and ``block_cuda.branch2_apply`` against
    their plain versions at the three stage shapes of shufflenetv2k16 for
@@ -73,7 +77,6 @@ import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, 'tests', 'golden', 'torch_decode_golden.npz')
-KERNEL_ATOL = 1e-5
 #: (n_fields, n_cells): COCO-17 at the fast and crowd tiers, wholebody-133
 KERNEL_SHAPES = ((17, 256), (17, 1024), (133, 256))
 HR_SHAPE = (513, 641)
@@ -110,6 +113,8 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 #: float operations of one pixel of a CifHr splat in cifhr.cu (distance,
 #: approx_exp, weighted add)
 CIFHR_OPS_PER_PIXEL = 13
+#: bytes written between calls for a cold-L2 time (the card's L2 is 50 MB)
+FLUSH_BYTES = 96 << 20
 
 
 def log(*args):
@@ -257,43 +262,73 @@ def cifhr_splat_pixels(x, y, sigma, w, hr_h, hr_w):
     return int(total)
 
 
+def device_ops(fn):
+    """Names of the device ops that one call of ``fn`` issues."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def phase_kernel(cifhr, cifhr_cuda, device, card):
+    """The CifHr kernel against its plain version, bit for bit, on seeded
+    random cells at KERNEL_SHAPES and on the golden file's sparse and crowd
+    cells at both tiers' budgets: its launch plan, one device op per call,
+    the call time (CUDA events, host included), the device time alone, the
+    device time with a cold L2 (FLUSH_BYTES written between calls) and the
+    card's write floor (``zero_`` of the same map, not the same function);
+    returns one row per case."""
     from openpifpaf_tpu_torch.lab.timing import device_ms
-    from torch_port_helpers import random_cells
+    from torch_port_helpers import cifhr_cases
 
     kw = dict(hr_h=HR_SHAPE[0], hr_w=HR_SHAPE[1])
-    calls = []
-    results = {}
-    for n_fields, n_cells in KERNEL_SHAPES:
-        cells = random_cells(n_fields, n_cells, *HR_SHAPE,
-                             seed=n_fields + n_cells, device=device)
+    flush_buffer = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+    floors = {}
+    rows = []
+    for label, cells in cifhr_cases(KERNEL_SHAPES, *HR_SHAPE,
+                                    device).items():
+        n_fields, n_cells = cells[0].shape
+        plan = cifhr_cuda.plan(n_fields, n_cells, *HR_SHAPE)
         kernel = cifhr_cuda.accumulate(*cells, **kw)
         plain = cifhr.accumulate_dense(*cells, **kw)
         torch.cuda.synchronize()
         err = float((kernel - plain).abs().max())
-        if not err <= KERNEL_ATOL:
-            raise AssertionError(f'CifHr kernel vs plain at {n_fields}x'
-                                 f'{n_cells}: max abs err {err}')
+        if not torch.equal(kernel, plain):
+            raise AssertionError(f'CifHr kernel vs plain at {label}: not '
+                                 f'bit-equal, max abs err {err}')
         call = functools.partial(cifhr_cuda.accumulate, *cells, **kw)
-        ms = cuda_ms(call, 50)
-        plain_ms = cuda_ms(lambda: cifhr.accumulate_dense(*cells, **kw), 3)
-        calls.append(call)
-        ops = CIFHR_OPS_PER_PIXEL * cifhr_splat_pixels(*cells, *HR_SHAPE)
-        results[(n_fields, n_cells)] = (err, ms, plain_ms) + bound(
-            cells, [kernel], ops, torch.float32)
-
-    # the kernel alone (a wrapper call also costs host time, which the
-    # CUDA-event loop of cuda_ms sees when the kernel is short)
-    alone_ms = [device_ms(call, 20, 'cifhr_kernel') for call in calls]
-    for ((n_fields, n_cells), (err, ms, plain_ms, bound_ms, bound_by)), \
-            alone in zip(list(results.items()), alone_ms):
-        results[(n_fields, n_cells)] += (alone,)
-        alone = 'not measured' if alone is None else f'{alone:.4f} ms'
-        log(f'kernel F={n_fields} K={n_cells} map={HR_SHAPE}: max_abs_err '
-            f'{err} (atol {KERNEL_ATOL}), kernel {ms:.4f} ms per call '
-            f'(device time alone {alone}), plain {plain_ms:.3f} ms, bound '
-            f'{bound_ms:.4f} ms by {bound_by} [{card}]')
-    return results
+        ops = device_ops(call)
+        if len(ops) != 1 or 'cifhr_band_kernel' not in ops[0]:
+            raise AssertionError(f'CifHr call at {label}: device ops {ops}, '
+                                 'want the kernel alone')
+        if n_fields not in floors:
+            out = torch.empty_like(plain)
+            floors[n_fields] = device_ms(out.zero_, 20)
+        row = dict(case=label, err=err, ms=cuda_ms(call, 50),
+                   plain_ms=cuda_ms(functools.partial(
+                       cifhr.accumulate_dense, *cells, **kw), 3),
+                   library_ms=None,
+                   device_ms=device_ms(call, 20, 'cifhr_band_kernel'),
+                   cold_ms=device_ms(call, 10, 'cifhr_band_kernel',
+                                     between=flush_buffer.zero_),
+                   floor_ms=floors[n_fields])
+        splat = CIFHR_OPS_PER_PIXEL * cifhr_splat_pixels(*cells, *HR_SHAPE)
+        row['bound_ms'], row['bound_by'] = bound(cells, [kernel], splat,
+                                                 torch.float32)
+        rows.append(row)
+        log(f'cifhr {label} map={HR_SHAPE}: plan '
+            f'{cifhr_cuda.describe(plan)}; max_abs_err {err} (bit for bit), '
+            f'1 device op per call; call {row["ms"]:.4f} ms, device alone '
+            f'{fmt_ms(row["device_ms"])}, cold L2 {fmt_ms(row["cold_ms"])}, '
+            f'write floor (zero_ of the map, not the same function) '
+            f'{fmt_ms(row["floor_ms"])}, plain {row["plain_ms"]:.3f} ms, '
+            f'bound {row["bound_ms"]:.4f} ms by {row["bound_by"]} [{card}]')
+    return rows
 
 
 def phase_golden(cifhr_cuda, device, card):
@@ -435,8 +470,6 @@ def launch_plan(port, name, args, kw):
 BACKBONE_SYMBOLS = {'depthwise_conv': 'depthwise_kernel',
                     'shuffle_block': 'shuffle_block_kernel',
                     'shuffle_branch2': 'shuffle_block_kernel'}
-#: bytes written between calls for a cold-L2 time (the card's L2 is 50 MB)
-FLUSH_BYTES = 96 << 20
 
 
 def phase_backbone_kernels(port, device, card):
@@ -796,7 +829,7 @@ def main():
 
     port = import_port()
     phase_build(port)
-    kernel_results = phase_kernel(port.cifhr, port.cifhr_cuda, device, card)
+    cifhr_rows = phase_kernel(port.cifhr, port.cifhr_cuda, device, card)
     backbone_results = phase_backbone_kernels(port, device, card)
     phase_golden(port.cifhr_cuda, device, card)
     predictor, cifhr_launches = phase_main_path(port, device, card)
@@ -808,10 +841,7 @@ def main():
     lab_results = phase_lab_kernels(port, device, card)
     launches.update(phase_lab(port, card))
 
-    # no single PyTorch call computes the CifHr map
-    cifhr_rows = [dict(err=r[0], ms=r[1], plain_ms=r[2], bound_ms=r[3],
-                       bound_by=r[4], library_ms=None, device_ms=r[5])
-                  for r in kernel_results.values()]
+    # no single PyTorch call computes the CifHr map; times at F=17 K=256
     entries = [kernel_entry('cifhr_accumulate', 'cifhr.cu',
                             'openpifpaf_tpu/ops/cifhr_pallas.py:53',
                             launches['cifhr_accumulate'], cifhr_rows,

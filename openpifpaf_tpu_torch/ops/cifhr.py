@@ -54,6 +54,13 @@ def select_cells(cif, stride, *, threshold, min_scale, n_cells):
     return x, y, sigma, weight, overflow
 
 
+def scaled_weights(w, neighbors, factor):
+    """``w / neighbors * factor`` in float32, with a correctly rounded
+    division on every device (PyTorch on CUDA divides by a Python number
+    as a product with its rounded reciprocal)."""
+    return w / torch.tensor(float(neighbors), device=w.device) * factor
+
+
 def accumulate_dense(x, y, sigma, w, *, hr_h, hr_w, neighbors=16,
                      factor=1.0):
     """Plain version: loop over cells in ascending order, full-map update.
@@ -66,7 +73,7 @@ def accumulate_dense(x, y, sigma, w, *, hr_h, hr_w, neighbors=16,
     kw = dict(dtype=torch.float32, device=x.device)
     xs = torch.arange(hr_w, **kw)[None, None, :]
     ys = torch.arange(hr_h, **kw)[None, :, None]
-    cw_all = w / neighbors * factor
+    cw_all = scaled_weights(w, neighbors, factor)
 
     acc = torch.zeros((n_fields, hr_h, hr_w), **kw)
     live = torch.nonzero(torch.any(cw_all != 0.0, dim=0)).flatten().tolist()

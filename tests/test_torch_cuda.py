@@ -10,6 +10,8 @@ has only PyTorch; there, skip ``tests/conftest.py`` (which imports JAX):
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -38,28 +40,135 @@ def cuda():
     return torch.device('cuda:0')
 
 
-@pytest.mark.parametrize('shape', [
-    # (n_fields, n_cells, hr_h, hr_w): ragged tiles, several rounds of 256
-    # cells, and the decode's 641px map
-    (3, 37, 65, 81),
-    (5, 700, 129, 161),
-    (17, 256, 513, 641),
+def _check_cifhr(cells, hr_h, hr_w, **kw):
+    """The CUDA kernel against its plain version on the card, bit for bit
+    (the same operations in the same order, no FMA contraction), with one
+    launch counted."""
+    before = cifhr_cuda.LAUNCHES
+    out = cifhr_cuda.accumulate(*cells, hr_h=hr_h, hr_w=hr_w, **kw)
+    assert cifhr_cuda.LAUNCHES == before + 1
+    ref = cifhr.accumulate_dense(*cells, hr_h=hr_h, hr_w=hr_w, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (cells[0].shape[0], hr_h, hr_w)
+    np.testing.assert_array_equal(out.cpu().numpy(), ref.cpu().numpy())
+    return ref
+
+
+@pytest.mark.parametrize('shape,kw', [
+    # (n_fields, n_cells, hr_h, hr_w): ragged bands, several cull rounds,
+    # the decode's 641px map at both tiers and at wholebody's 133 fields
+    ((3, 37, 65, 81), {}),
+    ((5, 700, 129, 161), {}),
+    ((17, 256, 513, 641), {}),
+    ((17, 1024, 513, 641), {}),
+    ((133, 256, 513, 641), {}),
+    ((3, 32, 65, 81), {'neighbors': 8, 'factor': 0.5}),
+    # hr_w = 1, 2 and 3 mod 4
+    ((4, 64, 37, 33), {}),
+    ((4, 64, 37, 34), {}),
+    ((4, 64, 37, 35), {}),
+    # two column chunks per band
+    ((2, 200, 40, 1500), {}),
 ])
-def test_cuda_kernel_matches_plain(cuda, shape):
-    """The CUDA kernel against its plain version on the card (atol 1e-5:
-    the same summation order, no FMA contraction)."""
+def test_cuda_kernel_matches_plain(cuda, shape, kw):
     n_fields, n_cells, hr_h, hr_w = shape
     cells = random_cells(n_fields, n_cells, hr_h, hr_w, seed=n_cells,
                          device=cuda)
-    before = cifhr_cuda.LAUNCHES
-    out = cifhr_cuda.accumulate(*cells, hr_h=hr_h, hr_w=hr_w)
-    assert cifhr_cuda.LAUNCHES == before + 1
-    ref = cifhr.accumulate_dense(*cells, hr_h=hr_h, hr_w=hr_w)
-    torch.cuda.synchronize()
-    assert out.shape == ref.shape == (n_fields, hr_h, hr_w)
+    ref = _check_cifhr(cells, hr_h, hr_w, **kw)
     assert float(ref.max()) > 0.01
-    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
-                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize('hr_h,hr_w', [(1, 200), (200, 1), (5, 81)])
+def test_cuda_kernel_one_row_one_column_and_short_maps(cuda, hr_h, hr_w):
+    """A 1-row and a 1-column map, and one shorter than a band."""
+    cells = random_cells(3, 96, hr_h, hr_w, seed=hr_w, device=cuda)
+    _check_cifhr(cells, hr_h, hr_w)
+
+
+def _small_lists(p):
+    """Plan ``p`` with a list of one cull round: a CTA whose cells do not
+    fit culls each band's cells from global memory and accumulates them in
+    rounds."""
+    cap = p.threads * cifhr_cuda.CELLS_PER_THREAD
+    return dataclasses.replace(p, cap=cap, smem=cifhr_cuda.shared_bytes(cap))
+
+
+def test_cuda_kernel_dense_cells_in_rounds(cuda):
+    """K = 3000 live cells crowded into a few bands: with the plan's lists
+    and with small ones (:func:`_small_lists`), the survivors accumulated
+    in rounds, still in ascending order (small weights, so that few pixels
+    saturate at 1)."""
+    x, y, sigma, w = random_cells(2, 3000, 97, 161, seed=3, device=cuda)
+    y = 40.0 + (y - y.min()) * (12.0 / float(y.max() - y.min()))
+    w = torch.where(w == 0.0, 0.5, w) * 0.01
+    ref = _check_cifhr((x, y, sigma, w), 97, 161)
+    p = _small_lists(cifhr_cuda.plan(2, 3000, 97, 161))
+    out = cifhr_cuda.launch(x, y, sigma, w, p, hr_h=97, hr_w=161)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(out.cpu().numpy(), ref.cpu().numpy())
+
+
+def test_cuda_kernel_all_weights_zero(cuda):
+    x, y, sigma, w = random_cells(3, 128, 65, 81, seed=2, device=cuda)
+    out = cifhr_cuda.accumulate(x, y, sigma, torch.zeros_like(w), hr_h=65,
+                                hr_w=81)
+    torch.cuda.synchronize()
+    assert not bool(out.any())
+
+
+@pytest.mark.parametrize('bands_per_cta', [1, 3])
+@pytest.mark.parametrize('groups', [1, 2, 4])
+def test_cuda_kernel_every_plan_mode(cuda, groups, bands_per_cta):
+    """Row groups and bands per CTA, at a map whose rows are 1 mod 4
+    floats, with the plan's list, with a small one and with 3 column
+    chunks: the kernel writes every pixel (the map's memory held NaN
+    before) and equals the plain version."""
+    n_fields, n_cells, hr_h, hr_w = 3, 700, 97, 129
+    cells = random_cells(n_fields, n_cells, hr_h, hr_w, seed=groups,
+                         device=cuda)
+    ref = cifhr.accumulate_dense(*cells, hr_h=hr_h, hr_w=hr_w)
+    kw = dict(groups=groups, bands_per_cta=bands_per_cta)
+    p = cifhr_cuda.plan(n_fields, n_cells, hr_h, hr_w, **kw)
+    chunked = cifhr_cuda.plan(n_fields, n_cells, hr_h, hr_w,
+                              max_threads=64 * groups, **kw)
+    assert chunked.chunks == 3
+    for q in (p, _small_lists(p), chunked):
+        # the caching allocator hands the NaN block to the kernel's output
+        poison = torch.full((n_fields, hr_h, hr_w), float('nan'), device=cuda)
+        del poison
+        out = cifhr_cuda.launch(*cells, q, hr_h=hr_h, hr_w=hr_w)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(out.cpu().numpy(), ref.cpu().numpy())
+
+
+def test_cuda_kernel_refuses_a_bad_plan(cuda):
+    cells = random_cells(2, 64, 65, 81, seed=0, device=cuda)
+    p = cifhr_cuda.plan(2, 64, 65, 81)
+    for bad in (dataclasses.replace(p, smem=p.smem + 4),
+                dataclasses.replace(p, threads=32 * p.groups, chunks=1),
+                dataclasses.replace(p, cap=p.cap - 1, smem=p.smem - 16),
+                dataclasses.replace(p, bands_per_cta=0),
+                dataclasses.replace(p, groups=3)):
+        with pytest.raises(RuntimeError, match='launch failed'):
+            cifhr_cuda.launch(*cells, bad, hr_h=65, hr_w=81)
+
+
+def test_cuda_kernel_one_device_op_per_call(cuda):
+    """A call of the wrapper issues exactly one device op, the kernel (the
+    weights are scaled inside it; contiguous cells are not copied)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cells = random_cells(17, 256, 513, 641, seed=1, device=cuda)
+    cifhr_cuda.accumulate(*cells, hr_h=513, hr_w=641)
+    torch.cuda.synchronize()
+    before = cifhr_cuda.LAUNCHES
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cifhr_cuda.accumulate(*cells, hr_h=513, hr_w=641)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert cifhr_cuda.LAUNCHES == before + 1
+    assert len(ops) == 1 and 'cifhr_band_kernel' in ops[0], ops
 
 
 def test_cuda_decode_matches_golden_jax_poses(cuda):

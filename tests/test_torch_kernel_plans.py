@@ -1,17 +1,24 @@
-"""Launch plans of the port's backbone kernels, computed in Python before
-any launch (``models/dw_cuda.py::plan``, ``models/shuffle_cuda.py::plan``).
+"""Launch plans of the port's kernels, computed in Python before any launch
+(``models/dw_cuda.py::plan``, ``models/shuffle_cuda.py::plan``,
+``ops/cifhr_cuda.py::plan``), and the CifHr kernel's cull as a plain
+function (``ops/cifhr_cuda.py::keeps``).
 
 The kernels refuse a plan that does not cover the tensor or fit a CTA; these
 tests hold the plans on the CPU at the shapes the serving path gives them:
-k16's three stages for a 513x641 input, and the channel widths of every
-``shufflenetv2k*`` net option.
+k16's three stages for a 513x641 input, the channel widths of every
+``shufflenetv2k*`` net option, and the decode's CifHr maps. The cull test
+shows that the kernel's bounding-box test never drops a cell that touches
+a band or a warp's columns: the plain version summing only the kept cells
+gives the same map there, bit for bit.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from openpifpaf_tpu_torch.models import dw_cuda, shuffle_cuda
 from openpifpaf_tpu_torch.models.factory import BASE_FACTORIES
+from openpifpaf_tpu_torch.ops import cifhr, cifhr_cuda
 
 #: (Cb, H, W) of shufflenetv2k16's stages 2-4 for a 513x641 input
 K16_STAGES = ((174, 129, 161), (348, 65, 81), (696, 33, 41))
@@ -150,3 +157,110 @@ def test_alignment():
     assert dw_cuda.alignment(t) == 16
     assert dw_cuda.alignment(t[1:]) == 2
     assert dw_cuda.alignment(t, t[4:]) == 8
+
+
+#: (n_fields, n_cells, hr_h, hr_w) of CifHr maps: the chip's three shapes
+#: (513x641 at 17 and 133 fields, K = 256 and 1024), the CPU tests' maps,
+#: hr_w = 1, 2 and 3 mod 4, maps shorter than a band, of one row and of
+#: one column, and one wider than a CTA (two column chunks)
+CIFHR_SHAPES = [(17, 256, 513, 641), (17, 1024, 513, 641),
+                (133, 256, 513, 641), (5, 37, 65, 81), (17, 96, 97, 129),
+                (4, 64, 37, 33), (4, 64, 37, 34), (4, 64, 37, 35),
+                (3, 96, 5, 81), (3, 96, 1, 200), (3, 96, 200, 1),
+                (2, 200, 40, 1500), (2, 3000, 97, 161)]
+
+
+@pytest.mark.parametrize('shape', CIFHR_SHAPES)
+@pytest.mark.parametrize('groups,bands_per_cta,max_threads', [
+    (1, 1, None), (2, 4, None), (4, 3, 1024), (1, 8, 128), (16, 2, 512)])
+def test_cifhr_plan_covers_every_pixel_once(shape, groups, bands_per_cta,
+                                            max_threads):
+    """The bands and warps of a plan cover every map pixel exactly once,
+    the CTA fits (threads, shared bytes) and the plan passes the kernel's
+    own checks, for several row groups, bands per CTA and thread limits."""
+    n_fields, n_cells, hr_h, hr_w = shape
+    p = cifhr_cuda.plan(n_fields, n_cells, hr_h, hr_w, groups=groups,
+                        bands_per_cta=bands_per_cta, max_threads=max_threads)
+    seen = np.zeros((hr_h, hr_w), np.int64)
+    for (y0, y1), (x0, x1) in cifhr_cuda.segments(p, hr_h, hr_w):
+        seen[y0:y1, x0:x1] += 1
+    assert (seen == 1).all()
+    assert (p.groups, p.bands_per_cta) == (groups, bands_per_cta)
+    assert p.threads % (cifhr_cuda.WARP * groups) == 0
+    assert p.threads <= min(max_threads or cifhr_cuda.DEFAULT['max_threads'],
+                            cifhr_cuda.MAX_THREADS)
+    width = p.threads // groups
+    assert p.chunks * width >= hr_w > (p.chunks - 1) * width
+    per_round = p.threads * cifhr_cuda.CELLS_PER_THREAD
+    assert p.cap >= per_round and p.cap % per_round == 0
+    assert p.cap >= min(n_cells, cifhr_cuda.MAX_CAP - per_round + 1)
+    assert p.smem == cifhr_cuda.shared_bytes(p.cap) <= 227 * 1024
+    band = cifhr_cuda.ROWS * groups
+    assert p.bands * band >= hr_h > (p.bands - 1) * band
+    assert p.ctas == n_fields * p.chunks * -(-p.bands // bands_per_cta)
+
+
+def test_cifhr_plan_refuses_what_the_kernel_is_not_built_for():
+    for kw in ({'groups': 32, 'max_threads': 512}, {'groups': 0},
+               {'bands_per_cta': 0}):
+        with pytest.raises(ValueError, match='no plan'):
+            cifhr_cuda.plan(17, 256, 513, 641, **kw)
+
+
+def test_cifhr_plan_at_the_decode_map():
+    """At 513x641 the default plan's list holds every cell of a field, so
+    a CTA reads each cell from global memory once."""
+    for n_fields, n_cells, hr_h, hr_w in CIFHR_SHAPES[:3]:
+        p = cifhr_cuda.plan(n_fields, n_cells, hr_h, hr_w)
+        assert p.cap >= n_cells
+
+
+def _cifhr_cells(n_fields, n_cells, hr_h, hr_w, seed, dead, margin):
+    """Cells in the map and up to ``margin`` pixels outside it, sigma 1-18,
+    a share ``dead`` of them with weight 0."""
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-margin, hr_w + margin, (n_fields, n_cells))
+    y = rng.uniform(-margin, hr_h + margin, (n_fields, n_cells))
+    sigma = rng.uniform(1.0, 18.0, (n_fields, n_cells))
+    w = rng.uniform(0.3, 1.0, (n_fields, n_cells))
+    w[rng.rand(n_fields, n_cells) < dead] = 0.0
+    return [torch.from_numpy(a.astype(np.float32)) for a in (x, y, sigma, w)]
+
+
+@pytest.mark.parametrize('case', [
+    # (n_fields, n_cells, hr_h, hr_w, seed, dead share, margin, kwargs)
+    (2, 700, 45, 81, 0, 0.4, 40.0, {}),
+    (1, 3000, 24, 70, 1, 0.0, 5.0, {'neighbors': 8, 'factor': 0.5}),
+])
+def test_cifhr_cull_keeps_every_cell_that_touches_its_pixels(case):
+    """The kernel's cull (``cifhr_cuda.keeps``): for each warp's rows, and
+    for each warp's columns, the cells it keeps, summed in ascending order
+    by the plain version, give the plain version's map there bit for bit,
+    while it drops cells. A warp keeps a cell when both tests keep it, and
+    a band or a chunk of columns holds its warps' spans, so the CTA's cull
+    keeps it too. At K = 3000 a warp's rows keep more cells than one cull
+    round of the kernel reads (the GPU tests drive lists that overflow)."""
+    n_fields, n_cells, hr_h, hr_w, seed, dead, margin, kw = case
+    x, y, sigma, w = _cifhr_cells(n_fields, n_cells, hr_h, hr_w, seed, dead,
+                                  margin)
+    full = cifhr.accumulate_dense(x, y, sigma, w, hr_h=hr_h, hr_w=hr_w,
+                                  **kw)
+    assert float(full.max()) > 0.01
+    p = cifhr_cuda.plan(n_fields, n_cells, hr_h, hr_w)
+    live = int((w != 0).sum())
+    most = 0
+    rows = {rows for rows, _ in cifhr_cuda.segments(p, hr_h, hr_w)}
+    columns = {cols for _, cols in cifhr_cuda.segments(p, hr_h, hr_w)}
+    regions = [(r, (0, hr_w)) for r in sorted(rows)] + \
+        [((0, hr_h), cols) for cols in sorted(columns)]
+    for (y0, y1), (x0, x1) in regions:
+        kept = cifhr_cuda.keeps(x, y, sigma, w, rows=(y0, y1), cols=(x0, x1),
+                                **kw)
+        assert int(kept.sum()) < live
+        most = max(most, int(kept.sum(dim=1).max()))
+        part = cifhr.accumulate_dense(x, y, sigma, torch.where(kept, w, 0.0),
+                                      hr_h=hr_h, hr_w=hr_w, **kw)
+        np.testing.assert_array_equal(part[:, y0:y1, x0:x1].numpy(),
+                                      full[:, y0:y1, x0:x1].numpy())
+    per_round = p.threads * cifhr_cuda.CELLS_PER_THREAD
+    assert (most > per_round) == (n_cells == 3000)

@@ -50,6 +50,41 @@ def random_cells(n_fields, n_cells, hr_h, hr_w, seed, device):
             for a in (x, y, sigma, w)]
 
 
+def golden_cells(device):
+    """The decode's real CifHr cells: ``select_cells`` on the golden file's
+    sparse and crowd CIF fields at the fast tier's and the crowd tier's
+    budgets, with the decoder's threshold. Returns {'sparse K=256': (x, y,
+    sigma, w), ...} for the (GOLDEN_HW) map of stride GOLDEN_STRIDE."""
+    from openpifpaf_tpu_torch.ops.cifhr import select_cells
+    from openpifpaf_tpu_torch.ops.decode_cifcaf import CifCafDecoderConfig
+
+    golden = np.load(GOLDEN)
+    config = CifCafDecoderConfig()
+    out = {}
+    for name in ('sparse', 'crowd'):
+        cif = torch.from_numpy(golden[f'{name}_cif']).to(device)
+        for n_cells in (config.n_hr_cells, config.crowd().n_hr_cells):
+            *cells, _ = select_cells(cif, GOLDEN_STRIDE,
+                                     threshold=config.cifhr_threshold,
+                                     min_scale=config.cifhr_min_scale,
+                                     n_cells=n_cells)
+            out[f'{name} K={n_cells}'] = cells
+    return out
+
+
+def cifhr_cases(shapes, hr_h, hr_w, device):
+    """{label: (x, y, sigma, w)} of the CifHr kernel's timed cases: seeded
+    :func:`random_cells` for each (F, K) of ``shapes`` on the (hr_h, hr_w)
+    map, then :func:`golden_cells` (whose map is GOLDEN_HW at
+    GOLDEN_STRIDE)."""
+    cases = {f'F={f} K={k}': random_cells(f, k, hr_h, hr_w, seed=f + k,
+                                          device=device)
+             for f, k in shapes}
+    cases.update({f'golden {name}': cells
+                  for name, cells in golden_cells(device).items()})
+    return cases
+
+
 def backbone_kernel_inputs(kernel, shape, *, k=5, dilation=1, act=False,
                            leaky=False, dtype=torch.float32, device='cpu',
                            seed=0):
