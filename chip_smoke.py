@@ -30,11 +30,23 @@ Phases, each of which raises on failure (non-zero exit):
    must give the stored JAX poses within the tie-free parity gate, go
    through the kernel and escalate the 40-person scene to the crowd tier;
    then each scene's warm batch-1 decode time;
+5b. decoder configurations: the golden scenes decoded under every run of
+   ``torch_port_helpers.golden_runs`` (each CifHr impl, greedy,
+   block_joints, force-complete with and without the NMS before it, the
+   decoding order, initial poses, each ablation, ``CifCafDense``; the
+   40-person scene lazy and with force-complete through the crowd tier),
+   each built from the decoder's CLI flags: the stored JAX poses within
+   the gate, equal decoding orders and ids, the CifHr kernel's launches
+   (some under 'auto' and 'pallas', none under 'lazy', 'dense' and the
+   CifHr skip), and the warm batch-1 decode time, device ops and stream
+   syncs per decode (``torch.profiler``);
 6. main path: a full-width shufflenetv2k16 cocokp ``Predictor`` (random
    weights from seed 0) answers three single-image requests and one batch
-   of two 481x641 images, with field shapes and values checked, and the
-   CifHr kernel's launch count read around that run; each request's
-   end-to-end, NN and decode time per image;
+   of two 481x641 images, then one request each with
+   ``--force-complete-pose`` and ``--greedy`` (flags parsed by the predict
+   CLI), with field shapes and values checked, and the CifHr kernel's
+   launch count read around that run; each request's end-to-end, NN and
+   decode time per image;
 7. backbone engines: the same model served with ``backbone_engine``
    ``'dwpallas'``, ``'pallas'`` and ``'folded'`` on the same requests: each
    engine's fields equal the module graph's (TF32 off), its kernel
@@ -262,17 +274,35 @@ def cifhr_splat_pixels(x, y, sigma, w, hr_h, hr_w):
     return int(total)
 
 
-def device_ops(fn):
-    """Names of the device ops that one call of ``fn`` issues."""
+def device_ops(fn, n=1):
+    """Names of the device ops of ``n`` calls of ``fn`` in one
+    ``torch.profiler`` session, after one call outside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
     return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def start_profiler():
+    """Profile small ops until a session records a device op: the
+    profiler's first session in a process can miss every launch (and any
+    session its first ones), so the sessions that count come after this."""
+    x = torch.ones(1024, device='cuda')
+    for _ in range(5):
+        if device_ops(lambda: x.add_(1), 10):
+            return
+    raise AssertionError('torch.profiler recorded no device op in 5 '
+                         'sessions of 10 launches')
+
+
+#: calls in one session of the one-op-per-call check
+OPS_CHECK_CALLS = 10
 
 
 def phase_kernel(cifhr, cifhr_cuda, device, card):
@@ -302,10 +332,14 @@ def phase_kernel(cifhr, cifhr_cuda, device, card):
             raise AssertionError(f'CifHr kernel vs plain at {label}: not '
                                  f'bit-equal, max abs err {err}')
         call = functools.partial(cifhr_cuda.accumulate, *cells, **kw)
-        ops = device_ops(call)
-        if len(ops) != 1 or 'cifhr_band_kernel' not in ops[0]:
-            raise AssertionError(f'CifHr call at {label}: device ops {ops}, '
-                                 'want the kernel alone')
+        # the profiler can miss a session's first launches: at most one op
+        # per call, each the kernel, and most calls recorded
+        ops = device_ops(call, OPS_CHECK_CALLS)
+        if not (OPS_CHECK_CALLS // 2 <= len(ops) <= OPS_CHECK_CALLS
+                and all('cifhr_band_kernel' in op for op in ops)):
+            raise AssertionError(f'CifHr call at {label}: device ops {ops} '
+                                 f'in {OPS_CHECK_CALLS} calls, want the '
+                                 'kernel alone once per call')
         if n_fields not in floors:
             out = torch.empty_like(plain)
             floors[n_fields] = device_ms(out.zero_, 20)
@@ -370,6 +404,83 @@ def phase_golden(cifhr_cuda, device, card):
         log(f'golden {name} decode, batch 1, warm: median '
             f'{np.median(seconds[1:]) * 1e3:.2f} ms of '
             f'{[round(s * 1e3, 2) for s in seconds[1:]]} [{card}]')
+
+
+#: the CUDA runtime calls that wait for the card, in a profiled run
+SYNC_CALLS = ('cudaStreamSynchronize', 'cudaDeviceSynchronize',
+              'cudaEventSynchronize')
+
+
+def decode_profile(fn):
+    """(device ops, stream syncs, device busy ms) of one call of ``fn``
+    from ``torch.profiler``: the CUDA device events, the CUDA runtime's
+    synchronising calls (less the profiler's closing one) and the sum of
+    the device events' times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    ops = [e for e in events if e.device_type == DeviceType.CUDA]
+    syncs = sum(e.device_type == DeviceType.CPU and e.name in SYNC_CALLS
+                for e in events) - 1
+    busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    return len(ops), syncs, busy
+
+
+def phase_configs(cifhr_cuda, device, card):
+    """Every run of ``golden_runs`` on the card, each decoder built from
+    its CLI flags: the golden JAX poses within the gate, the decoding
+    order and ids where the golden file has them, the crowd tier for the
+    40-person scene only, the CifHr kernel's launches as the run expects;
+    then the warm batch-1 decode time (median of 5 after one), and the
+    device ops, stream syncs and device busy time of one profiled
+    decode."""
+    from torch_port_helpers import GOLDEN_STRIDE, assert_pose_gate, \
+        golden_inputs, golden_runs, order_rows, port_decoder, pose_rows
+
+    golden = np.load(GOLDEN)
+    for label, scene, config, flags, overrides, key, kernel in golden_runs():
+        decoder = port_decoder(GOLDEN_STRIDE, flags, overrides)
+        fields, initial = golden_inputs(golden, scene, config, key, device)
+
+        def decode():
+            return decoder.batch_decode(fields, initial)[0]
+
+        before = cifhr_cuda.LAUNCHES
+        anns = decode()
+        launches = cifhr_cuda.LAUNCHES - before
+        if (launches > 0) != kernel:
+            raise AssertionError(f'config {label}: {launches} CifHr kernel '
+                                 f'launches, want {"some" if kernel else 0}')
+        assert_pose_gate(list(pose_rows(anns)), list(golden[f'{key}_poses']))
+        if f'{key}_order' in golden.files:
+            np.testing.assert_array_equal(order_rows(anns),
+                                          golden[f'{key}_order'])
+        if f'{key}_ids' in golden.files:
+            ids = [-1 if a.id_ is None else a.id_ for a in anns]
+            np.testing.assert_array_equal(ids, golden[f'{key}_ids'])
+        want = [0] if scene == 'crowd' else []
+        if decoder.last_escalated != want:
+            raise AssertionError(f'config {label}: crowd tier for '
+                                 f'{decoder.last_escalated}, want {want}')
+        seconds = []
+        for _ in range(6):
+            decode()
+            seconds.append(decoder.last_decoder_time)
+        ms = float(np.median(seconds[1:])) * 1e3
+        ops, syncs, busy = decode_profile(decode)
+        log(f'config {label}: {len(anns)} poses match the JAX decode'
+            f'{" (decoding order too)" if key + "_order" in golden.files else ""}'
+            f', {launches} CifHr kernel launches, crowd tier for '
+            f'{decoder.last_escalated}; warm batch-1 decode {ms:.2f} ms '
+            f'(median of {[round(t * 1e3, 2) for t in seconds[1:]]}), '
+            f'{ops} device ops, {syncs} stream syncs, device busy '
+            f'{busy:.3f} ms per decode [{card}]')
 
 
 def check_fields_against_cpu(predictor, device):
@@ -588,13 +699,33 @@ def serve(predictor, requests, card, label):
     return len(seen)
 
 
+def flagged_predictor(model, device, flag):
+    """A Predictor of ``model`` whose decoder the predict CLI configured
+    with ``flag`` (the decoder's class settings are put back after)."""
+    from openpifpaf_tpu_torch import decoder, predict
+    from openpifpaf_tpu_torch.predictor import Predictor
+    from torch_port_helpers import restored_statics
+
+    with restored_statics(decoder.CifCaf, decoder.CifCafDense):
+        predict.cli(['request.jpg', flag])
+        return Predictor(model=model, device=device)
+
+
 def phase_main_path(port, device, card):
     from openpifpaf_tpu_torch.predictor import Predictor
 
     predictor = Predictor(device=device)
     check_fields_against_cpu(predictor, device)
+    flagged = {flag: flagged_predictor(predictor.model, device, flag)
+               for flag in ('--force-complete-pose', '--greedy')}
+    for flag, field in (('--force-complete-pose', 'force_complete'),
+                        ('--greedy', 'greedy')):
+        if not getattr(flagged[flag].processor.config, field):
+            raise AssertionError(f'{flag} did not reach the decoder')
     reset_launches(port)
     serve(predictor, make_requests(), card, 'module graph')
+    for flag, p in flagged.items():
+        serve(p, make_requests()[:1], card, f'module graph {flag}')
     launches = read_launches(port)
     if launches['cifhr_accumulate'] == 0:
         raise AssertionError('main path never launched the CifHr kernel')
@@ -829,9 +960,11 @@ def main():
 
     port = import_port()
     phase_build(port)
+    start_profiler()
     cifhr_rows = phase_kernel(port.cifhr, port.cifhr_cuda, device, card)
     backbone_results = phase_backbone_kernels(port, device, card)
     phase_golden(port.cifhr_cuda, device, card)
+    phase_configs(port.cifhr_cuda, device, card)
     predictor, cifhr_launches = phase_main_path(port, device, card)
     launches, predictors = phase_engines(port, predictor, device, card)
     launches['cifhr_accumulate'] = cifhr_launches

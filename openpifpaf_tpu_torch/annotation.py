@@ -28,6 +28,13 @@ class Annotation(Base):
 
         self.data = np.zeros((len(keypoints), 3), dtype=np.float32)
         self.joint_scales = np.zeros((len(keypoints),), dtype=np.float32)
+        #: track id of a tracked annotation (kept from the initial pose)
+        self.id_ = None
+        #: (jsi, jti, jsxyv, jtxyv) per committed joint, in commit order,
+        #: and the (source, target) edges of the frontier at convergence,
+        #: filled by a decode with ``export_decoding_order``
+        self.decoding_order = []
+        self.frontier_order = []
 
         if score_weights is None:
             score_weights = np.ones((len(keypoints),), dtype=np.float32)

@@ -1,3 +1,3 @@
 """Decoders of the port (counterparts of ``openpifpaf_tpu/decoder``)."""
 
-from .cifcaf import CifCaf, cli, configure, factory
+from .cifcaf import CifCaf, CifCafDense, cli, configure, factory

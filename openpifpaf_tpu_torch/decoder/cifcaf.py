@@ -1,6 +1,7 @@
-"""CifCaf decoder (port of ``openpifpaf_tpu/decoder/cifcaf.py`` and
-``decoder/base.py``): CLI-configurable thresholds and budgets, the
-adaptive two-tier decode and the tensor -> Annotation conversion.
+"""CifCaf decoders (port of ``openpifpaf_tpu/decoder/cifcaf.py``):
+CLI-configurable thresholds, ablations and budgets, the adaptive two-tier
+decode, initial (tracked) poses, the decoding order, the tensor ->
+Annotation conversion, and ``CifCafDense`` over sparse + dense CAF heads.
 """
 
 import argparse
@@ -20,21 +21,34 @@ LOG = logging.getLogger(__name__)
 
 
 class CifCaf:
-    # CLI-configurable statics (the JAX decoder's flags that the port has)
+    # CLI-configurable statics (the JAX decoder's flags)
+    force_complete = False
     keypoint_threshold = 0.15
     keypoint_threshold_rel = 0.5
+    greedy = False
     reverse_match = True
+    nms_before_force_complete = False
     instance_threshold = 0.15
     seed_threshold = 0.2
     keypoint_threshold_nms = 0.15
+    force_complete_caf_th = 0.001
     cifhr_threshold = 0.3
     caf_score_th = 0.3
     connection_method = 'blend'
+    block_joints = False
+    seed_rescore = True
+    seed_ablation_nms = False
+    caf_rescore = True
+    ablation_independent_kp = False
     n_seeds = 256
     n_poses = 96
     #: pose budget of the crowd tier (None: the auto-scaled budget)
     n_poses_crowd = None
     n_hr_cells = 256
+    #: record each joint's committing edge and step and fill
+    #: Annotation.decoding_order / frontier_order (set by the callers that
+    #: draw them, as the JAX package's show CLI does)
+    export_decoding_order = False
 
     def __init__(self, cif_meta: headmeta.Cif, caf_meta: headmeta.Caf):
         self.cif_meta = cif_meta
@@ -49,17 +63,27 @@ class CifCaf:
 
         self.config = CifCafDecoderConfig(
             cifhr_threshold=self.cifhr_threshold,
+            cifhr_skip=not self.seed_rescore and not self.caf_rescore,
             seed_threshold=self.seed_threshold,
+            seed_rescore=self.seed_rescore,
+            seed_ablation_nms=self.seed_ablation_nms,
             caf_score_th=self.caf_score_th,
+            caf_rescore=self.caf_rescore,
             keypoint_threshold=self.keypoint_threshold,
             keypoint_threshold_rel=self.keypoint_threshold_rel,
             reverse_match=self.reverse_match,
             connection_method=self.connection_method,
+            greedy=self.greedy,
+            block_joints=self.block_joints,
+            force_complete=self.force_complete,
+            force_complete_caf_th=self.force_complete_caf_th,
+            nms_before_force_complete=self.nms_before_force_complete,
             nms_instance_threshold=self.instance_threshold,
             nms_keypoint_threshold=self.keypoint_threshold_nms,
             n_seeds=self.n_seeds,
             n_poses=self.n_poses,
             n_hr_cells=self.n_hr_cells,
+            export_decoding_order=self.export_decoding_order,
         )
 
     @classmethod
@@ -69,6 +93,16 @@ class CifCaf:
                            type=float, help='cif threshold')
         group.add_argument('--caf-th', default=cls.caf_score_th,
                            type=float, help='caf threshold')
+        group.add_argument('--force-complete-pose', dest='force_complete',
+                           default=cls.force_complete, action='store_true')
+        group.add_argument('--force-complete-caf-th', type=float,
+                           default=cls.force_complete_caf_th,
+                           help='CAF threshold for force complete. '
+                                'Set to -1 to deactivate.')
+        group.add_argument('--nms-before-force-complete',
+                           default=False, action='store_true',
+                           help='run an additional NMS before '
+                                'completing poses')
         group.add_argument('--keypoint-threshold', type=float,
                            default=cls.keypoint_threshold,
                            help='filter keypoints by score')
@@ -80,12 +114,24 @@ class CifCaf:
                            help='filter instances by score')
         group.add_argument('--seed-threshold', type=float,
                            default=cls.seed_threshold)
+        group.add_argument('--greedy', default=cls.greedy,
+                           action='store_true')
         group.add_argument('--connection-method',
                            default=cls.connection_method,
                            choices=('blend', 'max'),
                            help='connection blending (cifcaf.cpp:32-113)')
+        group.add_argument('--cifcaf-block-joints', default=False,
+                           action='store_true', help='block joints')
         group.add_argument('--no-reverse-match', dest='reverse_match',
                            default=True, action='store_false')
+        group.add_argument('--ablation-cifseeds-nms',
+                           default=False, action='store_true')
+        group.add_argument('--ablation-cifseeds-no-rescore',
+                           default=False, action='store_true')
+        group.add_argument('--ablation-caf-no-rescore',
+                           default=False, action='store_true')
+        group.add_argument('--ablation-independent-kp',
+                           default=False, action='store_true')
         group.add_argument('--decoder-seeds', type=int, default=cls.n_seeds,
                            help='static seed budget of the decoder')
         group.add_argument('--decoder-poses', type=int, default=cls.n_poses,
@@ -98,22 +144,42 @@ class CifCaf:
     def configure(cls, args: argparse.Namespace):
         cls.cifhr_threshold = args.cif_th
         cls.caf_score_th = args.caf_th
+        cls.force_complete = args.force_complete
+        cls.force_complete_caf_th = args.force_complete_caf_th
+        cls.nms_before_force_complete = args.nms_before_force_complete
         cls.keypoint_threshold = args.keypoint_threshold
         cls.keypoint_threshold_rel = args.keypoint_threshold_rel
+        # force-complete zeroes the growth thresholds and the NMS keypoint
+        # threshold; --ablation-independent-kp keeps the growth keypoint
+        # threshold
         cls.keypoint_threshold_nms = args.keypoint_threshold
+        if args.force_complete:
+            if not args.ablation_independent_kp:
+                cls.keypoint_threshold = 0.0
+            cls.keypoint_threshold_rel = 0.0
+            cls.keypoint_threshold_nms = 0.0
         if args.seed_threshold < cls.keypoint_threshold:
             cls.keypoint_threshold = args.seed_threshold
         cls.instance_threshold = args.instance_threshold
         cls.seed_threshold = args.seed_threshold
+        cls.greedy = args.greedy
         cls.connection_method = args.connection_method
+        cls.block_joints = args.cifcaf_block_joints
         cls.reverse_match = args.reverse_match
+        cls.seed_ablation_nms = args.ablation_cifseeds_nms
+        cls.seed_rescore = not args.ablation_cifseeds_no_rescore
+        cls.caf_rescore = not args.ablation_caf_no_rescore
+        cls.ablation_independent_kp = args.ablation_independent_kp
         cls.n_seeds = args.decoder_seeds
         cls.n_poses = args.decoder_poses
         cls.n_poses_crowd = args.decoder_crowd_poses
 
     @classmethod
     def factory(cls, head_metas) -> List['CifCaf']:
-        """Pair adjacent (Cif, Caf) metas."""
+        """Pair adjacent (Cif, Caf) metas; none when ``--dense-connections``
+        asks for :class:`CifCafDense`."""
+        if CifCafDense.dense_coupling:
+            return []
         return [
             cls(cif_meta, caf_meta)
             for cif_meta, caf_meta in zip(head_metas, head_metas[1:])
@@ -127,15 +193,17 @@ class CifCaf:
             cfg = dataclasses.replace(cfg, n_poses=self.n_poses_crowd)
         return cfg
 
-    def _decode(self, stride, cif, caf, crowd=False):
+    def _decode(self, stride, cif, caf, initial_poses=None, crowd=False):
         return decode_cifcaf(
-            cif, caf, stride=stride, skeleton=self.skeleton,
+            cif, caf, initial_poses, stride=stride, skeleton=self.skeleton,
             config=self._crowd_config() if crowd else self.config,
             n_keypoints=self.n_keypoints)
 
     def _decode_adaptive(self, stride, args):
-        """Fast-tier decode of the batch, then crowd-tier re-decode of the
-        images that exceeded a budget. Returns numpy (poses, keep, order)."""
+        """Fast-tier decode of the batch (``args``: cif, caf[, initial
+        poses]), then crowd-tier re-decode of the images that exceeded a
+        budget. Returns numpy (poses, keep, order[, commit_edge,
+        commit_step])."""
         *parts, overflow = self._decode(stride, *args)
         return self._escalate(stride, args, parts, overflow)
 
@@ -178,9 +246,30 @@ class CifCaf:
             out.append(p)
         return out
 
-    def batch_decode(self, fields_batch):
-        """fields_batch: list over head indices of (B, F, C, H, W) tensors.
-        Returns one list of annotations per image."""
+    def _initial_poses(self, initial_annotations_batch, batch, device):
+        """(B, K_init, n_kp, 4) initial poses, K_init the largest count
+        rounded up to a multiple of 8 (at least 8), and (B, K_init) ids
+        (-1: none)."""
+        n_init = max((len(anns) for anns in initial_annotations_batch),
+                     default=0)
+        k_init = max(8, int(np.ceil(n_init / 8)) * 8)
+        poses = np.zeros((batch, k_init, self.n_keypoints, 4),
+                         dtype=np.float32)
+        ids = np.full((batch, k_init), -1, dtype=np.int64)
+        for b, anns in enumerate(initial_annotations_batch):
+            for i, ann in enumerate(anns[:k_init]):
+                poses[b, i, :, 0] = ann.data[:, 2]
+                poses[b, i, :, 1] = ann.data[:, 0]
+                poses[b, i, :, 2] = ann.data[:, 1]
+                poses[b, i, :, 3] = ann.joint_scales
+                ids[b, i] = getattr(ann, 'id_', -1) or -1
+        return torch.from_numpy(poses).to(device), ids
+
+    def batch_decode(self, fields_batch, initial_annotations_batch=None):
+        """fields_batch: list over head indices of (B, F, C, H, W) tensors;
+        initial_annotations_batch: optional list over images of annotations
+        (e.g. tracked from the previous frame) that grow first and keep
+        their ``id_``. Returns one list of annotations per image."""
         cif = fields_batch[self.cif_meta.head_index]
         caf = fields_batch[self.caf_meta.head_index]
         cif, caf = (torch.as_tensor(f, dtype=torch.float32)
@@ -189,15 +278,30 @@ class CifCaf:
         assert stride == self.caf_meta.stride
 
         start = time.perf_counter()
-        poses, keep, order = self._decode_adaptive(stride, (cif, caf))
+        args = (cif, caf)
+        ids_batch = None
+        if initial_annotations_batch is not None:
+            initial_poses, ids_batch = self._initial_poses(
+                initial_annotations_batch, cif.shape[0], cif.device)
+            args += (initial_poses,)
+        poses, keep, order, *commit = self._decode_adaptive(stride, args)
         self.last_decoder_time = time.perf_counter() - start
-        return [self.annotations_from_tensor(poses[i], keep[i], order[i])
-                for i in range(poses.shape[0])]
+        return [
+            self.annotations_from_tensor(
+                poses[i], keep[i], order[i],
+                ids=None if ids_batch is None else ids_batch[i],
+                commit_edge=commit[0][i] if commit else None,
+                commit_step=commit[1][i] if commit else None)
+            for i in range(poses.shape[0])
+        ]
 
-    def __call__(self, fields):
-        return self.batch_decode([f[None] for f in fields])[0]
+    def __call__(self, fields, initial_annotations=None):
+        initial = [initial_annotations] if initial_annotations else None
+        return self.batch_decode([f[None] for f in fields], initial)[0]
 
-    def annotations_from_tensor(self, poses, keep, order):
+    def annotations_from_tensor(self, poses, keep, order, ids=None,
+                                commit_edge=None, commit_step=None):
+        n_edges = len(self.skeleton)
         annotations = []
         for idx in order:
             if not keep[idx]:
@@ -209,25 +313,128 @@ class CifCaf:
             ann.data[:, 1] = pose[:, 2]
             ann.data[:, 2] = pose[:, 0]
             ann.joint_scales = pose[:, 3].copy()
+            if ids is not None and idx < len(ids) and ids[idx] != -1:
+                ann.id_ = int(ids[idx])
+            if commit_edge is not None:
+                self._fill_decoding_order(ann, commit_edge[idx],
+                                          commit_step[idx], n_edges)
             annotations.append(ann)
         LOG.debug('annotations %d', len(annotations))
         return annotations
 
+    def _fill_decoding_order(self, ann, commit_edge, commit_step, n_edges):
+        """decoding_order entries (jsi, jti, jsxyv, jtxyv) in commit order,
+        and frontier_order: the directed edges whose target was never
+        connected. Joint coordinates come from the final pose (a committed
+        joint never changes)."""
+        committed = [(int(s), int(e)) for e, s in
+                     zip(commit_edge, commit_step) if e >= 0]
+        for _, edge in sorted(committed):
+            if edge < n_edges:
+                jsi, jti = (int(self.skeleton[edge][0]) - 1,
+                            int(self.skeleton[edge][1]) - 1)
+            else:
+                jti, jsi = (int(self.skeleton[edge - n_edges][0]) - 1,
+                            int(self.skeleton[edge - n_edges][1]) - 1)
+            ann.decoding_order.append(
+                (jsi, jti, ann.data[jsi].copy(), ann.data[jti].copy()))
+        connected = {jti for _, jti, _, __ in ann.decoding_order}
+        v = ann.data[:, 2]
+        # --cifcaf-block-joints marks unreachable targets with v = 1e-5 at
+        # the origin: they are no frontier
+        blocked = (v > 0.0) & (ann.data[:, 0] == 0.0) \
+            & (ann.data[:, 1] == 0.0)
+        for jsi, jti in (self.skeleton - 1):
+            for s, t in ((int(jsi), int(jti)), (int(jti), int(jsi))):
+                if v[s] > 0 and v[t] <= 1e-5 and t not in connected \
+                        and not blocked[t]:
+                    ann.frontier_order.append((s, t))
+
+
+class CifCafDense:
+    """Decode with the sparse and the dense CAF fields concatenated along
+    the edge axis (``--dense-connections``)."""
+
+    dense_coupling = 0.0
+
+    def __init__(self, cif_meta: headmeta.Cif, caf_meta: headmeta.Caf,
+                 dense_caf_meta: headmeta.Caf):
+        self.cif_meta = cif_meta
+        self.caf_meta = caf_meta
+        self.dense_caf_meta = dense_caf_meta
+        self.last_decoder_time = 0.0
+
+        self.dense_caf_meta.decoder_confidence_scales = [
+            self.dense_coupling for _ in self.dense_caf_meta.skeleton]
+        concatenated = headmeta.Caf.concatenate([caf_meta, dense_caf_meta])
+        self.cifcaf = CifCaf(cif_meta, concatenated)
+
+    @property
+    def last_escalated(self):
+        return self.cifcaf.last_escalated
+
+    @classmethod
+    def cli(cls, parser: argparse.ArgumentParser):
+        group = parser.add_argument_group('CifCafDense decoder')
+        group.add_argument('--dense-connections', nargs='?', type=float,
+                           default=0.0, const=1.0)
+
+    @classmethod
+    def configure(cls, args: argparse.Namespace):
+        cls.dense_coupling = args.dense_connections
+
+    @classmethod
+    def factory(cls, head_metas) -> List['CifCafDense']:
+        """(Cif, Caf, dense Caf) triples; none without a dense coupling."""
+        if len(head_metas) < 3 or not cls.dense_coupling:
+            return []
+        return [
+            cls(cif_meta, caf_meta, dense_meta)
+            for cif_meta, caf_meta, dense_meta
+            in zip(head_metas, head_metas[1:], head_metas[2:])
+            if (isinstance(cif_meta, headmeta.Cif)
+                and isinstance(caf_meta, headmeta.Caf)
+                and isinstance(dense_meta, headmeta.Caf))
+        ]
+
+    def batch_decode(self, fields_batch, initial_annotations_batch=None):
+        merged = list(fields_batch)
+        # the concatenated meta reads the sparse head's index
+        merged[self.caf_meta.head_index] = torch.cat([
+            torch.as_tensor(fields_batch[self.caf_meta.head_index]),
+            torch.as_tensor(fields_batch[self.dense_caf_meta.head_index]),
+        ], dim=1)
+        out = self.cifcaf.batch_decode(merged, initial_annotations_batch)
+        self.last_decoder_time = self.cifcaf.last_decoder_time
+        return out
+
+    def __call__(self, fields, initial_annotations=None):
+        initial = [initial_annotations] if initial_annotations else None
+        return self.batch_decode([f[None] for f in fields], initial)[0]
+
 
 def cli(parser: argparse.ArgumentParser):
     CifCaf.cli(parser)
+    CifCafDense.cli(parser)
 
 
 def configure(args: argparse.Namespace):
     CifCaf.configure(args)
+    CifCafDense.configure(args)
 
 
-def factory(head_metas) -> CifCaf:
-    """The decoder for a model's head metas: one (Cif, Caf) pair."""
-    decoders = CifCaf.factory(head_metas)
+def factory(head_metas):
+    """The decoder for a model's head metas: :class:`CifCafDense` on a
+    (Cif, Caf, dense Caf) triple when ``--dense-connections`` sets a
+    coupling, else :class:`CifCaf` on one (Cif, Caf) pair."""
+    decoders = CifCafDense.factory(head_metas) + CifCaf.factory(head_metas)
+    names = [type(m).__name__ for m in head_metas]
+    if not decoders:
+        raise ValueError(f'no decoders found for head metas {names}'
+                         + (' (--dense-connections needs a dense Caf head)'
+                            if CifCafDense.dense_coupling else ''))
     if len(decoders) != 1:
         raise NotImplementedError(
-            f'the port decodes exactly one (Cif, Caf) head pair, got '
-            f'{[type(m).__name__ for m in head_metas]} (other decoders are '
-            'ROADMAP A9/A10)')
+            f'the port decodes with one decoder, got {len(decoders)} for '
+            f'{names} (several at once, decoder/multi.py, are ROADMAP A4)')
     return decoders[0]

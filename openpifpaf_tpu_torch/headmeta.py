@@ -109,3 +109,31 @@ class Caf(Base):
     @property
     def n_fields(self) -> int:
         return len(self.skeleton)
+
+    @staticmethod
+    def concatenate(metas):
+        """One Caf meta for the fields of ``metas`` stacked along the edge
+        axis (the dense decoder's sparse + dense CAF), with the first
+        meta's head index and strides; a meta without confidence scales
+        contributes scales of 1.0."""
+        concatenated = Caf(
+            name='_'.join(m.name for m in metas),
+            dataset=metas[0].dataset,
+            keypoints=metas[0].keypoints,
+            sigmas=metas[0].sigmas,
+            pose=metas[0].pose,
+            skeleton=[s for meta in metas for s in meta.skeleton],
+            sparse_skeleton=metas[0].sparse_skeleton,
+            only_in_field_of_view=metas[0].only_in_field_of_view,
+            decoder_confidence_scales=[
+                s
+                for meta in metas
+                for s in (meta.decoder_confidence_scales
+                          if meta.decoder_confidence_scales
+                          else [1.0 for _ in meta.skeleton])
+            ],
+        )
+        concatenated.head_index = metas[0].head_index
+        concatenated.base_stride = metas[0].base_stride
+        concatenated.upsample_stride = metas[0].upsample_stride
+        return concatenated

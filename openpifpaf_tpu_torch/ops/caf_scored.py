@@ -1,6 +1,5 @@
 """CafScored: association candidates rescored by CifHr at their target
-joint (port of ``openpifpaf_tpu/ops/caf_scored.py`` on the
-materialised-CifHr path).
+joint (port of ``openpifpaf_tpu/ops/caf_scored.py``).
 
 Every CAF cell above the score threshold yields a forward candidate
 (source = joint1 end, target = joint2 end) and a backward candidate
@@ -13,20 +12,25 @@ confidence 0 for suppressed cells.
 import numpy as np
 import torch
 
-from .cifhr import cifhr_lookup
+from .cifhr import cifhr_lookup, eval_cells
 from .topk import top_k
 
 
 def caf_scored(caf, hr, stride, skeleton, *, score_th=0.3, cif_floor=0.1,
-               rescore=True, n_candidates=0, return_overflow=False):
+               rescore=True, n_candidates=0, hr_cells=None, hr_shape=None,
+               return_overflow=False):
     """Dense directed association candidates.
 
     caf: (E, 8, H, W) decoded field [logb, c, x1, y1, x2, y2, s1, s2];
-    hr: (F, HS, WS) CifHr map; skeleton: (E, 2) 1-based joint indices.
-    ``n_candidates`` > 0 compacts each edge plane to its top-K cells by
-    raw confidence (overflow flags a plane with more than K cells above
-    the threshold). Returns a dict of (2E, C) tensors c, sx, sy, tx, ty,
-    ts.
+    hr: (F, HS, WS) CifHr map, or None with ``hr_cells`` and ``hr_shape``
+    set: the lazy CifHr (:func:`.cifhr.cif_hr_cells`) is then evaluated
+    at the candidates' targets, (E, C, K) temporaries.
+    ``rescore=False`` keeps the raw confidences
+    (``--ablation-caf-no-rescore``). skeleton: (E, 2) 1-based joint
+    indices. ``n_candidates`` > 0 compacts each edge plane to its top-K
+    cells by raw confidence (overflow flags a plane with more than K cells
+    above the threshold). Returns a dict of (2E, C) tensors c, sx, sy, tx,
+    ty, ts.
     """
     n_edges, _, h, w = caf.shape
     hw = h * w
@@ -50,10 +54,19 @@ def caf_scored(caf, hr, stride, skeleton, *, score_th=0.3, cif_floor=0.1,
     if rescore:
         skeleton = torch.as_tensor(np.asarray(skeleton, dtype=np.int64),
                                    device=caf.device)
-        j1 = (skeleton[:, 0] - 1)[:, None].expand(c.shape)
-        j2 = (skeleton[:, 1] - 1)[:, None].expand(c.shape)
-        fwd_hr = cifhr_lookup(hr, j2, x2, y2, default=0.0)
-        bwd_hr = cifhr_lookup(hr, j1, x1, y1, default=0.0)
+        j1 = skeleton[:, 0] - 1
+        j2 = skeleton[:, 1] - 1
+        if hr_cells is not None:
+            hs, ws = hr_shape
+            fwd_hr = eval_cells({k: a[j2] for k, a in hr_cells.items()},
+                                x2, y2, hs=hs, ws=ws, default=0.0)
+            bwd_hr = eval_cells({k: a[j1] for k, a in hr_cells.items()},
+                                x1, y1, hs=hs, ws=ws, default=0.0)
+        else:
+            fwd_hr = cifhr_lookup(hr, j2[:, None].expand(c.shape), x2, y2,
+                                  default=0.0)
+            bwd_hr = cifhr_lookup(hr, j1[:, None].expand(c.shape), x1, y1,
+                                  default=0.0)
         c_fwd = c * (cif_floor + (1.0 - cif_floor) * fwd_hr)
         c_bwd = c * (cif_floor + (1.0 - cif_floor) * bwd_hr)
     else:

@@ -10,7 +10,9 @@ stride)``, truncated at 1 sigma. The whole map is
 
 bounded by a static top-K selection of contributing cells per field.
 :func:`accumulate_dense` is the plain PyTorch version; on CUDA tensors
-:func:`cif_hr` runs the hand-written kernel in :mod:`.cifhr_cuda`.
+:func:`cif_hr` runs the hand-written kernel in :mod:`.cifhr_cuda`. The
+lazy CifHr (:func:`cif_hr_cells`, :func:`eval_cells`) keeps the cells and
+evaluates the map only at the points the decode reads.
 """
 
 import torch
@@ -94,28 +96,85 @@ def accumulate_dense(x, y, sigma, w, *, hr_h, hr_w, neighbors=16,
     return torch.clamp_max(acc, 1.0)
 
 
+#: values of ``cif_hr``'s ``impl`` (the decoder's ``cifhr_impl`` adds
+#: ``'lazy'``, which never materialises the map: :func:`cif_hr_cells`)
+MAP_IMPLS = ('auto', 'pallas', 'dense')
+
+
 def cif_hr(cif, stride, *, threshold=0.3, min_scale=0.0, neighbors=16,
-           factor=1.0, n_cells=256, return_overflow=False):
+           factor=1.0, n_cells=256, impl='auto', return_overflow=False):
     """Full CifHr from a decoded CIF field. Returns (F, HS, WS).
 
-    The map comes from :func:`.cifhr_cuda.accumulate`: the CUDA kernel
-    for a CUDA tensor, :func:`accumulate_dense` for a CPU tensor. The
-    kernel has no per-tile budget, so the overflow flag is the
-    ``select_cells`` budget flag alone.
+    impl: ``'pallas'``, the CUDA kernel (:func:`.cifhr_cuda.accumulate`,
+    the counterpart of the Pallas kernel), which raises ``ValueError`` for
+    a tensor that is not on a CUDA device; ``'dense'``, the plain version
+    (:func:`accumulate_dense`) on any device; ``'auto'``, the kernel for a
+    CUDA tensor and the plain version for a CPU tensor. The kernel has no
+    per-tile budget, so the overflow flag is the ``select_cells`` budget
+    flag alone.
     """
-    from .cifhr_cuda import accumulate
+    from . import cifhr_cuda
 
+    if impl not in MAP_IMPLS:
+        raise ValueError(f'cif_hr: impl {impl!r} is not one of {MAP_IMPLS} '
+                         "(the lazy CifHr is cif_hr_cells + eval_cells)")
+    if impl == 'pallas' and cif.device.type != 'cuda':
+        raise ValueError(f"cif_hr(impl='pallas') needs a CUDA tensor, got "
+                         f'{cif.device}')
     _, _, h, w = cif.shape
     hr_h = (h - 1) * stride + 1
     hr_w = (w - 1) * stride + 1
     x, y, sigma, wgt, overflow = select_cells(
         cif, stride, threshold=threshold, min_scale=min_scale,
         n_cells=n_cells)
+    accumulate = accumulate_dense if impl == 'dense' \
+        else cifhr_cuda.accumulate
     hr = accumulate(x, y, sigma, wgt, hr_h=hr_h, hr_w=hr_w,
                     neighbors=neighbors, factor=factor)
     if return_overflow:
         return hr, overflow
     return hr
+
+
+def cif_hr_cells(cif, stride, *, threshold=0.3, min_scale=0.0, neighbors=16,
+                 factor=1.0, n_cells=256):
+    """Lazy CifHr: the splat cells instead of the map. The decode only
+    point-reads CifHr (seed and CAF rescoring), so :func:`eval_cells`
+    evaluates ``min(1, sum_k w_k * g_k)`` at the query points directly.
+    Returns (cells dict of (F, n_cells) tensors x, y, sigma, w with w
+    scaled by ``factor / neighbors``, hr_h, hr_w, overflow)."""
+    _, _, h, w = cif.shape
+    hr_h = (h - 1) * stride + 1
+    hr_w = (w - 1) * stride + 1
+    x, y, sigma, wgt, overflow = select_cells(
+        cif, stride, threshold=threshold, min_scale=min_scale,
+        n_cells=n_cells)
+    cells = {'x': x, 'y': y, 'sigma': sigma,
+             'w': scaled_weights(wgt, neighbors, factor)}
+    return cells, hr_h, hr_w, overflow
+
+
+def eval_cells(cells, xq, yq, *, hs, ws, default=-1.0):
+    """The lazy CifHr at query points, with the rounded-pixel semantics of
+    :func:`cifhr_lookup`. cells: dict of (..., K) tensors; xq, yq: (..., Q)
+    hi-res coordinates whose leading axes broadcast against the cells'.
+    Returns (..., Q); out-of-bounds queries give ``default``. Equals
+    :func:`accumulate_dense` + :func:`cifhr_lookup` up to float summation
+    order. Builds (..., Q, K) temporaries."""
+    inb = (xq >= -0.49) & (yq >= -0.49) & (xq <= ws - 0.51) \
+        & (yq <= hs - 0.51)
+    xi = torch.clamp(torch.floor(xq + 0.5), 0, ws - 1)
+    yi = torch.clamp(torch.floor(yq + 0.5), 0, hs - 1)
+
+    dx2 = (xi[..., :, None] - cells['x'][..., None, :]) ** 2   # (..., Q, K)
+    dy2 = (yi[..., :, None] - cells['y'][..., None, :]) ** 2
+    d2 = dx2 + dy2
+    s2 = (cells['sigma'] * cells['sigma'])[..., None, :]
+    closest = (dx2 < 0.25) & (dy2 < 0.25)
+    g = torch.where(closest, 1.0, approx_exp(-0.5 * d2 / s2))
+    contrib = torch.where(d2 <= s2, cells['w'][..., None, :] * g, 0.0)
+    val = torch.clamp_max(contrib.sum(dim=-1), 1.0)
+    return torch.where(inb, val, default)
 
 
 def cifhr_lookup(hr, f, x, y, default=-1.0):

@@ -1,14 +1,14 @@
-"""Pose growth (port of ``openpifpaf_tpu/ops/grow.py``: ``SkeletonGraph``,
-``make_skeleton_graph``, ``blend_batch``, the non-greedy
-``grow_from_pose`` and ``grow_poses``).
+"""Pose growth (port of ``openpifpaf_tpu/ops/grow.py``).
 
 The reference grows one pose at a time from a priority-queue frontier.
 Because a connection value depends only on its committed (hence fixed)
 source joint, that lazy best-first loop equals: evaluate every frontier
 edge, commit the global argmax, repeat. Poses for all seeds grow at once,
-with the lanes as a batch dimension. A lane whose best frontier value is
-0 changes nothing from then on, so exactly ``n_keypoints`` masked steps
-over all lanes give the JAX ``while_loop``'s result without a host sync.
+with the lanes as a batch dimension. Each of JAX's ``while_loop``s runs
+here as a fixed number of masked steps with no host sync: a lane that
+stops changing the loop's state computes the same step again and changes
+nothing, so the extra steps are no-ops and a step index is JAX's ``step``
+for as long as the lane is alive. Every step writes one slot per lane.
 """
 
 from typing import NamedTuple
@@ -146,19 +146,54 @@ def _connection_values(planes, planes_rev, sv, sx, sy, ss, *,
     return torch.stack([v, nx, ny, ns], dim=-1)
 
 
+def connection_value(planes, planes_rev, pose, d, dir_start, *,
+                     keypoint_threshold, keypoint_threshold_rel,
+                     reverse_match, filter_sigmas, only_max):
+    """The value (L, 4) [v, x, y, s] of directed edge ``d[l]`` for each lane
+    l of poses (L, n_kp, 4): JAX's ``connection_value`` on
+    ``grow_connection_blend``, the greedy loop's scoring of one edge per
+    lane (top-2 argmax of that edge's candidates, blend, geometric mean,
+    thresholds, reverse match). Unlike :func:`_connection_values` it has no
+    guard on the source joint's score."""
+    lanes = torch.arange(pose.shape[0], device=pose.device)
+    sv, sx, sy, ss = pose[lanes, dir_start[d]].unbind(-1)
+    nv, nx, ny, ns = blend_batch(*planes[:, d], sx, sy, ss,
+                                 filter_sigmas=filter_sigmas,
+                                 only_max=only_max)
+    v = torch.sqrt(nv * sv)
+    ok = ((nv > 0.0) & (v >= keypoint_threshold)
+          & (v >= sv * keypoint_threshold_rel))
+    if reverse_match:
+        rv, rx, ry, _ = blend_batch(*planes_rev[:, d], nx, ny, ns,
+                                    filter_sigmas=filter_sigmas,
+                                    only_max=only_max)
+        ok = ok & (rv > 0.0) & (torch.abs(sx - rx) + torch.abs(sy - ry)
+                                <= ss)
+    return torch.stack([torch.where(ok, v, 0.0), nx, ny, ns], dim=-1)
+
+
 def grow_from_pose(caf, graph: SkeletonGraph, pose0, *,
                    keypoint_threshold=0.15, keypoint_threshold_rel=0.5,
-                   reverse_match=True, filter_sigmas=1.0, only_max=False):
+                   reverse_match=True, filter_sigmas=1.0, greedy=False,
+                   only_max=False, block_joints=False, record_order=False):
     """Grow (L, n_keypoints, 4) partial poses [v, x, y, s] to completion;
     joints with v > 0 are fixed and form the initial frontier.
 
     Non-greedy: a cache holds every directed edge's connection value; each
-    step commits the best frontier edge of every lane and re-evaluates the
-    edges leaving the new joint (a committed joint is immutable, so the
-    cache stays exact). The loop has no host sync: every step writes one
-    joint per lane and a fixed number of cache slots per lane.
+    of ``n_keypoints`` steps commits the best frontier edge of every lane
+    and re-evaluates the edges leaving the new joint (a committed joint is
+    immutable, so the cache stays exact). Greedy (``cifcaf.cpp:298-307``):
+    each of ``n_keypoints + 2E`` steps takes the frontier edge of the best
+    source score, evaluates it alone (:func:`connection_value`) and commits
+    it, or marks it failed; a step commits a joint or fails an edge, so
+    that many steps cover the JAX loop.
+
+    ``block_joints`` (``--cifcaf-block-joints``) marks unreachable frontier
+    targets with v = 1e-5 at (0, 0). ``record_order`` also returns
+    (commit_edge, commit_step), (L, n_keypoints) int64: for each joint the
+    directed edge that committed it and the step, -1 where none did.
     """
-    n_lanes = pose0.shape[0]
+    n_lanes, n_kp, _ = pose0.shape
     n_dir = 2 * graph.n_edges
     dev = pose0.device
     kw = dict(keypoint_threshold=keypoint_threshold,
@@ -169,57 +204,159 @@ def grow_from_pose(caf, graph: SkeletonGraph, pose0, *,
     dir_start = torch.as_tensor(graph.dir_start, device=dev)
     dir_end = torch.as_tensor(graph.dir_end, device=dev)
     dir_reverse = torch.as_tensor(graph.dir_reverse, device=dev)
-    adjacency = torch.as_tensor(graph.adjacency, device=dev)
-    adjacency_valid = torch.as_tensor(graph.adjacency_valid, device=dev)
     planes = torch.stack([caf[k] for k in _PLANES])      # (6, n_dir, C)
     planes_rev = planes[:, dir_reverse]
     lanes = torch.arange(n_lanes, device=dev)
-    lane_idx = lanes[:, None].expand(n_lanes, adjacency.shape[1])
 
     pose = pose0.clone()
-    src = pose[:, dir_start]                             # (L, n_dir, 4)
-    # slot n_dir is a dump row: it takes the writes of padded adjacency
-    # entries and of lanes that commit nothing, so that no real slot is
-    # written twice in one scatter
-    cache = torch.cat([
-        _connection_values(planes, planes_rev, *src.unbind(-1), **kw),
-        torch.zeros((n_lanes, 1, 4), dtype=pose.dtype, device=dev)], dim=1)
+    commit_edge = torch.full((n_lanes, n_kp), -1, dtype=torch.int64,
+                             device=dev)
+    commit_step = commit_edge.clone()
 
-    for _ in range(graph.n_keypoints):
-        target_empty = pose[:, dir_end, 0] == 0.0
-        cand = torch.where(target_empty, cache[:, :n_dir, 0], 0.0)
-        best = torch.argmax(cand, dim=1)                 # (L,)
-        commit = cand[lanes, best] > 0.0
-        new_joint = dir_end[best]
-        # one write per lane: a lane that commits nothing writes back the
-        # joint it holds
-        joint = torch.where(commit[:, None], cache[lanes, best],
-                            pose[lanes, new_joint])
-        pose[lanes, new_joint] = joint
+    def commit(step, edge, joint, ok):
+        """Record ``edge`` at ``step`` for the lanes that ``ok`` marks, one
+        write per lane."""
+        if record_order:
+            commit_edge[lanes, joint] = torch.where(
+                ok, edge, commit_edge[lanes, joint])
+            commit_step[lanes, joint] = torch.where(
+                ok, step, commit_step[lanes, joint])
 
-        # re-evaluate the edges leaving each lane's new joint
-        edges = adjacency[new_joint]                     # (L, deg)
-        update = adjacency_valid[new_joint] & commit[:, None]
-        src = joint[:, None, :].expand(n_lanes, edges.shape[1], 4)
-        vals = _connection_values(planes[:, edges], planes_rev[:, edges],
-                                  *src.unbind(-1), **kw)
-        cache[lane_idx, torch.where(update, edges, n_dir)] = vals
+    if greedy:
+        failed = torch.zeros((n_lanes, n_dir), dtype=torch.bool, device=dev)
+        for step in range(n_kp + n_dir):
+            active = ((pose[:, dir_end, 0] == 0.0)
+                      & (pose[:, dir_start, 0] > 0.0) & ~failed)
+            priority = torch.where(active, torch.sqrt(pose[:, dir_start, 0]),
+                                   -1.0)
+            best = torch.argmax(priority, dim=1)         # (L,)
+            any_active = priority[lanes, best] > 0.0
+            vals = connection_value(planes, planes_rev, pose, best,
+                                    dir_start, **kw)
+            success = any_active & (vals[:, 0] > 0.0)
+            joint = dir_end[best]
+            pose[lanes, joint] = torch.where(success[:, None], vals,
+                                             pose[lanes, joint])
+            failed[lanes, best] |= any_active & ~success
+            commit(step, best, joint, success)
+    else:
+        adjacency = torch.as_tensor(graph.adjacency, device=dev)
+        adjacency_valid = torch.as_tensor(graph.adjacency_valid, device=dev)
+        lane_idx = lanes[:, None].expand(n_lanes, adjacency.shape[1])
+        src = pose[:, dir_start]                         # (L, n_dir, 4)
+        # slot n_dir is a dump row: it takes the writes of padded adjacency
+        # entries and of lanes that commit nothing, so that no real slot is
+        # written twice in one scatter
+        cache = torch.cat([
+            _connection_values(planes, planes_rev, *src.unbind(-1), **kw),
+            torch.zeros((n_lanes, 1, 4), dtype=pose.dtype, device=dev)],
+            dim=1)
+
+        for step in range(n_kp):
+            target_empty = pose[:, dir_end, 0] == 0.0
+            cand = torch.where(target_empty, cache[:, :n_dir, 0], 0.0)
+            best = torch.argmax(cand, dim=1)             # (L,)
+            ok = cand[lanes, best] > 0.0
+            new_joint = dir_end[best]
+            # one write per lane: a lane that commits nothing writes back
+            # the joint it holds
+            joint = torch.where(ok[:, None], cache[lanes, best],
+                                pose[lanes, new_joint])
+            pose[lanes, new_joint] = joint
+            commit(step, best, new_joint, ok)
+
+            # re-evaluate the edges leaving each lane's new joint
+            edges = adjacency[new_joint]                 # (L, deg)
+            update = adjacency_valid[new_joint] & ok[:, None]
+            src = joint[:, None, :].expand(n_lanes, edges.shape[1], 4)
+            vals = _connection_values(planes[:, edges], planes_rev[:, edges],
+                                      *src.unbind(-1), **kw)
+            cache[lane_idx, torch.where(update, edges, n_dir)] = vals
+
+    if block_joints:
+        pose = _apply_block_joints(pose, dir_start, dir_end)
+    if record_order:
+        return pose, commit_edge, commit_step
     return pose
+
+
+def _apply_block_joints(pose, dir_start, dir_end):
+    """Empty joints that a filled joint's edge reaches get v = 1e-5 at
+    (0, 0) (``cifcaf.cpp:291-295``, applied at convergence)."""
+    marks = torch.zeros(pose.shape[:2], dtype=torch.int32,
+                        device=pose.device)
+    marks.index_add_(1, dir_end,
+                     (pose[:, dir_start, 0] > 0.0).to(torch.int32))
+    blocked = (marks > 0) & (pose[:, :, 0] == 0.0)
+    mark = torch.tensor([1e-5, 0.0, 0.0, 0.0], dtype=pose.dtype,
+                        device=pose.device)
+    return torch.where(blocked[..., None], mark, pose)
+
+
+def _grow_live(caf, graph, pose0, live, **kwargs):
+    """:func:`grow_from_pose` on the lanes ``live`` of (K, n_kp, 4) start
+    poses; the other lanes give zeros (and -1 commits)."""
+    record = kwargs.get('record_order', False)
+    k = pose0.shape[0]
+    dev = pose0.device
+    poses = torch.zeros_like(pose0)
+    order = torch.full((k, graph.n_keypoints), -1, dtype=torch.int64,
+                       device=dev)
+    out = (poses, order, order.clone())
+    live = torch.nonzero(live).flatten()
+    if live.numel():
+        grown = grow_from_pose(caf, graph, pose0[live], **kwargs)
+        for full, part in zip(out, grown if record else (grown,)):
+            full[live] = part
+    return out if record else poses
 
 
 def grow_poses(caf, graph: SkeletonGraph, seeds, **kwargs):
     """One pose per seed (dict of equal-length tensors f, v, x, y, s).
-    Seeds with v == 0 give all-zero poses; only the others are grown."""
+    Seeds with v == 0 give all-zero poses; only the others are grown.
+    With ``record_order`` returns (poses, commit_edge, commit_step)."""
     n = seeds['v'].shape[0]
     dev = seeds['v'].device
-    poses = torch.zeros((n, graph.n_keypoints, 4), dtype=torch.float32,
+    pose0 = torch.zeros((n, graph.n_keypoints, 4), dtype=torch.float32,
                         device=dev)
-    live = torch.nonzero(seeds['v'] > 0.0).flatten()
-    if live.numel() == 0:
-        return poses
-    pose0 = torch.zeros((live.numel(), graph.n_keypoints, 4),
-                        dtype=torch.float32, device=dev)
-    pose0[torch.arange(live.numel(), device=dev), seeds['f'][live]] = \
-        torch.stack([seeds[k][live] for k in ('v', 'x', 'y', 's')], dim=-1)
-    poses[live] = grow_from_pose(caf, graph, pose0, **kwargs)
+    pose0[torch.arange(n, device=dev), seeds['f']] = \
+        torch.stack([seeds[k] for k in ('v', 'x', 'y', 's')], dim=-1)
+    return _grow_live(caf, graph, pose0, seeds['v'] > 0.0, **kwargs)
+
+
+def grow_from_poses(caf, graph: SkeletonGraph, poses, **kwargs):
+    """:func:`grow_from_pose` on (K, n_kp, 4) initial poses; lanes with no
+    filled joint give zeros. With ``record_order`` returns (poses,
+    commit_edge, commit_step)."""
+    return _grow_live(caf, graph, poses,
+                      torch.any(poses[:, :, 0] > 0.0, dim=1), **kwargs)
+
+
+def flood_fill_poses(graph: SkeletonGraph, poses):
+    """Copy filled joints into their empty neighbours with v = 1e-5
+    (``cifcaf.cpp:429-449``), in descending source-score order, for each
+    of the (K, n_kp, 4) poses: ``n_kp`` masked steps that each fill at
+    most one joint per pose."""
+    dev = poses.device
+    dir_start = torch.as_tensor(graph.dir_start, device=dev)
+    dir_end = torch.as_tensor(graph.dir_end, device=dev)
+    lanes = torch.arange(poses.shape[0], device=dev)
+    poses = poses.clone()
+    for _ in range(graph.n_keypoints):
+        active = (poses[:, dir_end, 0] == 0.0) & (poses[:, dir_start, 0] > 0.0)
+        priority = torch.where(active, torch.sqrt(poses[:, dir_start, 0]),
+                               -1.0)
+        best = torch.argmax(priority, dim=1)
+        any_active = priority[lanes, best] > 0.0
+        src = poses[lanes, dir_start[best]]
+        new = torch.cat([torch.full_like(src[:, :1], 1e-5), src[:, 1:]],
+                        dim=1)
+        joint = dir_end[best]
+        poses[lanes, joint] = torch.where(any_active[:, None], new,
+                                          poses[lanes, joint])
     return poses
+
+
+def flood_fill_pose(graph: SkeletonGraph, pose):
+    """:func:`flood_fill_poses` of one (n_kp, 4) pose."""
+    return flood_fill_poses(graph, pose[None])[0]

@@ -1,6 +1,7 @@
 """Keypoint NMS over decoded poses with an occupancy grid (port of
 ``openpifpaf_tpu/ops/nms.py``: ``nms_keypoints`` and
-``pose_score_uniform``).
+``pose_score_uniform``; its ``mark_occupancy`` of initial poses is
+:func:`.seeds.occupancy_grid` here, the same grid).
 
 Annotations are processed in descending score order; joints that land on
 an occupied cell are suppressed (v *= 1e-5), surviving joints mark a

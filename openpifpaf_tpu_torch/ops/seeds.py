@@ -1,5 +1,5 @@
 """CifSeeds: seed extraction from CIF fields, rescored by CifHr (port of
-``openpifpaf_tpu/ops/seeds.py`` on the materialised-CifHr path).
+``openpifpaf_tpu/ops/seeds.py``).
 
 Cells with confidence >= threshold are rescored
 ``c' = 0.9 * cifhr(x, y) + 0.1 * c`` and taken in descending order under
@@ -14,8 +14,9 @@ are fixpoints; here each round ends in a host-side "changed?" test
 """
 
 import torch
+import torch.nn.functional as F
 
-from .cifhr import cifhr_lookup
+from .cifhr import cifhr_lookup, eval_cells
 from .topk import top_k
 
 
@@ -53,17 +54,48 @@ def _query_cell(x, y, gh, gw):
     return xi, yi
 
 
+def _max_pool3(planes):
+    """3x3 max of each (F, H, W) plane at every cell, the window clipped
+    at the borders (``reduce_window`` with a -inf init and 'SAME')."""
+    return F.max_pool2d(planes, kernel_size=3, stride=1, padding=1)
+
+
+def local_peaks(conf, *, break_ties):
+    """(F, H, W) bool: cells whose confidence is a 3x3 local maximum
+    (``cif_seeds.cpp:36-51``). With ``break_ties``, of the peaks within one
+    3x3 window only the one of largest linear index stays, which keeps one
+    cell per confidence plateau (two peaks in one window have equal
+    confidence). The indices pool as float64, exact below 2^53."""
+    peak = conf >= _max_pool3(conf)
+    if break_ties:
+        n_fields, h, w = conf.shape
+        idx = torch.arange(h * w, dtype=torch.float64,
+                           device=conf.device).reshape(1, h, w)
+        idx = idx.expand(n_fields, h, w)
+        pooled = _max_pool3(torch.where(peak, idx, -1.0))
+        peak = peak & (idx >= pooled)
+    return peak
+
+
 def cif_seeds(cif, hr, stride, *, threshold=0.2, n_seeds=256, rescore=True,
+              nms=False, blob_compact=False, hr_cells=None, hr_shape=None,
               return_candidates=False):
     """Top-``n_seeds`` seeds, sorted by v descending.
 
-    cif: (F, 5, H, W); hr: (F, HS, WS) materialised CifHr.
-    Returns a dict of length-``n_seeds`` tensors f (int64), v, x, y, s
-    (hi-res pixels); invalid seeds have v == 0. With ``return_candidates``
-    also the dense (F * H * W,) candidate dict ``f``/``x``/``y`` with bool
-    ``dropped``: every cell that could be a seed but a static budget
-    truncated (the ``n_seeds`` top-k, or the ``4 * n_seeds`` compaction
-    before the CifHr rescore, counted by raw threshold).
+    cif: (F, 5, H, W); hr: (F, HS, WS) materialised CifHr, or None with
+    ``hr_cells`` (:func:`.cifhr.cif_hr_cells`) and ``hr_shape`` set, which
+    evaluates the lazy CifHr at the seeds instead. ``rescore=False``
+    ranks by the raw confidence (``--ablation-cifseeds-no-rescore``);
+    ``nms`` keeps only cells that are 3x3 local maxima of their confidence
+    plane (``--ablation-cifseeds-nms``); ``blob_compact`` does the same
+    with plateau ties broken, as a compaction of the seed budget that is
+    exact only for encoder-consistent fields. Returns a dict of length-``n_seeds`` tensors f (int64), v, x,
+    y, s (hi-res pixels); invalid seeds have v == 0. With
+    ``return_candidates`` also the dense (F * H * W,) candidate dict
+    ``f``/``x``/``y`` with bool ``dropped``: every cell that could be a
+    seed but a static budget truncated (the ``n_seeds`` top-k, or the
+    ``4 * n_seeds`` compaction before the CifHr rescore, counted by raw
+    threshold).
     """
     n_fields, _, h, w = cif.shape
     hw = h * w
@@ -73,6 +105,9 @@ def cif_seeds(cif, hr, stride, *, threshold=0.2, n_seeds=256, rescore=True,
     y = cif[:, 3].reshape(n_fields, hw) * stride
     s = cif[:, 4].reshape(n_fields, hw) * stride
     mask = c >= threshold
+    if nms or blob_compact:
+        peak = local_peaks(cif[:, 1], break_ties=blob_compact and not nms)
+        mask = mask & peak.reshape(n_fields, hw)
     f_idx = torch.arange(n_fields, device=cif.device)[:, None].expand(
         n_fields, hw)
     c, x, y, s, f_idx, mask = (a.reshape(-1)
@@ -86,7 +121,13 @@ def cif_seeds(cif, hr, stride, *, threshold=0.2, n_seeds=256, rescore=True,
     pre_v, pre_i = top_k(torch.where(mask, c, -torch.inf), m)
     x, y, s, f_idx = (a[pre_i] for a in (x, y, s, f_idx))
     if rescore:
-        hr_val = cifhr_lookup(hr, f_idx, x, y, default=-1.0)
+        if hr_cells is not None:
+            rows = {k: a[f_idx] for k, a in hr_cells.items()}   # (M, K)
+            hr_val = eval_cells(rows, x[:, None], y[:, None],
+                                hs=hr_shape[0], ws=hr_shape[1],
+                                default=-1.0)[:, 0]
+        else:
+            hr_val = cifhr_lookup(hr, f_idx, x, y, default=-1.0)
         v = 0.9 * hr_val + 0.1 * pre_v
     else:
         v = pre_v
@@ -119,13 +160,15 @@ def cif_seeds(cif, hr, stride, *, threshold=0.2, n_seeds=256, rescore=True,
 
 
 def seed_nms(seeds, n_fields, hr_shape, *, n_keep, reduction=2.0,
-             min_scale=4.0):
+             min_scale=4.0, occ0=None):
     """Greedy per-field occupancy suppression of redundant seeds.
 
     Seed j is rejected iff an accepted earlier seed i of the same field
     covers j's cell with its occupancy window; the acceptance closure is
-    computed by fixpoint iteration. Returns (n_keep,) indices of accepted
-    seeds in descending score order, and their validity mask.
+    computed by fixpoint iteration. ``occ0`` (F, gh, gw) bool, the
+    occupancy of initial poses, rejects the seeds whose cell it covers.
+    Returns (n_keep,) indices of accepted seeds in descending score
+    order, and their validity mask.
     """
     del n_fields  # fields are compared by index; kept for the JAX signature
     gh, gw = _grid_shape(hr_shape, reduction)
@@ -147,6 +190,8 @@ def seed_nms(seeds, n_fields, hr_shape, *, n_keep, reduction=2.0,
               & (rank[:, None] < rank[None, :]))
 
     valid = v > 0.0
+    if occ0 is not None:
+        valid = valid & ~occ0[f, yi.to(torch.int64), xi.to(torch.int64)]
     accepted = _fixpoint(
         lambda accept: valid & ~torch.any(accept[:, None] & covers, dim=0),
         valid)
@@ -159,16 +204,19 @@ def seed_nms(seeds, n_fields, hr_shape, *, n_keep, reduction=2.0,
 
 
 def seed_rank_dedup(poses, seed_f, seed_x, seed_y, valid, hr_shape, *,
-                    reduction=2.0, min_scale=4.0):
+                    n_initial=0, reduction=2.0, min_scale=4.0):
     """Accept or reject grown lanes like the reference's sequential seed
-    gate: lane j is accepted iff no earlier-ranked accepted lane's pose
-    has a visible joint ``seed_f[j]`` whose occupancy window covers seed
-    j's cell. poses: (K, n_kp, 4) in seed-rank order. Returns (K,) bool.
+    gate: seed lane j is accepted iff no earlier-ranked accepted lane's
+    pose has a visible joint ``seed_f[j]`` whose occupancy window covers
+    seed j's cell. poses: (K, n_kp, 4), the ``n_initial`` lanes of initial
+    poses first (always accepted: they grow before any seed), then the
+    seed lanes in seed-rank order; seed_f/x/y and valid: (K - n_initial,).
+    Returns (K,) bool.
     """
     k = poses.shape[0]
     gh, gw = _grid_shape(hr_shape, reduction)
 
-    # blocker lane i's joint seed_f[j] for every seed lane j: (K, K, 4)
+    # blocker lane i's joint seed_f[j] for every seed lane j: (K, Ks, 4)
     rows = poses[:, seed_f, :]
     jv = rows[..., 0]
     jx = rows[..., 1] / reduction
@@ -181,10 +229,12 @@ def seed_rank_dedup(poses, seed_f, seed_x, seed_y, valid, hr_shape, *,
     covers = ((jv > 0.0)
               & (xi[None, :] >= minx) & (xi[None, :] < maxx)
               & (yi[None, :] >= miny) & (yi[None, :] < maxy)
-              & (rank[:, None] < rank[None, :]))
+              & (rank[:, None] < rank[None, n_initial:]))       # (K, Ks)
+    always = torch.ones((n_initial,), dtype=torch.bool, device=poses.device)
     return _fixpoint(
-        lambda accept: valid & ~torch.any(accept[:, None] & covers, dim=0),
-        valid)
+        lambda accept: torch.cat([always, valid & ~torch.any(
+            accept[:, None] & covers, dim=0)]),
+        torch.cat([always, valid]))
 
 
 def occupancy_grid(poses, hr_shape, *, reduction=2.0, min_scale=4.0):

@@ -33,6 +33,26 @@ COCO_PERSON_SKELETON = [
     (2, 4), (3, 5), (4, 6), (5, 7),
 ]
 
+DENSER_COCO_PERSON_SKELETON = [
+    (1, 2), (1, 3), (2, 3), (1, 4), (1, 5), (4, 5),
+    (1, 6), (1, 7), (2, 6), (3, 7),
+    (2, 4), (3, 5), (4, 6), (5, 7), (6, 7),
+    (6, 12), (7, 13), (6, 13), (7, 12), (12, 13),
+    (6, 8), (7, 9), (8, 10), (9, 11), (6, 10), (7, 11),
+    (8, 9), (10, 11),
+    (10, 12), (11, 13),
+    (10, 14), (11, 15),
+    (14, 12), (15, 13), (12, 15), (13, 14),
+    (12, 16), (13, 17),
+    (16, 14), (17, 15), (14, 17), (15, 16),
+    (14, 15), (16, 17),
+]
+
+DENSER_COCO_PERSON_CONNECTIONS = [
+    c for c in DENSER_COCO_PERSON_SKELETON
+    if c not in COCO_PERSON_SKELETON
+]
+
 COCO_PERSON_SIGMAS = [
     0.026, 0.025, 0.025, 0.035, 0.035, 0.079, 0.079, 0.072, 0.072,
     0.062, 0.062, 0.107, 0.107, 0.087, 0.087, 0.089, 0.089,
@@ -60,9 +80,10 @@ COCO_UPRIGHT_POSE = np.array([
     [1.4, 0.1, 2.0],     # right_ankle
 ])
 
-def cocokp_head_metas():
-    """The cocokp ``[cif, caf]`` head metas, as the JAX package's CocoKp
-    data module builds them without ``with_dense``
+def cocokp_head_metas(with_dense=False):
+    """The cocokp ``[cif, caf]`` head metas, and with ``with_dense`` the
+    dense ``caf25`` meta of the denser skeleton's extra connections, as
+    the JAX package's CocoKp data module builds them
     (``plugins/coco/cocokp.py:56-79`` of ``openpifpaf_tpu``)."""
     from ... import headmeta
 
@@ -77,4 +98,13 @@ def cocokp_head_metas():
                        sigmas=COCO_PERSON_SIGMAS,
                        pose=COCO_UPRIGHT_POSE,
                        skeleton=COCO_PERSON_SKELETON)
-    return [cif, caf]
+    if not with_dense:
+        return [cif, caf]
+    dcaf = headmeta.Caf('caf25', 'cocokp',
+                        keypoints=COCO_KEYPOINTS,
+                        sigmas=COCO_PERSON_SIGMAS,
+                        pose=COCO_UPRIGHT_POSE,
+                        skeleton=DENSER_COCO_PERSON_CONNECTIONS,
+                        sparse_skeleton=COCO_PERSON_SKELETON,
+                        only_in_field_of_view=True)
+    return [cif, caf, dcaf]

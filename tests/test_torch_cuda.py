@@ -1,7 +1,8 @@
 """The PyTorch port on a CUDA device: the hand-written kernels (CifHr,
 depthwise conv, fused block, branch2, and the Mosaic lab's interleave,
-VALID depthwise and branch2) against their plain versions, and the decode
-against the JAX poses of the golden file.
+VALID depthwise and branch2) against their plain versions, the CifHr
+impls against each other, and the decode under every configuration
+against the JAX poses of the golden file and against the CPU.
 
 Every test here needs a GPU (marker ``gpu``) and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a machine that
@@ -27,8 +28,9 @@ from openpifpaf_tpu_torch.ops import cifhr, cifhr_cuda
 from openpifpaf_tpu_torch.plugins.coco.constants import cocokp_head_metas
 from openpifpaf_tpu_torch.predictor import Predictor
 
-from torch_port_helpers import GOLDEN, GOLDEN_STRIDE, assert_pose_gate, \
-    backbone_kernel_inputs, lab_kernel_inputs, random_cells
+from torch_port_helpers import CONFIGS, GOLDEN, GOLDEN_SPARSE_FLAGS, \
+    GOLDEN_STRIDE, assert_pose_gate, backbone_kernel_inputs, golden_inputs, golden_runs, \
+    lab_kernel_inputs, order_rows, port_decoder, pose_rows, random_cells
 
 pytestmark = pytest.mark.gpu
 
@@ -160,8 +162,10 @@ def test_cuda_kernel_one_device_op_per_call(cuda):
     from torch.profiler import ProfilerActivity, profile
 
     cells = random_cells(17, 256, 513, 641, seed=1, device=cuda)
-    cifhr_cuda.accumulate(*cells, hr_h=513, hr_w=641)
-    torch.cuda.synchronize()
+    # the first profiler session of a process can miss its launches
+    with profile(activities=[ProfilerActivity.CUDA]):
+        cifhr_cuda.accumulate(*cells, hr_h=513, hr_w=641)
+        torch.cuda.synchronize()
     before = cifhr_cuda.LAUNCHES
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         cifhr_cuda.accumulate(*cells, hr_h=513, hr_w=641)
@@ -190,6 +194,95 @@ def test_cuda_decode_matches_golden_jax_poses(cuda):
                                 a.joint_scales[:, None]], axis=1)
                 for a in anns]
         assert_pose_gate(ours, list(golden[f'{name}_poses']))
+
+
+def test_cuda_cif_hr_pallas_launches_once_and_equals_dense(cuda):
+    """``cif_hr(impl='pallas')`` on a CUDA tensor is one kernel launch and
+    equals the plain map of ``impl='dense'`` (no launch) bit for bit;
+    ``'auto'`` launches the kernel too."""
+    cif = torch.from_numpy(np.load(GOLDEN)['sparse_cif']).to(cuda)
+    before = cifhr_cuda.LAUNCHES
+    pallas = cifhr.cif_hr(cif, GOLDEN_STRIDE, impl='pallas')
+    assert cifhr_cuda.LAUNCHES == before + 1
+    dense = cifhr.cif_hr(cif, GOLDEN_STRIDE, impl='dense')
+    assert cifhr_cuda.LAUNCHES == before + 1
+    auto = cifhr.cif_hr(cif, GOLDEN_STRIDE, impl='auto')
+    assert cifhr_cuda.LAUNCHES == before + 2
+    torch.cuda.synchronize()
+    assert float(dense.max()) > 0.5
+    np.testing.assert_array_equal(pallas.cpu().numpy(), dense.cpu().numpy())
+    np.testing.assert_array_equal(auto.cpu().numpy(), dense.cpu().numpy())
+
+
+@pytest.mark.parametrize('scene', ['sparse', 'crowd'])
+def test_cuda_lazy_cif_hr_matches_dense_lookup(cuda, scene):
+    """The lazy CifHr on the card at 4096 points per field (half near the
+    cells) against the plain map's lookup there, atol 1e-6."""
+    golden = np.load(GOLDEN)
+    cif = torch.from_numpy(golden[f'{scene}_cif']).to(cuda)
+    cells, hs, ws, _ = cifhr.cif_hr_cells(cif, GOLDEN_STRIDE, n_cells=1024)
+    g = torch.Generator(device='cpu').manual_seed(0)
+    n = 4096
+    x = (torch.rand((17, n), generator=g) * (ws + 6) - 3).to(cuda)
+    y = (torch.rand((17, n), generator=g) * (hs + 6) - 3).to(cuda)
+    near = torch.randint(0, 64, (17, n // 2), generator=g).to(cuda)
+    x[:, :n // 2] = torch.gather(cells['x'], 1, near) + 4 * torch.rand(
+        (17, n // 2), generator=g).to(cuda) - 2
+    y[:, :n // 2] = torch.gather(cells['y'], 1, near) + 4 * torch.rand(
+        (17, n // 2), generator=g).to(cuda) - 2
+    before = cifhr_cuda.LAUNCHES
+    lazy = cifhr.eval_cells(cells, x, y, hs=hs, ws=ws)
+    dense = cifhr.cif_hr(cif, GOLDEN_STRIDE, impl='dense', n_cells=1024)
+    assert cifhr_cuda.LAUNCHES == before
+    f = torch.arange(17, device=cuda)[:, None].expand(17, n)
+    ref = cifhr.cifhr_lookup(dense, f, x, y)
+    assert int((ref > 0.1).sum()) > 1000
+    np.testing.assert_allclose(lazy.cpu().numpy(), ref.cpu().numpy(),
+                               atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize('config', ['greedy', 'force_complete'])
+def test_cuda_decode_config_equals_cpu(cuda, config):
+    """The greedy and the force-complete decode of the weakened golden
+    3-person scene on CUDA tensors against the same decode on the CPU:
+    the gate, and equal decoding orders with the order recorded."""
+    golden = np.load(GOLDEN)
+    flags, overrides = CONFIGS[config]
+    decoder = port_decoder(GOLDEN_STRIDE, flags + GOLDEN_SPARSE_FLAGS,
+                           dict(overrides, export_decoding_order=True))
+    out = {}
+    for device in (cuda, torch.device('cpu')):
+        fields, _ = golden_inputs(golden, 'sparse', config,
+                                  f'sparse_{config}', device)
+        out[device.type] = decoder.batch_decode(fields)[0]
+    assert len(out['cpu']) == 3
+    assert_pose_gate(list(pose_rows(out['cuda'])),
+                     list(pose_rows(out['cpu'])))
+    np.testing.assert_array_equal(order_rows(out['cuda']),
+                                  order_rows(out['cpu']))
+
+
+@pytest.mark.parametrize('run', golden_runs(), ids=lambda r: r[0])
+def test_cuda_decode_configs_match_golden(cuda, run):
+    """Each decoder configuration on the card gives the golden JAX poses,
+    decoding orders and ids, with the CifHr kernel launched only where the
+    configuration materialises the map through it."""
+    label, scene, config, flags, overrides, key, kernel = run
+    golden = np.load(GOLDEN)
+    decoder = port_decoder(GOLDEN_STRIDE, flags, overrides)
+    fields, initial = golden_inputs(golden, scene, config, key, cuda)
+    before = cifhr_cuda.LAUNCHES
+    anns = decoder.batch_decode(fields, initial)[0]
+    assert (cifhr_cuda.LAUNCHES > before) == kernel
+    assert decoder.last_escalated == ([0] if scene == 'crowd' else [])
+    assert_pose_gate(list(pose_rows(anns)), list(golden[f'{key}_poses']))
+    if f'{key}_order' in golden.files:
+        np.testing.assert_array_equal(order_rows(anns),
+                                      golden[f'{key}_order'])
+    if f'{key}_ids' in golden.files:
+        np.testing.assert_array_equal(
+            [-1 if a.id_ is None else a.id_ for a in anns],
+            golden[f'{key}_ids'])
 
 
 #: (kernel wrapper, its plain version, its launch counter)

@@ -28,7 +28,6 @@ from openpifpaf_tpu.ops import seeds as jax_seeds
 from openpifpaf_tpu.plugins.coco.constants import COCO_PERSON_SKELETON
 from openpifpaf_tpu_torch.decoder import CifCaf
 from openpifpaf_tpu_torch.ops import caf_scored, grow, nms, seeds
-from openpifpaf_tpu_torch.ops.decode_cifcaf import CifCafDecoderConfig
 
 import torch_port_helpers as helpers
 
@@ -229,25 +228,33 @@ def test_cifcaf_crowd_escalation_matches_jax(cifhr_impl):
         helpers.assert_pose_gate(_port_poses(ours), _port_poses(theirs))
 
 
-def test_unported_config_raises():
-    from openpifpaf_tpu_torch.ops.decode_cifcaf import decode_cifcaf
-    cif, caf = helpers.sparse_scene(seed=0)
-    for field, value in (('cifhr_impl', 'lazy'), ('greedy', True),
-                         ('force_complete', True)):
-        config = CifCafDecoderConfig(**{field: value})
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            decode_cifcaf(_t(cif[None]), _t(caf[None]), stride=STRIDE,
-                          skeleton=SKELETON, config=config)
+def test_cif_hr_pallas_raises_on_cpu():
+    """``cif_hr(impl='pallas')`` is the CUDA kernel's map: on a CPU tensor
+    it raises and does not fall back to the plain map."""
+    from openpifpaf_tpu_torch.ops.cifhr import cif_hr
+    cif, _ = helpers.sparse_scene(seed=0)
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        cif_hr(_t(cif), STRIDE, impl='pallas')
+    with pytest.raises(ValueError, match='lazy'):
+        cif_hr(_t(cif), STRIDE, impl='lazy')
 
 
 def test_golden_file_matches_fresh_jax_decode():
     """``tests/golden/torch_decode_golden.npz`` (read by ``chip_smoke.py``
     on the GPU, where JAX is absent) still equals what the JAX package
-    decodes from the same scenes; rewrite it with
-    ``python tests/torch_port_helpers.py`` when the reference changes."""
+    decodes from the same scenes: here the fields and the default decodes,
+    and that the file holds every configuration entry, which
+    ``test_torch_decode_golden.py`` holds against fresh JAX decodes one by
+    one. Rewrite it with ``python tests/torch_port_helpers.py`` when the
+    reference changes."""
     golden = np.load(helpers.GOLDEN)
-    fresh = helpers.jax_golden()
-    assert sorted(golden.files) == sorted(fresh)
+    fresh = helpers.jax_golden_scenes(helpers.golden_scenes())
+    configs = helpers.golden_configs()
+    config_keys = set().union(*(helpers.golden_config_keys(*c)
+                                for c in configs))
+    assert set(golden.files) - config_keys == set(fresh)
+    for scene, config in configs:
+        assert f'{scene}_{config}_poses' in golden.files
     for name, value in fresh.items():
         np.testing.assert_allclose(golden[name], value, atol=1e-5, rtol=0,
                                    err_msg=name)

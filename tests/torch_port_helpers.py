@@ -6,8 +6,12 @@ under ``jax.default_matmul_precision('float32')`` because this JAX build's
 CPU default matmul precision is bf16-class.
 
 This module also owns ``golden/torch_decode_golden.npz``: decoded fields of
-two 513x641 scenes at stride 16 (3 people, and 40 people, which overflows
-the fast tier) with the JAX ``CifCaf`` poses. ``chip_smoke.py`` and
+two 513x641 scenes at stride 16 (3 people, with the dense CAF head too, and
+40 people, which overflows the fast tier) with the JAX ``CifCaf`` poses
+under each decoder configuration of :data:`CONFIGS` (the 40-person
+scene under the defaults and force-complete), a fixed set of initial poses
+with the poses and ids decoded from them, and the commit arrays of the
+decoding-order configurations. ``chip_smoke.py`` and
 ``test_torch_cuda.py`` decode them with the port on the GPU, where JAX is
 not installed, so this module imports JAX only inside the functions that
 use it. Run this file to write the golden file anew:
@@ -15,6 +19,9 @@ use it. Run this file to write the golden file anew:
     JAX_PLATFORMS=cpu python tests/torch_port_helpers.py
 """
 
+import argparse
+import contextlib
+import dataclasses
 import os
 
 import numpy as np
@@ -173,9 +180,10 @@ def jitter(cif, caf, seed):
 
 
 def row_scene(n_people, hw, stride, *, height, seed, spacing=(80.0, 90.0),
-              origin=(60.0, 90.0)):
+              origin=(60.0, 90.0), with_dense=False):
     """Decoded CIF/CAF fields of ``n_people`` upright people on a grid,
-    jittered to be tie-free."""
+    jittered to be tie-free; with ``with_dense`` also the field of the
+    dense CAF head (``DENSER_COCO_PERSON_CONNECTIONS``), jittered alike."""
     import field_fixtures  # imports the JAX package
 
     rng = np.random.RandomState(seed)
@@ -188,7 +196,14 @@ def row_scene(n_people, hw, stride, *, height, seed, spacing=(80.0, 90.0),
             field_fixtures.synthetic_person(cx, cy, height, rng)))
     cif, caf, _ = field_fixtures.fields_from_annotations(anns, hw,
                                                          stride=stride)
-    return jitter(cif, caf, seed)
+    cif, caf = jitter(cif, caf, seed)
+    if not with_dense:
+        return cif, caf
+    cif_meta, _, dcaf_meta = jax_metas(stride, with_dense=True)
+    _, dcaf, _ = field_fixtures.fields_from_annotations(
+        anns, hw, stride=stride, metas=(cif_meta, dcaf_meta))
+    _, dcaf = jitter(cif[:1], dcaf, seed + 500)
+    return cif, caf, dcaf
 
 
 def sparse_scene(seed=0):
@@ -204,42 +219,240 @@ def crowd_scene(seed=7):
 
 
 def golden_scenes():
-    """The two scenes of the golden file, fields at stride 16."""
+    """The two scenes of the golden file, fields at stride 16: (cif, caf,
+    dense caf) of 3 people and (cif, caf) of 40."""
     sparse = row_scene(3, GOLDEN_HW, GOLDEN_STRIDE, height=110.0, seed=11,
-                       spacing=(170.0, 90.0), origin=(90.0, 140.0))
+                       spacing=(170.0, 90.0), origin=(90.0, 140.0),
+                       with_dense=True)
     crowd = row_scene(40, GOLDEN_HW, GOLDEN_STRIDE, height=65.0, seed=13,
                       spacing=(75.0, 90.0), origin=(35.0, 60.0))
     return {'sparse': sparse, 'crowd': crowd}
 
 
-def jax_metas(stride):
-    import openpifpaf_tpu
-    cif, caf = openpifpaf_tpu.datasets.factory('cocokp').head_metas
-    for i, m in enumerate((cif, caf)):
+#: decoder configurations held against JAX: name -> (CLI flags of the
+#: decoders, config fields that no flag sets). ``'dense_connections'`` is
+#: ``CifCafDense`` on three heads; ``'tracked'`` decodes with initial poses
+#: (:func:`initial_annotations`) under the defaults.
+CONFIGS = {
+    'default': ((), {}),
+    'lazy': ((), {'cifhr_impl': 'lazy'}),
+    'greedy': (('--greedy',), {}),
+    'block_joints': (('--cifcaf-block-joints',), {}),
+    'force_complete': (('--force-complete-pose',), {}),
+    'force_complete_nms': (('--force-complete-pose',
+                            '--nms-before-force-complete'), {}),
+    'decoding_order': ((), {'export_decoding_order': True}),
+    'decoding_order_greedy_fc': (('--greedy', '--force-complete-pose'),
+                                 {'export_decoding_order': True}),
+    'tracked': ((), {}),
+    'cifseeds_nms': (('--ablation-cifseeds-nms',), {}),
+    'cifseeds_no_rescore': (('--ablation-cifseeds-no-rescore',), {}),
+    'caf_no_rescore': (('--ablation-caf-no-rescore',), {}),
+    'no_rescore': (('--ablation-cifseeds-no-rescore',
+                    '--ablation-caf-no-rescore'), {}),
+    'independent_kp': (('--force-complete-pose',
+                        '--ablation-independent-kp'), {}),
+    'dense_connections': (('--dense-connections',), {}),
+}
+#: the golden file's configurations: the sparse scene under each of
+#: CONFIGS except 'lazy', which is JAX's default; the crowd scene under
+#: these
+GOLDEN_CROWD_CONFIGS = ('force_complete',)
+#: the sparse scene's weakened runs take a seed budget that holds every
+#: seed candidate: at the default budget the candidates of the joints that
+#: no pose reaches overflow it, and the decode escalates
+GOLDEN_SPARSE_FLAGS = ('--decoder-seeds', '1024')
+#: CAF edges (0-based, of COCO_PERSON_SKELETON) that :func:`weaken` damps:
+#: left ankle-knee and left elbow-wrist, the only edges to the left ankle
+#: and wrist
+WEAK_EDGES = (0, 10)
+
+
+def weaken(caf, factor=0.25):
+    """A copy of (..., E, 8, H, W) CAF fields with the confidences of
+    WEAK_EDGES scaled by ``factor``, below the CAF threshold: the default
+    decode then misses the joints they lead to, which force-complete,
+    block_joints and the dense connections act on."""
+    caf = np.array(caf, copy=True)
+    caf[..., WEAK_EDGES, 1, :, :] *= np.float32(factor)
+    return caf
+#: initial poses of the 'tracked' configuration: slots and ids
+TRACKED_IDS = (5, 9)
+
+
+@contextlib.contextmanager
+def restored_statics(*classes):
+    """Put back every public class attribute of ``classes`` on exit (the
+    decoders' ``configure`` sets class statics)."""
+    saved = [(c, dict(vars(c))) for c in classes]
+    try:
+        yield
+    finally:
+        for c, attrs in saved:
+            for k in set(vars(c)) - set(attrs):
+                delattr(c, k)
+            for k, v in attrs.items():
+                if not k.startswith('__') and vars(c).get(k) is not v:
+                    setattr(c, k, v)
+
+
+def _with_config(dec, overrides):
+    inner = getattr(dec, 'cifcaf', dec)  # CifCafDense wraps a CifCaf
+    inner.config = dataclasses.replace(inner.config, **overrides)
+    return dec
+
+
+def jax_decoder(stride, flags=(), overrides=None):
+    """The JAX package's decoder that ``flags`` select, with ``overrides``
+    of its config (three head metas under ``--dense-connections``)."""
+    from openpifpaf_tpu import decoder
+    parser = argparse.ArgumentParser()
+    with restored_statics(*decoder.factory.DECODERS):
+        decoder.factory.cli(parser)
+        decoder.factory.configure(parser.parse_args(list(flags)))
+        metas = jax_metas(stride, with_dense='--dense-connections' in flags)
+        decs = decoder.factory.decoders(metas, ['cifcafdense', 'cifcaf'])
+    assert len(decs) == 1, decs
+    return _with_config(decs[0], overrides or {})
+
+
+def port_decoder(stride, flags=(), overrides=None):
+    """The port's decoder that ``flags`` select (the same CLI as the JAX
+    package's), with ``overrides`` of its config."""
+    from openpifpaf_tpu_torch import decoder
+    parser = argparse.ArgumentParser()
+    with restored_statics(decoder.CifCaf, decoder.CifCafDense):
+        decoder.cli(parser)
+        decoder.configure(parser.parse_args(list(flags)))
+        dec = decoder.factory(port_metas(
+            stride, with_dense='--dense-connections' in flags))
+    return _with_config(dec, overrides or {})
+
+
+def jax_metas(stride, with_dense=False):
+    from openpifpaf_tpu.plugins.coco.cocokp import CocoKp
+    with restored_statics(CocoKp):
+        CocoKp.with_dense = with_dense
+        metas = CocoKp().head_metas
+    for i, m in enumerate(metas):
         m.head_index = i
         m.base_stride = stride
-    return cif, caf
+    return metas
 
 
-def port_metas(stride):
+def port_metas(stride, with_dense=False):
     from openpifpaf_tpu_torch.models.shell import assign_strides
     from openpifpaf_tpu_torch.plugins.coco.constants import cocokp_head_metas
-    return assign_strides(cocokp_head_metas(), stride)
+    return assign_strides(cocokp_head_metas(with_dense), stride)
 
 
 def jax_cifcaf(stride, cifhr_impl='auto'):
     """The JAX package's CifCaf decoder with the given CifHr impl."""
-    import dataclasses
-    from openpifpaf_tpu.decoder.cifcaf import CifCaf
-    dec = CifCaf(*jax_metas(stride))
-    dec.config = dataclasses.replace(dec.config, cifhr_impl=cifhr_impl)
-    return dec
+    return jax_decoder(stride, overrides={'cifhr_impl': cifhr_impl})
 
 
-def kept_poses(poses, keep, order):
-    """The kept (n_kp, 4) [v, x, y, s] poses in score order."""
-    poses, keep, order = (np.asarray(a) for a in (poses, keep, order))
-    return [poses[i] for i in order if keep[i]]
+def annotations_from_rows(rows, ids=()):
+    """Port COCO annotations of (n, n_kp, 4) [v, x, y, s] rows, the first
+    ``len(ids)`` with those ids."""
+    from openpifpaf_tpu_torch.annotation import Annotation
+    from openpifpaf_tpu_torch.plugins.coco import constants
+    anns = []
+    for i, row in enumerate(rows):
+        ann = Annotation(constants.COCO_KEYPOINTS,
+                         constants.COCO_PERSON_SKELETON,
+                         score_weights=constants.COCO_PERSON_SCORE_WEIGHTS)
+        ann.data[:, 0] = row[:, 1]
+        ann.data[:, 1] = row[:, 2]
+        ann.data[:, 2] = row[:, 0]
+        ann.joint_scales = np.array(row[:, 3], np.float32)
+        if i < len(ids):
+            ann.id_ = ids[i]
+        anns.append(ann)
+    return anns
+
+
+def initial_annotations(poses, ids=TRACKED_IDS):
+    """Port annotations of the first ``len(ids)`` of (K, n_kp, 4) poses,
+    with the upper body only (joints 0-10), shifted by (1.5, -1.0) px and
+    the given ids: the tracked poses of a previous frame."""
+    rows = np.zeros((len(ids),) + poses.shape[1:], np.float32)
+    rows[:, :11] = poses[:len(ids), :11]
+    rows[:, :11, 1] += 1.5
+    rows[:, :11, 2] -= 1.0
+    return annotations_from_rows(rows, ids)
+
+
+def golden_runs():
+    """Every decode of the golden scenes that the card holds against the
+    golden file: (label, scene, configuration, CLI flags, config
+    overrides, golden key, whether the CifHr kernel launches). First the
+    default configuration under each CifHr impl on the 3-person scene
+    ('auto' and 'pallas' launch the kernel; 'lazy' and 'dense' do not) and
+    the map and the lazy one on the 40-person scene; then each
+    configuration of CONFIGS on the weakened scenes ('no_rescore', which
+    skips CifHr, launches nothing)."""
+    runs = [(f'cifhr {impl}', 'sparse', 'default', (), {'cifhr_impl': impl},
+             'sparse', impl in ('auto', 'pallas'))
+            for impl in ('auto', 'pallas', 'lazy', 'dense')]
+    runs += [(f'crowd cifhr {impl}', 'crowd', 'default', (),
+              {'cifhr_impl': impl}, 'crowd', impl == 'auto')
+             for impl in ('auto', 'lazy')]
+    # JAX's default CifHr is the lazy one: 'lazy' holds to the defaults
+    runs += [(name, 'sparse', name, CONFIGS[name][0] + GOLDEN_SPARSE_FLAGS,
+              CONFIGS[name][1],
+              'sparse_default' if name == 'lazy' else f'sparse_{name}',
+              name not in ('lazy', 'no_rescore'))
+             for name in CONFIGS]
+    runs += [(f'crowd {name}', 'crowd', name, CONFIGS[name][0],
+              CONFIGS[name][1], f'crowd_{name}', True)
+             for name in GOLDEN_CROWD_CONFIGS]
+    return runs
+
+
+def golden_inputs(golden, scene, config, key, device):
+    """(batch-1 head fields on ``device``, initial annotations or None) of
+    a run of :func:`golden_runs`: the weakened CAF for every key but the
+    scenes' own defaults, the dense head for 'dense_connections'."""
+    caf = golden[f'{scene}_caf']
+    if key != scene:
+        caf = weaken(caf)
+    fields = [golden[f'{scene}_cif'], caf]
+    if config == 'dense_connections':
+        fields.append(golden[f'{scene}_dcaf'])
+    fields = [torch.from_numpy(np.ascontiguousarray(f[None])).to(device)
+              for f in fields]
+    initial = None
+    if config == 'tracked':
+        initial = [annotations_from_rows(golden[f'{key}_init'],
+                                         TRACKED_IDS)]
+    return fields, initial
+
+
+def pose_rows(annotations):
+    """(n, n_kp, 4) [v, x, y, s] of annotations, in their order."""
+    return np.asarray([np.concatenate([a.data[:, 2:3], a.data[:, :2],
+                                       a.joint_scales[:, None]], axis=1)
+                       for a in annotations], np.float32).reshape(
+        len(annotations), -1, 4)
+
+
+def order_rows(annotations):
+    """(n, n_kp, 3) int of each annotation's ``decoding_order`` and
+    ``frontier_order``: for each joint its position in the decoding order
+    and its source joint (-1, -1 where none committed it), and the bit
+    mask of the source joints of the frontier edges that end at it (the
+    frontier is listed in the skeleton's order, so the masks give the
+    list)."""
+    out = []
+    for a in annotations:
+        rows = np.full((a.data.shape[0], 3), -1, np.int64)
+        rows[:, 2] = 0
+        for i, (jsi, jti, _, _) in enumerate(a.decoding_order):
+            rows[jti, :2] = (i, jsi)
+        for s, t in a.frontier_order:
+            rows[t, 2] |= 1 << s
+        out.append(rows)
+    return np.asarray(out, np.int64).reshape(len(annotations), -1, 3)
 
 
 def assert_pose_gate(ours, ref, *, xy_atol=1e-3, conf_atol=2e-3):
@@ -272,22 +485,75 @@ def assert_pose_gate(ours, ref, *, xy_atol=1e-3, conf_atol=2e-3):
                                    atol=conf_atol)
 
 
-def jax_golden():
-    """Fields and JAX CifCaf (default config) outputs of the golden
-    scenes, as the dict stored in the golden file."""
-    scenes = golden_scenes()
-    dec = jax_cifcaf(GOLDEN_STRIDE)
+def golden_configs():
+    """The (scene, configuration) pairs of the golden file's configuration
+    entries: the 3-person scene under each of CONFIGS but 'lazy' (JAX's
+    default), the 40-person scene under GOLDEN_CROWD_CONFIGS."""
+    return ([('sparse', c) for c in CONFIGS if c != 'lazy']
+            + [('crowd', c) for c in GOLDEN_CROWD_CONFIGS])
+
+
+def golden_config_keys(scene, config):
+    """The names that an entry of :func:`jax_golden_config` may have."""
+    return {f'{scene}_{config}_{suffix}'
+            for suffix in ('poses', 'order', 'init', 'ids')}
+
+
+def jax_golden_scenes(scenes):
+    """The golden file's fields of ``scenes`` (:func:`golden_scenes`):
+    ``{scene}_cif``/``_caf`` (and ``sparse_dcaf``), with ``{scene}_poses``,
+    the JAX decode under the defaults (kept poses in score order)."""
     out = {}
     with jax_f32():
-        for name, (cif, caf) in scenes.items():
-            poses, keep, order = dec._decode_adaptive(
-                GOLDEN_STRIDE, (cif[None], caf[None]))
-            kept = kept_poses(np.asarray(poses)[0], np.asarray(keep)[0],
-                              np.asarray(order)[0])
-            out[f'{name}_cif'] = cif
-            out[f'{name}_caf'] = caf
-            out[f'{name}_poses'] = np.asarray(kept, np.float32).reshape(
-                -1, cif.shape[0], 4)
+        for name, fields in scenes.items():
+            for head, f in zip(('cif', 'caf', 'dcaf'), fields):
+                out[f'{name}_{head}'] = f
+            anns = jax_decoder(GOLDEN_STRIDE).batch_decode(
+                [f[None] for f in fields[:2]])[0]
+            out[f'{name}_poses'] = pose_rows(anns)
+    return out
+
+
+def jax_golden_config(scenes, scene, config, default_poses=None):
+    """The golden file's entries of one (scene, configuration) pair, on
+    the fields with :func:`weaken`'s CAF: ``{scene}_{config}_poses``,
+    ``_order`` of a decoding-order configuration (:func:`order_rows`), and
+    for 'tracked' the initial poses (``_init``, made from
+    ``default_poses``, the damped scene's default poses) and the ids
+    decoded (``_ids``)."""
+    cif, caf, *dcaf = scenes[scene]
+    fields = [f[None] for f in [cif, weaken(caf)] + dcaf]
+    flags, overrides = CONFIGS[config]
+    if scene == 'sparse':
+        flags += GOLDEN_SPARSE_FLAGS
+    key = f'{scene}_{config}'
+    out = {}
+    initial = None
+    if config == 'tracked':
+        init = initial_annotations(default_poses)
+        out[f'{key}_init'] = pose_rows(init)
+        initial = [init]
+    with jax_f32():
+        anns = jax_decoder(GOLDEN_STRIDE, flags, overrides).batch_decode(
+            fields if config == 'dense_connections' else fields[:2],
+            initial)[0]
+    out[f'{key}_poses'] = pose_rows(anns)
+    if overrides.get('export_decoding_order'):
+        out[f'{key}_order'] = order_rows(anns)
+    if config == 'tracked':
+        out[f'{key}_ids'] = np.asarray(
+            [-1 if a.id_ is None else a.id_ for a in anns])
+    return out
+
+
+def jax_golden():
+    """The golden file's dict: :func:`jax_golden_scenes` and
+    :func:`jax_golden_config` of each of :func:`golden_configs`."""
+    scenes = golden_scenes()
+    out = jax_golden_scenes(scenes)
+    for scene, config in golden_configs():
+        out.update(jax_golden_config(
+            scenes, scene, config, out.get(f'{scene}_default_poses')))
     return out
 
 
