@@ -65,7 +65,23 @@ Phases, each of which raises on failure (non-zero exit):
     kernel's device time alone and the library call's (``torch.profiler``);
     then the lab's entry point ``lab.mosaic_lab.main(['interleave', 'dw',
     'branch2'])`` runs once with every launch count read around it (a lab
-    run moves the lab's counters only).
+    run moves the lab's counters only);
+11. training: a synthetic COCO keypoint set (80 JPEG images of 427x569
+    with 1-4 people, ``torch_port_helpers.write_synthetic_coco``, seed 0)
+    in a temporary directory, then (a) one train step of the full-width
+    k16 with the cocokp heads on a batch of 8 at 385 px of the port's
+    CocoKp pipeline on the card (TF32 off) against the same step on the
+    CPU in float64 (the CPU's float32 step measures float32's own error):
+    losses, parameters, BatchNorm buffers and EMA compared; (b)
+    ``train.main`` in-process for 8 steps and 2 validation batches in
+    float32, ``--bf16`` and ``--remat``: checkpoints and finite losses,
+    the warm step time (CUDA events), images per second, peak memory and
+    the loader's share of the loop's wall time; (c) the float32 run's
+    checkpoint served by ``Predictor(checkpoint=...)`` on the card (the
+    trainer's EMA weights, one request with its fields checked, CifHr
+    launches read around it); (d) 40 steps on one fixed batch: the loss
+    must fall. The training path runs no hand-written kernel (the step
+    is cuDNN through autograd).
 
 The second-to-last line is a JSON object describing the kernels (with each
 one's bound: the larger of its bytes over the card's memory rate and its
@@ -75,7 +91,9 @@ operations over the peak rate of its type), the last
 
 import contextlib
 import functools
+import gc
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -928,6 +946,321 @@ def phase_lab(port, card):
     return {name: counts[name] for name in lab_names}
 
 
+#: the training phase: the JAX defaults (batch 8, 385 px crops) on a
+#: synthetic COCO keypoint set of TRAIN_IMAGES images made from TRAIN_SEED
+TRAIN_BATCH = 8
+TRAIN_EDGE = 385
+TRAIN_IMAGES = 80
+TRAIN_IMAGE_HW = (427, 569)
+TRAIN_SEED = 0
+TRAIN_STEPS = 8
+#: one step on the card (float32, TF32 off) against the same step on the
+#: CPU in float64, with the CPU's float32 step as the measure of float32's
+#: own error: the loss within rtol 1e-4 and each component within 1e-4 of
+#: the loss; per tensor (parameters, BatchNorm buffers, EMA), the card's
+#: L2 error at most 3x the CPU float32 step's plus 5% of the tensor's
+#: update plus float32's rounding of the tensor (2.4e-7 of its L2 norm);
+#: over each kind, the card's error at most 5% of the update (L2). On an
+#: NVIDIA H100 80GB HBM3 (700 W) the card's error over the parameters
+#: measured 0.9% of the update, the CPU float32 step's 8.4%.
+STEP_LOSS_RTOL = 1e-4
+STEP_NOISE_FACTOR = 3.0
+STEP_UPDATE_RTOL = 0.05
+STEP_ROUNDING = 2.4e-7
+#: overfitting one batch for 40 steps (SGD, lr 1e-3, no warm-up): the
+#: mean of the last 5 losses at most 0.7 of the first and 0.9 of the
+#: second (this phase on the CPU at 97 px, batch 2: 0.444 and 0.727)
+OVERFIT_STEPS = 40
+OVERFIT_MAX_FIRST = 0.7
+OVERFIT_MAX_SECOND = 0.9
+
+
+def train_flags(data, out, *extra):
+    ann_file, image_dir = data
+    return ['--dataset', 'cocokp', '--basenet', 'shufflenetv2k16',
+            '--cocokp-train-annotations', ann_file,
+            '--cocokp-val-annotations', ann_file,
+            '--cocokp-train-image-dir', image_dir,
+            '--cocokp-val-image-dir', image_dir,
+            '--cocokp-square-edge', str(TRAIN_EDGE),
+            '--batch-size', str(TRAIN_BATCH), '--epochs', '1',
+            '--train-batches', str(TRAIN_STEPS), '--val-batches', '2',
+            '--log-interval', '1', '--seed', str(TRAIN_SEED),
+            '--output', out, *extra]
+
+
+def train_batch(data):
+    """One batch of the port's CocoKp train pipeline (augmentation on),
+    its head metas and the k16 model at full width (random, seeded)."""
+    from openpifpaf_tpu_torch.models.factory import Factory
+    from openpifpaf_tpu_torch.plugins.coco.cocokp import CocoKp
+
+    ann_file, image_dir = data
+    datamodule = CocoKp(train_annotations=ann_file, train_image_dir=image_dir,
+                        square_edge=TRAIN_EDGE, batch_size=TRAIN_BATCH)
+    model = Factory().from_scratch(
+        datamodule.head_metas,
+        generator=torch.Generator().manual_seed(TRAIN_SEED))
+    np.random.seed(TRAIN_SEED)
+    images, targets, _ = next(iter(datamodule.train_loader()))
+    return images, targets, datamodule.head_metas, model
+
+
+def make_trainer(model, metas, device, **flags):
+    from openpifpaf_tpu_torch.training import losses, optimize
+    from openpifpaf_tpu_torch.training.trainer import Trainer
+    from torch_port_helpers import optimizer_args
+
+    optimizer, schedule = optimize.factory_optimizer(
+        optimizer_args(**flags), training_batches_per_epoch=1)
+    return Trainer(model, losses.Factory().factory(metas), optimizer,
+                   schedule, 'unused', device=device)
+
+
+def step_state(trainer):
+    """(state dict, EMA by name) of a trainer, in float64 on the CPU."""
+    state = {k: v.detach().cpu().double()
+             for k, v in trainer.model.state_dict().items()}
+    ema = {n: e.detach().cpu().double() for (n, _), e in
+           zip(trainer.model.named_parameters(), trainer.ema)}
+    return state, ema
+
+
+def compare_step(label, names, card_step, cpu32, cpu64, start):
+    """The card's tensors against the float64 step (see STEP_*); returns
+    the card's and the CPU float32 step's relative L2 error over
+    ``names`` and the worst tensor's share of its allowance."""
+    worst = (-1.0, '')
+    err = {'card': 0.0, 'cpu32': 0.0}
+    update = 0.0
+    for n in names:
+        ref = cpu64[n]
+        e_card = float((card_step[n] - ref).norm())
+        e_cpu = float((cpu32[n] - ref).norm())
+        u = float((ref - start[n]).norm())
+        allowed = (STEP_NOISE_FACTOR * e_cpu + STEP_UPDATE_RTOL * u
+                   + STEP_ROUNDING * float(ref.norm()))
+        worst = max(worst, (e_card / allowed if allowed else
+                            float('inf') if e_card else 0.0, n))
+        err['card'] += e_card ** 2
+        err['cpu32'] += e_cpu ** 2
+        update += u ** 2
+    rel = {k: np.sqrt(v / update) for k, v in err.items()}
+    if not (worst[0] <= 1.0 and rel['card'] <= STEP_UPDATE_RTOL):
+        raise AssertionError(
+            f'train step {label} on the card vs the CPU float64 step: '
+            f'{worst[1]} at {worst[0]:.3f} of its allowance, {rel["card"]:.3g} '
+            f'of the update over all (CPU float32: {rel["cpu32"]:.3g})')
+    return rel, worst
+
+
+def phase_train_step(batch, device, card):
+    """(a) One train step of the full-width k16 on a batch of 8 at 385 px
+    on the card against the same step on the CPU in float64 and float32
+    (TF32 off): losses, parameters, BatchNorm buffers and EMA."""
+    import copy
+
+    images, targets, metas, model = batch
+    start = {k: v.detach().double() for k, v in model.state_dict().items()}
+    results = {}
+    for name, dev, dtype in (('card', device, torch.float32),
+                             ('cpu32', torch.device('cpu'), torch.float32),
+                             ('cpu64', torch.device('cpu'), torch.float64)):
+        trainer = make_trainer(copy.deepcopy(model).to(dtype), metas, dev,
+                               lr=1e-3, lr_warm_up_factor=1.0)
+        t0 = time.perf_counter()
+        with no_tf32():
+            loss, head_losses = trainer.train_step(
+                torch.from_numpy(images).to(dev, dtype),
+                tuple(torch.from_numpy(t).to(dev, dtype) for t in targets))
+        results[name] = (float(loss), [float(h) for h in head_losses],
+                         *step_state(trainer), time.perf_counter() - t0)
+    loss, heads, state, ema, card_s = results['card']
+    ref_loss, ref_heads, ref_state, ref_ema, cpu64_s = results['cpu64']
+    _, _, cpu_state, cpu_ema, cpu32_s = results['cpu32']
+    head_err = max(abs(a - b) for a, b in zip(heads, ref_heads))
+    if not (np.isfinite(loss)
+            and abs(loss - ref_loss) <= STEP_LOSS_RTOL * abs(ref_loss)
+            and head_err <= STEP_LOSS_RTOL * abs(ref_loss)):
+        raise AssertionError(f'train step losses {loss} {heads} on the '
+                             f'card, {ref_loss} {ref_heads} on the CPU')
+    params = [n for n, _ in model.named_parameters()]
+    buffers = [n for n in start if n not in params
+               and not n.endswith('num_batches_tracked')]
+    for label, names, ours, cpu32, cpu64 in (
+            ('parameters', params, state, cpu_state, ref_state),
+            ('BatchNorm buffers', buffers, state, cpu_state, ref_state),
+            ('EMA', params, ema, cpu_ema, ref_ema)):
+        rel, worst = compare_step(label, names, ours, cpu32, cpu64, start)
+        log(f'train step (a) {label}: error against the CPU float64 step '
+            f'{rel["card"]:.3e} of the update (L2) on the card, '
+            f'{rel["cpu32"]:.3e} for the CPU float32 step; worst tensor '
+            f'{worst[1]} at {worst[0]:.3f} of its allowance')
+    log(f'train step (a): loss {loss} on the card, {ref_loss} in float64 '
+        f'on the CPU, head losses within {head_err:.3g}; first step '
+        f'{card_s * 1e3:.1f} ms on the card, {cpu32_s:.1f} s (float32) and '
+        f'{cpu64_s:.1f} s (float64) on the CPU ({torch.get_num_threads()} '
+        f'threads) [{card}]')
+
+
+def timed_train_steps(trainer_cls, events):
+    """Wrap ``trainer_cls.train_step`` to record CUDA events around each
+    step; returns the original method."""
+    original = trainer_cls.train_step
+
+    def train_step(self, *args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = original(self, *args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    trainer_cls.train_step = train_step
+    return original
+
+
+def read_train_log(path):
+    with open(path) as f:
+        lines = [json.loads(line) for line in f]
+    train = [line for line in lines if line.get('type') == 'train']
+    val = [line for line in lines if line.get('type') == 'val-epoch']
+    return train, val
+
+
+def phase_train_runs(data, directory, card):
+    """(b) ``train.main`` in-process in float32, ``--bf16`` and
+    ``--remat``: checkpoints written, every loss finite; warm step time
+    (CUDA events), images per second, peak memory and the loader's share
+    of the wall time. Returns the float32 run's output and trainer."""
+    from openpifpaf_tpu_torch import train
+    from openpifpaf_tpu_torch.training.trainer import Trainer
+
+    runs = {}
+    for label, extra in (('float32', ()), ('bf16', ('--bf16',)),
+                         ('remat', ('--remat',))):
+        out = os.path.join(directory, label, 'model')
+        os.makedirs(os.path.dirname(out))
+        events = []
+        original = timed_train_steps(Trainer, events)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            trainer = train.main(train_flags(data, out, *extra))
+        finally:
+            Trainer.train_step = original
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        for suffix in ('.epoch000', '.epoch001', ''):
+            for ext in ('.json', '.pt'):
+                if not os.path.exists(out + suffix + ext):
+                    raise AssertionError(f'{label}: no {out + suffix + ext}')
+        train_lines, val_lines = read_train_log(out + '.log')
+        losses = [line['loss'] for line in train_lines] + \
+            [line['loss'] for line in val_lines]
+        if len(train_lines) != TRAIN_STEPS or len(val_lines) != 1 \
+                or not np.all(np.isfinite(losses)):
+            raise AssertionError(f'{label}: {len(train_lines)} train lines, '
+                                 f'{len(val_lines)} val lines, losses '
+                                 f'{losses}')
+        if len(events) != TRAIN_STEPS:
+            raise AssertionError(f'{label}: {len(events)} timed steps')
+        # warm: the steps after the first (cuDNN picks its algorithms)
+        step_ms = [s.elapsed_time(e) for s, e in events][1:]
+        median = float(np.median(step_ms))
+        warm = train_lines[1:]
+        data_s = sum(line['data_time'] for line in warm)
+        time_s = sum(line['time'] for line in warm)
+        log(f'train run (b) {label}: warm step {median:.2f} ms median '
+            f'(min {min(step_ms):.2f}, max {max(step_ms):.2f} over '
+            f'{len(step_ms)} steps, CUDA events), '
+            f'{TRAIN_BATCH / median * 1e3:.1f} images/s on the device '
+            f'timeline, {TRAIN_BATCH * len(warm) / time_s:.1f} images/s '
+            f'of wall time in the loop (loader included), loader share '
+            f'{data_s / time_s:.3f} (data_time {data_s:.3f} s of '
+            f'{time_s:.3f} s), peak memory {peak / 2 ** 30:.2f} GiB above '
+            f'the {before / 2 ** 30:.2f} GiB held before the run; first '
+            f'step {train_lines[0]["time"]:.3f} s, losses '
+            f'{[round(x, 1) for x in losses]}, whole run {wall:.1f} s '
+            f'[{card}]')
+        runs[label] = (out, trainer)
+    return runs['float32']
+
+
+def phase_serve_checkpoint(port, out, trainer, device, card):
+    """(c) The float32 run's checkpoint through
+    ``Predictor(checkpoint=...)`` on the card: the trainer's EMA weights,
+    and one request with its fields checked as the main path's are."""
+    from openpifpaf_tpu_torch.predictor import Predictor
+
+    predictor = Predictor(checkpoint=out, device=device)
+    written = trainer.ema_state_dict()
+    for name, value in predictor.model.state_dict().items():
+        if not torch.equal(value.cpu(), written[name]):
+            raise AssertionError(f'checkpoint {name} differs from the '
+                                 "trainer's EMA")
+    reset_launches(port)
+    serve(predictor, make_requests()[:1], card, 'trained checkpoint')
+    launches = read_launches(port)
+    if launches['cifhr_accumulate'] == 0:
+        raise AssertionError('serving the checkpoint launched no CifHr '
+                             'kernel')
+    log(f'serve (c): the checkpoint holds the EMA weights; '
+        f'{launches["cifhr_accumulate"]} CifHr kernel launches')
+
+
+def phase_overfit(batch, device, card):
+    """(d) 40 steps on one fixed batch with warm-up off: the loss must
+    fall (OVERFIT_MAX_FIRST, OVERFIT_MAX_SECOND)."""
+    import copy
+
+    images, targets, metas, model = batch
+    trainer = make_trainer(copy.deepcopy(model), metas, device, lr=1e-3,
+                           lr_warm_up_factor=1.0)
+    images = torch.from_numpy(images).to(device)
+    targets = tuple(torch.from_numpy(t).to(device) for t in targets)
+    history = [float(trainer.train_step(images, targets)[0])
+               for _ in range(OVERFIT_STEPS)]
+    last = float(np.mean(history[-5:]))
+    if not (np.all(np.isfinite(history))
+            and last <= OVERFIT_MAX_FIRST * history[0]
+            and last <= OVERFIT_MAX_SECOND * history[1]):
+        raise AssertionError(f'overfit: losses {history}')
+    log(f'overfit (d): loss {history[0]:.1f} -> {history[1]:.1f} -> '
+        f'{last:.1f} (mean of the last 5 of {OVERFIT_STEPS}; '
+        f'{last / history[0]:.3f} of the first, {last / history[1]:.3f} of '
+        f'the second) [{card}]')
+    log(f'overfit (d) losses: {[round(x, 1) for x in history]}')
+
+
+def phase_train(port, device, card):
+    """The training path: a synthetic COCO set, then (a)-(d)."""
+    import tempfile
+    from torch_port_helpers import write_synthetic_coco
+
+    # the trainer's JSON lines go to each run's log file, not to stdout
+    # (train.main's logging.basicConfig does nothing once root has a
+    # handler)
+    root = logging.getLogger('')
+    root.setLevel(logging.INFO)
+    root.addHandler(logging.NullHandler())
+    with tempfile.TemporaryDirectory() as directory:
+        data = write_synthetic_coco(os.path.join(directory, 'coco'),
+                                    n_images=TRAIN_IMAGES,
+                                    image_hw=TRAIN_IMAGE_HW, seed=TRAIN_SEED)
+        batch = train_batch(data)
+        phase_train_step(batch, device, card)
+        out, trainer = phase_train_runs(data, directory, card)
+        phase_serve_checkpoint(port, out, trainer, device, card)
+        phase_overfit(batch, device, card)
+
+
 def kernel_entry(name, source, replaces, launches, rows, row):
     """One kernel's entry of the JSON line: times and bound of ``row``,
     the largest error of all ``rows``."""
@@ -973,6 +1306,7 @@ def main():
     phase_profile(predictors, device, card)
     lab_results = phase_lab_kernels(port, device, card)
     launches.update(phase_lab(port, card))
+    phase_train(port, device, card)
 
     # no single PyTorch call computes the CifHr map; times at F=17 K=256
     entries = [kernel_entry('cifhr_accumulate', 'cifhr.cu',

@@ -3,8 +3,8 @@
 ``ShuffleNetV2K``).
 
 NCHW modules meant to run in ``torch.channels_last``; BatchNorm with the
-reference's model defaults (eps 1e-3, momentum 0.01), ReLU or leaky ReLU
-(slope 0.01). A ShuffleNetV2 with kernel 5 in stages 2-4, no max-pool
+reference's model defaults (eps 1e-3, momentum 0.01) and flax's training
+rule (:class:`BatchNorm`), ReLU or leaky ReLU (slope 0.01). A ShuffleNetV2 with kernel 5 in stages 2-4, no max-pool
 (stride 16) and a 1x1 conv5, with the flax model's options: a dilated
 stage 4, a second input conv and two blocks in place of conv5.
 """
@@ -14,10 +14,74 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01
 NON_LINEARITIES = ('relu', 'leaky_relu')
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d with the flax training rule and the mode as an argument.
+
+    ``forward(x, train)``, like flax's ``use_running_average=not train``
+    (the module's ``training`` flag is not read). In train mode it
+    normalises with the batch statistics and keeps them, in float32 and
+    detached, in ``batch_stats``: the mean and the *biased* variance
+    E[x^2] - E[x]^2 as flax computes them (torch's own update would use
+    the unbiased variance). :func:`commit_batch_stats` folds them into
+    the running buffers with flax's rule after the step, so that a
+    recomputed forward (``remat``) or a validation pass does not move
+    them. In train mode, input narrower than float32 (bf16) is normalised
+    in float32 and cast back.
+    """
+
+    batch_stats = None
+
+    def forward(self, x, train=False):
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        dtype = x.dtype
+        # flax's force_float32_reductions: at least float32
+        xf = x.to(torch.promote_types(dtype, torch.float32))
+        with torch.no_grad():
+            mean = xf.mean((0, 2, 3))
+            var = (xf * xf).mean((0, 2, 3)) - mean * mean
+            self.batch_stats = (mean, var.clamp_(min=0.0))
+        y = F.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        return y.to(dtype)
+
+
+def commit_batch_stats(model, momentum=BN_MOMENTUM):
+    """Fold each :class:`BatchNorm`'s kept batch statistics into its
+    running buffers as flax does, ``ra = (1 - m) * ra + m * batch``, and
+    clear them; returns the number of modules updated."""
+    n = 0
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, BatchNorm) and module.batch_stats is not None:
+                mean, var = module.batch_stats
+                module.running_mean.mul_(1.0 - momentum).add_(momentum * mean)
+                module.running_var.mul_(1.0 - momentum).add_(momentum * var)
+                module.batch_stats = None
+                n += 1
+    return n
+
+
+def discard_batch_stats(model):
+    """Drop the kept batch statistics (a validation pass, a step that
+    runs BatchNorm on its running statistics)."""
+    for module in model.modules():
+        if isinstance(module, BatchNorm):
+            module.batch_stats = None
+
+
+def _run(modules, x, train):
+    for module in modules:
+        x = module(x, train)
+    return x
 
 
 def activation(x, non_linearity):
@@ -39,12 +103,12 @@ class ConvNormAct(nn.Module):
         self.conv = nn.Conv2d(in_features, features, kernel, stride=stride,
                               padding=pad, dilation=dilation, groups=groups,
                               bias=False)
-        self.norm = nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.norm = BatchNorm(features, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = act
         self.non_linearity = non_linearity
 
-    def forward(self, x):
-        x = self.norm(self.conv(x))
+    def forward(self, x, train=False):
+        x = self.norm(self.conv(x), train)
         return activation(x, self.non_linearity) if self.act else x
 
 
@@ -89,11 +153,12 @@ class InvertedResidualK(nn.Module):
             ConvNormAct(branch_features, branch_features, 1, **style),
         )
 
-    def forward(self, x):
+    def forward(self, x, train=False):
         if self.branch1 is None:
             x1, x2 = x.chunk(2, dim=1)
-            return channel_interleave2(x1, self.branch2(x2))
-        return channel_interleave2(self.branch1(x), self.branch2(x))
+            return channel_interleave2(x1, _run(self.branch2, x2, train))
+        return channel_interleave2(_run(self.branch1, x, train),
+                                   _run(self.branch2, x, train))
 
 
 class ShuffleNetV2K(nn.Module):
@@ -171,8 +236,25 @@ class ShuffleNetV2K(nn.Module):
     def out_features(self):
         return self.stages_out_channels[-1]
 
-    def forward(self, x):
-        x = self.input_block(x)
+    def _stages(self):
+        """The backbone as a sequence of modules ``m(x, train)``."""
+        yield self.input_block
         if self.input_conv2 is not None:
-            x = self.input_conv2(x)
-        return self.conv5(self.blocks(x))
+            yield self.input_conv2
+        yield from self.blocks
+        if isinstance(self.conv5, nn.Sequential):
+            yield from self.conv5
+        else:
+            yield self.conv5
+
+    def forward(self, x, train=False, remat=False):
+        """``remat`` keeps only each block's input and recomputes the
+        block in the backward pass (``torch.utils.checkpoint``), trading
+        about one forward of compute for most of the activation memory."""
+        for module in self._stages():
+            if remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(
+                    module, x, train, use_reentrant=False)
+            else:
+                x = module(x, train)
+        return x

@@ -1,6 +1,6 @@
 """Network factory (port of ``openpifpaf_tpu/models/factory.py``:
-``BASE_FACTORIES`` for the ShuffleNetV2K family and
-``Factory.from_scratch``).
+``BASE_FACTORIES`` for the ShuffleNetV2K family, the backbone flags and
+``Factory``).
 
 Random initialisation follows flax's defaults, drawn from an explicit
 ``torch.Generator``: truncated-normal (LeCun) convolution kernels, zero
@@ -17,9 +17,38 @@ from .. import headmeta
 from . import basenetworks, heads
 from .shell import Shell, assign_strides
 
+#: family-level backbone options, set by ``cli``/``configure`` and written
+#: into checkpoints, as in the JAX package. The port's ShuffleNetV2K has
+#: BatchNorm only: its group and instance norms are not ported (A2).
+SHUFFLENETV2K_OPTIONS = {
+    'kernel': 5,
+    'stage4_dilation': 1,
+    'input_conv2_stride': 0,
+    'input_conv2_outchannels': None,
+    'conv5_as_stage': False,
+    'norm': 'batch',
+    'non_linearity': 'relu',
+}
+#: the ResNet family's options, kept for the checkpoint's meta: ResNet
+#: is not ported yet (ROADMAP A7)
+RESNET_OPTIONS = {
+    'pool0_stride': 0,
+    'input_conv_stride': 2,
+    'input_conv2_stride': 0,
+    'block5_dilation': 1,
+    'remove_last_block': False,
+}
+
 
 def _snk(repeats, channels):
-    return lambda: basenetworks.ShuffleNetV2K(repeats, channels)
+    def build():
+        options = dict(SHUFFLENETV2K_OPTIONS)
+        if options.pop('norm') != 'batch':
+            raise NotImplementedError(
+                'ShuffleNetV2K with group or instance norm is not yet '
+                'ported to PyTorch (ROADMAP A2)')
+        return basenetworks.ShuffleNetV2K(repeats, channels, **options)
+    return build
 
 
 BASE_FACTORIES = {
@@ -29,6 +58,61 @@ BASE_FACTORIES = {
     'shufflenetv2k44': _snk([12, 24, 8], [32, 512, 1024, 2048, 2048]),
     'shufflenetv2kx5': _snk([6, 13, 6], [42, 640, 1280, 2560, 2560]),
 }
+
+#: --head-consolidation default
+HEAD_CONSOLIDATION = 'filter_and_extend'
+
+#: --cf4-dropout
+CF4_OPTIONS = {'dropout_p': 0.0}
+
+
+def cli(parser):
+    """Network flags of the JAX package's ``models/factory.py::cli``, for
+    the backbones the port has."""
+    group = parser.add_argument_group('network')
+    group.add_argument('--head-consolidation',
+                       choices=('keep', 'create', 'filter_and_extend'),
+                       default=HEAD_CONSOLIDATION,
+                       help='consolidation strategy for a checkpoint\'s '
+                            'head networks and the heads specified by the '
+                            'datamodule')
+    group.add_argument('--cf4-dropout', default=0.0, type=float,
+                       help='CompositeField4 dropout probability')
+    group = parser.add_argument_group('shufflenetv2k')
+    group.add_argument('--shufflenetv2k-input-conv2-stride',
+                       default=SHUFFLENETV2K_OPTIONS['input_conv2_stride'],
+                       type=int,
+                       help='stride of the optional 2nd input convolution')
+    group.add_argument('--shufflenetv2k-input-conv2-outchannels',
+                       default=SHUFFLENETV2K_OPTIONS['input_conv2_outchannels'],
+                       type=int,
+                       help='out channels of the optional 2nd input conv')
+    group.add_argument('--shufflenetv2k-stage4-dilation',
+                       default=SHUFFLENETV2K_OPTIONS['stage4_dilation'],
+                       type=int, help='dilation factor of stage 4')
+    group.add_argument('--shufflenetv2k-kernel',
+                       default=SHUFFLENETV2K_OPTIONS['kernel'], type=int,
+                       help='kernel width')
+    group.add_argument('--shufflenetv2k-conv5-as-stage',
+                       default=False, action='store_true')
+    group.add_argument('--shufflenetv2k-leaky-relu',
+                       default=False, action='store_true')
+
+
+def configure(args):
+    global HEAD_CONSOLIDATION
+    HEAD_CONSOLIDATION = args.head_consolidation
+    CF4_OPTIONS['dropout_p'] = args.cf4_dropout
+    SHUFFLENETV2K_OPTIONS.update(
+        input_conv2_stride=args.shufflenetv2k_input_conv2_stride,
+        input_conv2_outchannels=args.shufflenetv2k_input_conv2_outchannels,
+        stage4_dilation=args.shufflenetv2k_stage4_dilation,
+        kernel=args.shufflenetv2k_kernel,
+        conv5_as_stage=args.shufflenetv2k_conv5_as_stage,
+    )
+    if args.shufflenetv2k_leaky_relu:
+        SHUFFLENETV2K_OPTIONS['non_linearity'] = 'leaky_relu'
+
 
 #: std of a standard normal truncated to [-2, 2]: flax's
 #: ``variance_scaling`` divides by it so the kernel keeps variance 1/fan_in
@@ -53,15 +137,14 @@ def init_like_flax(model: nn.Module, generator: torch.Generator):
 
 class Factory:
     base_name: str = 'shufflenetv2k16'
+    upsample_stride: int = 1
 
-    def __init__(self, base_name: Optional[str] = None,
-                 checkpoint: Optional[str] = None):
-        if checkpoint is not None:
-            raise NotImplementedError(
-                'loading a checkpoint is not yet ported to PyTorch '
-                '(ROADMAP A11: training/checkpoint.py)')
+    def __init__(self, base_name: Optional[str] = None, *,
+                 upsample_stride: Optional[int] = None):
         if base_name is not None:
             self.base_name = base_name
+        if upsample_stride is not None:
+            self.upsample_stride = upsample_stride
 
     def from_scratch(self, head_metas: Sequence[headmeta.Base], *,
                      generator: Optional[torch.Generator] = None,
@@ -80,11 +163,20 @@ class Factory:
                 raise NotImplementedError(
                     f'head {type(meta).__name__} is not yet ported '
                     '(ROADMAP A9/A10)')
+            meta.upsample_stride = self.upsample_stride
         assign_strides(head_metas, base_net.stride)
-        head_nets = [heads.CompositeField4(meta, base_net.out_features)
-                     for meta in head_metas]
-        model = Shell(base_net, head_nets)
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        init_like_flax(model, generator)
-        return model.to(memory_format=torch.channels_last)
+        return build_shell(base_net, head_metas, generator=generator)
+
+
+def build_shell(base_net, head_metas, *, generator=None):
+    """Shell of ``base_net`` and a CompositeField4 per meta (with the
+    ``--cf4-dropout`` probability), initialised like flax from
+    ``generator`` (default: seed 0)."""
+    head_nets = [heads.CompositeField4(meta, base_net.out_features,
+                                       dropout_p=CF4_OPTIONS['dropout_p'])
+                 for meta in head_metas]
+    model = Shell(base_net, head_nets)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    init_like_flax(model, generator)
+    return model.to(memory_format=torch.channels_last)

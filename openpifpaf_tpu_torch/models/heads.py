@@ -1,12 +1,14 @@
 """Composite-field heads (port of ``openpifpaf_tpu/models/heads.py``:
 ``CompositeField4``, ``pixel_shuffle`` and ``index_field``).
 
-One 1x1 convolution produces ``n_fields * n_components * u^2`` channels,
+Optional dropout on the features (``dropout_p``, in train mode only);
+one 1x1 convolution produces ``n_fields * n_components * u^2`` channels,
 in the JAX order ``f * n_components + c``; optional PixelShuffle
-upsampling with a symmetric crop; then the inference post-processing
-runs in the forward: sigmoid on confidences, the coordinate index added
-to the regressions, softplus on the scales. The output is
-(B, F, C, H, W), as in the JAX package.
+upsampling with a symmetric crop. In train mode the raw (B, F, C, H, W)
+tensor is returned, for the loss; otherwise the inference
+post-processing runs in the forward: sigmoid on confidences, the
+coordinate index added to the regressions, softplus on the scales. The
+output is (B, F, C, H, W), as in the JAX package.
 """
 
 import math
@@ -30,20 +32,32 @@ def index_field(shape, device=None):
     return torch.stack([xs.expand(h, w), ys.expand(h, w)])
 
 
+def dropout(x, p, generator=None):
+    """flax's ``nn.Dropout``: keep each element with probability 1 - p and
+    scale the kept ones by 1 / (1 - p); the draws come from
+    ``generator`` (a ``torch.Generator`` on ``x``'s device)."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
 class CompositeField4(nn.Module):
-    def __init__(self, meta, in_features):
+    def __init__(self, meta, in_features, dropout_p=0.0):
         super().__init__()
         self.meta = meta
+        self.dropout_p = dropout_p
         upsample = meta.upsample_stride
         self.conv = nn.Conv2d(
             in_features, meta.n_fields * meta.n_components * upsample ** 2,
             1)
 
-    def forward(self, x):
+    def forward(self, x, train=False, generator=None):
         meta = self.meta
         n_components = meta.n_components
         upsample = meta.upsample_stride
 
+        if train and self.dropout_p > 0.0:
+            x = dropout(x, self.dropout_p, generator)
         x = self.conv(x)
         if upsample > 1:
             x = pixel_shuffle(x, upsample)
@@ -54,6 +68,8 @@ class CompositeField4(nn.Module):
 
         batch, _, height, width = x.shape
         x = x.reshape(batch, meta.n_fields, n_components, height, width)
+        if train:
+            return x
 
         nc = meta.n_confidences
         nv = meta.n_vectors

@@ -80,6 +80,26 @@ COCO_UPRIGHT_POSE = np.array([
     [1.4, 0.1, 2.0],     # right_ankle
 ])
 
+HFLIP = {
+    'left_eye': 'right_eye',
+    'right_eye': 'left_eye',
+    'left_ear': 'right_ear',
+    'right_ear': 'left_ear',
+    'left_shoulder': 'right_shoulder',
+    'right_shoulder': 'left_shoulder',
+    'left_elbow': 'right_elbow',
+    'right_elbow': 'left_elbow',
+    'left_wrist': 'right_wrist',
+    'right_wrist': 'left_wrist',
+    'left_hip': 'right_hip',
+    'right_hip': 'left_hip',
+    'left_knee': 'right_knee',
+    'right_knee': 'left_knee',
+    'left_ankle': 'right_ankle',
+    'right_ankle': 'left_ankle',
+}
+
+
 def cocokp_head_metas(with_dense=False):
     """The cocokp ``[cif, caf]`` head metas, and with ``with_dense`` the
     dense ``caf25`` meta of the denser skeleton's extra connections, as

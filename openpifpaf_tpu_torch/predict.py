@@ -26,8 +26,9 @@ def cli(args=None):
     parser.add_argument('images', nargs='*', help='input images')
     parser.add_argument('--glob', help='glob expression for input images')
     parser.add_argument('--checkpoint', default=None,
-                        help='not yet ported: only random-init '
-                             'shufflenetv2k16 runs')
+                        help='checkpoint of the port\'s trainer (path '
+                             'without .json/.pt); default: random-init '
+                             'shufflenetv2k16')
     parser.add_argument('--long-edge', default=None, type=int,
                         help='rescale the long side of the image')
     parser.add_argument('--batch-size', default=1, type=int)

@@ -13,25 +13,14 @@ import numpy as np
 import torch
 
 from . import decoder, transforms
+from .datasets.collate import collate_images_anns_meta
+from .models import factory as models_factory
 from .models import fused_inference
 from .models.basenetworks import ShuffleNetV2K
-from .models.factory import Factory
 from .plugins.coco.constants import cocokp_head_metas
+from .training import checkpoint as ckpt_mod
 
 LOG = logging.getLogger(__name__)
-
-
-def _collate(items):
-    """(images (B, H, W, 3) float32 padded to the batch maximum, anns,
-    metas) from (image, anns, meta) samples."""
-    images = [np.asarray(item[0]) for item in items]
-    hmax = max(im.shape[0] for im in images)
-    wmax = max(im.shape[1] for im in images)
-    batch = np.zeros((len(images), hmax, wmax, images[0].shape[2]),
-                     dtype=np.float32)
-    for i, im in enumerate(images):
-        batch[i, :im.shape[0], :im.shape[1]] = im
-    return batch, [item[1] for item in items], [item[2] for item in items]
 
 
 class _Images:
@@ -54,7 +43,15 @@ class _Images:
 def _load_rgb(file_name):
     import PIL.Image
     with open(file_name, 'rb') as f:
-        return np.asarray(PIL.Image.open(f).convert('RGB'))
+        return PIL.Image.open(f).convert('RGB')
+
+
+def _pil_image(image):
+    """The transforms take PIL images; (H, W, 3) uint8 arrays convert."""
+    import PIL.Image
+    if isinstance(image, PIL.Image.Image):
+        return image
+    return PIL.Image.fromarray(np.asarray(image))
 
 
 #: ``--backbone-engine`` choices, as the JAX package has them
@@ -72,8 +69,11 @@ class Predictor:
     def __init__(self, checkpoint=None, head_metas=None, *, model=None,
                  device=None, json_data=False, backbone_engine='auto',
                  bf16=False):
-        """Without ``model``: a ``shufflenetv2k16`` with ``head_metas``
-        (default: the cocokp heads), randomly initialised from seed 0.
+        """Without ``model``: the checkpoint of the port's trainer at
+        ``checkpoint`` (with ``head_metas``, consolidated as
+        ``--head-consolidation`` says), else a ``shufflenetv2k16`` with
+        ``head_metas`` (default: the cocokp heads), randomly initialised
+        from seed 0.
         ``device`` defaults to the first CUDA device; without one it
         raises, and the CPU is run only when asked for (``device='cpu'``).
 
@@ -89,14 +89,14 @@ class Predictor:
         if backbone_engine not in BACKBONE_ENGINES:
             raise ValueError(f'unknown backbone engine {backbone_engine!r}; '
                              f'one of {BACKBONE_ENGINES}')
-        if checkpoint is not None:
-            raise NotImplementedError(
-                'loading a checkpoint is not yet ported to PyTorch '
-                '(ROADMAP A11: training/checkpoint.py)')
+        if model is None and checkpoint is not None:
+            model, _ = ckpt_mod.load_shell(
+                checkpoint, head_metas=head_metas,
+                head_consolidation=models_factory.HEAD_CONSOLIDATION)
         if model is None:
             LOG.warning('no checkpoint given: using randomly initialized '
                         'cocokp model')
-            model = Factory().from_scratch(
+            model = models_factory.Factory().from_scratch(
                 head_metas or cocokp_head_metas(),
                 generator=torch.Generator().manual_seed(0))
         if device is None:
@@ -163,6 +163,7 @@ class Predictor:
         if long_edge is None:
             long_edge = self.long_edge
         return transforms.Compose([
+            transforms.ImageTransform(_pil_image),
             transforms.NormalizeAnnotations(),
             transforms.RescaleAbsolute(long_edge) if long_edge else None,
             transforms.CenterPadTight(16),
@@ -223,7 +224,7 @@ class Predictor:
         for start in range(0, len(data), self.batch_size):
             items = [data[i] for i in
                      range(start, min(start + self.batch_size, len(data)))]
-            yield from self._run_batch(*_collate(items))
+            yield from self._run_batch(*collate_images_anns_meta(items))
 
     def images(self, file_names):
         file_names = list(file_names)
@@ -235,7 +236,7 @@ class Predictor:
     def numpy_images(self, numpy_images):
         """Images as (H, W, 3) uint8 arrays."""
         numpy_images = list(numpy_images)
-        data = _Images(numpy_images, np.asarray, self.preprocess,
+        data = _Images(numpy_images, _pil_image, self.preprocess,
                        lambda i: {'dataset_index': i})
         yield from self.dataset(data)
 

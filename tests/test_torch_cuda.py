@@ -1,8 +1,10 @@
 """The PyTorch port on a CUDA device: the hand-written kernels (CifHr,
 depthwise conv, fused block, branch2, and the Mosaic lab's interleave,
 VALID depthwise and branch2) against their plain versions, the CifHr
-impls against each other, and the decode under every configuration
-against the JAX poses of the golden file and against the CPU.
+impls against each other, the decode under every configuration
+against the JAX poses of the golden file and against the CPU, and a
+train step against the CPU, BatchNorm's running-statistics rule and the
+bf16 step.
 
 Every test here needs a GPU (marker ``gpu``) and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a machine that
@@ -30,7 +32,8 @@ from openpifpaf_tpu_torch.predictor import Predictor
 
 from torch_port_helpers import CONFIGS, GOLDEN, GOLDEN_SPARSE_FLAGS, \
     GOLDEN_STRIDE, assert_pose_gate, backbone_kernel_inputs, golden_inputs, golden_runs, \
-    lab_kernel_inputs, order_rows, port_decoder, pose_rows, random_cells
+    lab_kernel_inputs, optimizer_args, order_rows, port_decoder, \
+    port_narrow_shell, pose_rows, random_cells, write_synthetic_coco
 
 pytestmark = pytest.mark.gpu
 
@@ -515,3 +518,115 @@ def test_lab_entry_point_on_the_card(cuda, capsys):
     # 16-40 rows at stages 2 and 3; 16 and 24 at stage4 (31 rows)
     assert out.count('does not fit') == 4 + 4 + 2
     assert out.count('branch2 plain') == 3 + len(results)
+
+
+# -- training on the card ---------------------------------------------------
+
+
+@pytest.fixture(scope='module')
+def train_batch(tmp_path_factory):
+    """A batch of 2 of the port's CocoKp train pipeline at 97 px, and its
+    head metas with strides."""
+    from openpifpaf_tpu_torch.models.shell import assign_strides
+    from openpifpaf_tpu_torch.plugins.coco.cocokp import CocoKp
+
+    ann_file, image_dir = write_synthetic_coco(
+        str(tmp_path_factory.mktemp('coco')), n_images=4, image_hw=(97, 129),
+        seed=0)
+    datamodule = CocoKp(train_annotations=ann_file, train_image_dir=image_dir,
+                        square_edge=97, batch_size=2)
+    assign_strides(datamodule.head_metas, 16)
+    np.random.seed(0)
+    images, targets, _ = next(iter(datamodule.train_loader()))
+    return images, targets, datamodule.head_metas
+
+
+def _trainer(metas, device, **attrs):
+    from openpifpaf_tpu_torch.training import losses, optimize
+    from openpifpaf_tpu_torch.training.trainer import Trainer
+
+    model = port_narrow_shell(metas)
+    optimizer, schedule = optimize.factory_optimizer(
+        optimizer_args(lr=1e-4, lr_warm_up_factor=1.0),
+        training_batches_per_epoch=1)
+    trainer = Trainer(model, losses.Factory().factory(metas), optimizer,
+                      schedule, 'unused', device=device)
+    for k, v in attrs.items():
+        setattr(trainer, k, v)
+    return trainer
+
+
+def _step(trainer, batch):
+    images, targets, _ = batch
+    device = trainer.device
+    loss, heads = trainer.train_step(
+        torch.from_numpy(images).to(device),
+        tuple(torch.from_numpy(t).to(device) for t in targets))
+    return float(loss), [float(h) for h in heads]
+
+
+def test_cuda_train_step_matches_cpu(cuda, train_batch):
+    """One step on the card against the CPU (TF32 off): losses rtol 1e-4;
+    parameters, BatchNorm buffers and EMA within 5% of each tensor's
+    update plus 1e-3 of the largest update, rtol 2e-6."""
+    gpu, cpu = _trainer(train_batch[2], cuda), _trainer(train_batch[2], 'cpu')
+    start = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        loss, heads = _step(gpu, train_batch)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    ref_loss, ref_heads = _step(cpu, train_batch)
+    np.testing.assert_allclose(loss, ref_loss, rtol=1e-4)
+    np.testing.assert_allclose(heads, ref_heads, rtol=0, atol=1e-4 * ref_loss)
+    ours = {k: v.cpu() for k, v in gpu.model.state_dict().items()}
+    ref = cpu.model.state_dict()
+    names = [n for n in ref if not n.endswith('num_batches_tracked')]
+    ema = dict(zip([n for n, _ in cpu.model.named_parameters()], gpu.ema))
+    ref_ema = dict(zip([n for n, _ in cpu.model.named_parameters()], cpu.ema))
+    for mine, theirs, keys in ((ours, ref, names),
+                               (ema, ref_ema, list(ref_ema))):
+        floor = max(float((theirs[n] - start[n]).abs().max()) for n in keys)
+        for name in keys:
+            update = float((theirs[name] - start[name]).abs().max())
+            np.testing.assert_allclose(
+                mine[name].cpu().numpy(), theirs[name].numpy(), rtol=2e-6,
+                atol=0.05 * update + 1e-3 * floor, err_msg=name)
+
+
+def test_cuda_batchnorm_updates_with_the_biased_variance(cuda):
+    """flax's rule on the card: ``ra_var = 0.99 ra_var + 0.01 var`` with
+    the biased batch variance (torch's own BatchNorm2d would take the
+    unbiased one, n / (n - 1) larger), the mean likewise; nothing moves
+    until the step commits the statistics."""
+    from openpifpaf_tpu_torch.models.basenetworks import BatchNorm, \
+        commit_batch_stats
+
+    norm = BatchNorm(6, eps=1e-3, momentum=0.01).to(cuda)
+    x = torch.randn(2, 6, 3, 5, device=cuda) * 2.0 + 1.0
+    norm(x, True)
+    assert torch.equal(norm.running_var, torch.ones(6, device=cuda))
+    assert commit_batch_stats(norm) == 1
+    var = x.var(dim=(0, 2, 3), unbiased=False)
+    mean = x.mean(dim=(0, 2, 3))
+    torch.testing.assert_close(norm.running_var, 0.99 + 0.01 * var,
+                               rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(norm.running_mean, 0.01 * mean, rtol=1e-6,
+                               atol=1e-7)
+    unbiased = 0.99 + 0.01 * x.var(dim=(0, 2, 3), unbiased=True)
+    assert not torch.allclose(norm.running_var, unbiased, rtol=1e-5, atol=0)
+
+
+def test_cuda_bf16_train_step(cuda, train_batch):
+    """A bf16 step on the card near the float32 step (losses within 2e-3
+    of the loss), with float32 master weights and buffers."""
+    f32 = _trainer(train_batch[2], cuda)
+    bf16 = _trainer(train_batch[2], cuda, bf16=True)
+    loss, heads = _step(bf16, train_batch)
+    ref_loss, ref_heads = _step(f32, train_batch)
+    np.testing.assert_allclose(loss, ref_loss, rtol=2e-3)
+    np.testing.assert_allclose(heads, ref_heads, rtol=0, atol=2e-3 * ref_loss)
+    assert all(v.dtype != torch.bfloat16
+               for v in bf16.model.state_dict().values())
+    assert all(torch.isfinite(v).all() for v in bf16.model.state_dict().values())

@@ -24,31 +24,15 @@ from openpifpaf_tpu_torch.models import basenetworks, convert_jax
 from openpifpaf_tpu_torch.models.factory import Factory
 from openpifpaf_tpu_torch.plugins.coco.constants import cocokp_head_metas
 
-from torch_port_helpers import jax_f32, one_torch_thread
+from torch_port_helpers import NARROW, jax_f32, one_torch_thread, \
+    randomize_variables
 
 ATOL = 1e-4
-NARROW = ([1, 2, 1], [8, 16, 32, 64, 64])
 
 
 @pytest.fixture(autouse=True, scope='module')
 def _one_torch_thread():
     one_torch_thread()
-
-
-def _randomize(variables, seed):
-    """BatchNorm scale/var in [0.5, 1.5], biases and means ~ N(0, 0.1)."""
-    rng = np.random.RandomState(seed)
-
-    def leaf(path, a):
-        a = np.asarray(a)
-        name = path[-1].key
-        if name in ('scale', 'var'):
-            return rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
-        if name in ('bias', 'mean'):
-            return (0.1 * rng.randn(*a.shape)).astype(np.float32)
-        return a
-
-    return jax.tree_util.tree_map_with_path(leaf, variables)
 
 
 def _jax_shell(repeats, channels, **kwargs):
@@ -80,7 +64,7 @@ def test_narrow_shufflenet_fields_match_flax(image_hw):
     model = _jax_shell(*NARROW)
     variables = model.init(jax.random.PRNGKey(0),
                            jnp.zeros((1, 65, 65, 3)), train=True)
-    variables = _randomize(variables, seed=0)
+    variables = randomize_variables(variables, seed=0)
     image = np.random.RandomState(1).randn(2, *image_hw, 3).astype(
         np.float32)
     torch_model = Factory().from_scratch(
@@ -100,7 +84,7 @@ def test_backbone_options_fields_match_flax(channels, net_kwargs):
     model = _jax_shell(NARROW[0], channels, **net_kwargs)
     variables = model.init(jax.random.PRNGKey(0),
                            jnp.zeros((1, 65, 65, 3)), train=True)
-    variables = _randomize(variables, seed=4)
+    variables = randomize_variables(variables, seed=4)
     image = np.random.RandomState(5).randn(2, 65, 97, 3).astype(np.float32)
     base = basenetworks.ShuffleNetV2K(NARROW[0], channels, **net_kwargs)
     assert base.stride == model.base_net.stride
@@ -113,7 +97,7 @@ def test_full_width_k16_fields_match_flax():
     model = _jax_shell([4, 8, 4], [24, 348, 696, 1392, 1392])
     variables = model.init(jax.random.PRNGKey(0),
                            jnp.zeros((1, 65, 65, 3)), train=True)
-    variables = _randomize(variables, seed=2)
+    variables = randomize_variables(variables, seed=2)
     image = np.random.RandomState(3).randn(1, 65, 65, 3).astype(np.float32)
     torch_model = Factory().from_scratch(cocokp_head_metas())
     assert isinstance(torch_model.base_net, basenetworks.ShuffleNetV2K)

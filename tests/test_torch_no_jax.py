@@ -65,7 +65,11 @@ def test_every_port_module_imports_without_jax():
     for name in ('predict', '_nvcc', 'ops.cifhr_cuda', 'models.dw_cuda',
                  'models.shuffle_cuda', 'models.block_cuda',
                  'models.fused_inference', 'lab.kernels', 'lab.timing',
-                 'lab.mosaic_lab'):
+                 'lab.mosaic_lab', 'train', 'logger', 'training.trainer',
+                 'training.losses', 'training.optimize',
+                 'training.checkpoint', 'encoder.cif', 'encoder.caf',
+                 'transforms.rotate', 'transforms.image',
+                 'datasets.loader', 'plugins.coco.cocokp'):
         assert f'openpifpaf_tpu_torch.{name}' in report['modules']
     assert report['loaded'] == []
 

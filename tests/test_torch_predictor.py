@@ -35,9 +35,8 @@ from openpifpaf_tpu_torch.models.factory import Factory
 from openpifpaf_tpu_torch.plugins.coco.constants import cocokp_head_metas
 from openpifpaf_tpu_torch.predictor import Predictor
 
-from torch_port_helpers import jax_f32, one_torch_thread
+from torch_port_helpers import NARROW, jax_f32, one_torch_thread
 
-NARROW = ([1, 2, 1], [8, 16, 32, 64, 64])
 THRESHOLDS = {'seed_threshold': 0.05, 'keypoint_threshold_nms': 0.05,
               'instance_threshold': 0.001}
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -274,9 +273,14 @@ def test_predictor_without_cuda_raises(monkeypatch):
     assert Predictor(model=model, device='cpu').device.type == 'cpu'
 
 
-def test_checkpoint_is_not_yet_ported():
-    """Only the random-init model runs: a checkpoint raises at once."""
+def test_checkpoint_is_not_yet_ported(tmp_path):
+    """The port reads its own checkpoints (``.json`` + ``.pt``); a JAX
+    orbax checkpoint (``.json`` + ``.arrays/``) raises at once."""
     from openpifpaf_tpu_torch import predict
 
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        predict.main(['image.jpg', '--checkpoint', 'model.arrays'])
+    base = str(tmp_path / 'model')
+    with open(base + '.json', 'w') as f:
+        json.dump({'base_name': 'shufflenetv2k16', 'head_metas': []}, f)
+    os.makedirs(base + '.arrays')
+    with pytest.raises(NotImplementedError, match='ROADMAP A11'):
+        predict.main(['image.jpg', '--checkpoint', base])

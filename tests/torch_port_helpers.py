@@ -546,6 +546,128 @@ def jax_golden_config(scenes, scene, config, default_poses=None):
     return out
 
 
+#: a narrow ShuffleNetV2K (stages_repeats, stages_out_channels) for the
+#: parity tests
+NARROW = ([1, 2, 1], [8, 16, 32, 64, 64])
+
+
+def randomize_variables(variables, seed):
+    """Flax variables with BatchNorm scale/var in [0.5, 1.5] and biases
+    and means ~ N(0, 0.1), so that no layer is an identity."""
+    import jax
+    rng = np.random.RandomState(seed)
+
+    def leaf(path, a):
+        a = np.asarray(a)
+        name = path[-1].key
+        if name in ('scale', 'var'):
+            return rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
+        if name in ('bias', 'mean'):
+            return (0.1 * rng.randn(*a.shape)).astype(np.float32)
+        return a
+
+    return jax.tree_util.tree_map_with_path(leaf, variables)
+
+
+def jax_narrow_shell(metas, *, dropout_p=0.0):
+    """The JAX package's Shell of a :data:`NARROW` ShuffleNetV2K and a
+    CompositeField4 per meta."""
+    from openpifpaf_tpu.models import basenetworks
+    from openpifpaf_tpu.models.heads import CompositeField4
+    from openpifpaf_tpu.models.shell import Shell, assign_strides
+    base = basenetworks.ShuffleNetV2K(stages_repeats=NARROW[0],
+                                      stages_out_channels=NARROW[1])
+    assign_strides(metas, base.stride)
+    return Shell(base_net=base, head_nets=tuple(
+        CompositeField4(meta=m, dropout_p=dropout_p) for m in metas))
+
+
+def port_narrow_shell(metas):
+    from openpifpaf_tpu_torch.models import basenetworks
+    from openpifpaf_tpu_torch.models.factory import Factory
+    return Factory().from_scratch(
+        metas, base_net=basenetworks.ShuffleNetV2K(*NARROW))
+
+
+def optimizer_args(**overrides):
+    """The optimizer and schedule flags' defaults with ``overrides``."""
+    import argparse
+    from openpifpaf_tpu_torch.training import optimize
+    parser = argparse.ArgumentParser()
+    optimize.cli(parser)
+    args = parser.parse_args([])
+    for k, v in overrides.items():
+        if not hasattr(args, k):
+            raise KeyError(k)
+        setattr(args, k, v)
+    return args
+
+
+def write_synthetic_coco(directory, *, n_images=16, image_hw=(113, 129),
+                         seed=0):
+    """A COCO keypoint set made from ``np.random.RandomState(seed)``: JPEG
+    images of ``image_hw`` with 1-4 upright people each (their visible
+    joints painted as 5x5 squares of a colour per joint on dark noise)
+    and the annotation JSON. Returns (annotation file, image directory).
+    Visibility is 2 for 80% of the joints, 1 for 10%, 0 for the rest and
+    for joints outside the image."""
+    import json
+    import PIL.Image
+    from openpifpaf_tpu_torch.plugins.coco.constants import \
+        COCO_KEYPOINTS, COCO_PERSON_SKELETON, COCO_UPRIGHT_POSE
+
+    rng = np.random.RandomState(seed)
+    image_dir = os.path.join(directory, 'images')
+    os.makedirs(image_dir, exist_ok=True)
+    h, w = image_hw
+    colors = rng.randint(96, 256, (len(COCO_KEYPOINTS), 3))
+    pose = COCO_UPRIGHT_POSE[:, :2]
+    images, annotations = [], []
+    for image_id in range(1, n_images + 1):
+        image = rng.randint(0, 64, (h, w, 3)).astype(np.uint8)
+        for _ in range(rng.randint(1, 5)):
+            scale = rng.uniform(0.4, 0.9) * h / np.ptp(pose[:, 1])
+            x = rng.uniform(0.1, 0.9) * w + scale * pose[:, 0]
+            y = rng.uniform(0.5, 1.0) * h - scale * (pose[:, 1]
+                                                     - pose[:, 1].min())
+            v = rng.choice([2.0, 1.0, 0.0], size=len(pose),
+                           p=[0.8, 0.1, 0.1])
+            inside = (x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)
+            v[~inside] = 0.0
+            if np.sum(v > 0) < 3:
+                continue
+            keypoints = np.stack([np.where(v > 0, x, 0.0),
+                                  np.where(v > 0, y, 0.0), v], axis=1)
+            for (kx, ky, kv), color in zip(keypoints, colors):
+                if kv > 0:
+                    image[max(0, int(ky) - 2):int(ky) + 3,
+                          max(0, int(kx) - 2):int(kx) + 3] = color
+            vx, vy = x[v > 0], y[v > 0]
+            bbox = [float(vx.min()) - 4.0, float(vy.min()) - 4.0,
+                    float(np.ptp(vx)) + 8.0, float(np.ptp(vy)) + 8.0]
+            annotations.append({
+                'id': len(annotations) + 1, 'image_id': image_id,
+                'category_id': 1, 'iscrowd': 0,
+                'keypoints': [round(float(c), 2)
+                              for c in keypoints.reshape(-1)],
+                'num_keypoints': int(np.sum(v > 0)),
+                'bbox': [round(c, 2) for c in bbox],
+                'area': round(bbox[2] * bbox[3], 2),
+            })
+        file_name = f'{image_id:012d}.jpg'
+        PIL.Image.fromarray(image).save(os.path.join(image_dir, file_name),
+                                        quality=95)
+        images.append({'id': image_id, 'file_name': file_name,
+                       'width': w, 'height': h})
+    ann_file = os.path.join(directory, 'person_keypoints.json')
+    with open(ann_file, 'w') as f:
+        json.dump({'images': images, 'annotations': annotations,
+                   'categories': [{'id': 1, 'name': 'person',
+                                   'keypoints': COCO_KEYPOINTS,
+                                   'skeleton': COCO_PERSON_SKELETON}]}, f)
+    return ann_file, image_dir
+
+
 def jax_golden():
     """The golden file's dict: :func:`jax_golden_scenes` and
     :func:`jax_golden_config` of each of :func:`golden_configs`."""
