@@ -81,7 +81,22 @@ Phases, each of which raises on failure (non-zero exit):
     trainer's EMA weights, one request with its fields checked, CifHr
     launches read around it); (d) 40 steps on one fixed batch: the loss
     must fall. The training path runs no hand-written kernel (the step
-    is cuDNN through autograd).
+    is cuDNN through autograd);
+12. other backbones and eval: (a) every ``BASE_FACTORIES`` entry at full
+    width, and a group-norm and an instance-norm k16, one float32 forward
+    of the backbone on the card against the CPU (TF32 off, within 1e-4 of
+    the largest value), with its shape, stride and ``out_features``; (b)
+    resnet50 with the cocokp heads at the JAX defaults (stride 16, 2048
+    features, random from seed 0) on the module graph that ``'auto'``
+    picks: fields against the CPU, the main path's requests with the
+    CifHr launches read around them (counted in the kernels line), a
+    bf16 forward against float32, and the batch-1 forward profile in
+    float32 and bf16; (c) ``python -m openpifpaf_tpu_torch.eval`` on the
+    card over a synthetic COCO set (8 images of 427x569, seed 0) with that
+    resnet50 saved as a checkpoint of the port, at long edge 641: 10 finite
+    stats of every image, nn and decoder time per image; the ground truth
+    as predictions through ``metric.Coco`` gives AP 1.0; ``benchmark.py``
+    runs one entry over 2 images.
 
 The second-to-last line is a JSON object describing the kernels (with each
 one's bound: the larger of its bytes over the card's memory rate and its
@@ -871,6 +886,10 @@ def phase_profile(predictors, device, card):
             f'events, 10 reps), device time {busy:.3f} ms in {len(ops)} '
             f'device ops, {len(bn)} BatchNorm kernels ({bn_ms:.3f} ms) '
             f'[{card}]')
+        kinds = {}
+        for e in bn:
+            kinds[e.name[:80]] = kinds.get(e.name[:80], 0) + 1
+        log(f'forward {name}: BatchNorm kernels by name {kinds}')
 
 
 #: the lab kernels' sources and their kernels' names there
@@ -1261,6 +1280,202 @@ def phase_train(port, device, card):
         phase_overfit(batch, device, card)
 
 
+#: phase 12: every backbone's float32 forward on the card against the CPU
+#: (TF32 off) at this image size, within this share of its largest value
+BACKBONE_HW = (129, 161)
+BACKBONE_RTOL = 1e-4
+#: phase 12c: the eval CLI on a synthetic COCO set of EVAL_IMAGES images of
+#: TRAIN_IMAGE_HW made from seed 0, at the JAX default long edge
+EVAL_IMAGES = 8
+EVAL_LONG_EDGE = 641
+
+
+def phase_backbones(device, card):
+    """(a) Every ``BASE_FACTORIES`` entry at full width, and a group-norm
+    and an instance-norm k16: one float32 forward of the backbone on the
+    card and on the CPU, with the same weights (seed 0), TF32 off."""
+    import copy
+    from openpifpaf_tpu_torch.models import factory as models_factory
+
+    image = torch.from_numpy(np.random.RandomState(3).randn(
+        1, 3, *BACKBONE_HW).astype(np.float32)).contiguous(
+            memory_format=torch.channels_last)
+    options = models_factory.SHUFFLENETV2K_OPTIONS
+    cases = [(name, 'batch') for name in sorted(models_factory.BASE_FACTORIES)]
+    cases += [('shufflenetv2k16', 'group'), ('shufflenetv2k16', 'instance')]
+    for name, norm in cases:
+        saved = dict(options)
+        options['norm'] = norm
+        try:
+            net = models_factory.BASE_FACTORIES[name]()
+        finally:
+            options.update(saved)
+        models_factory.init_like_flax(net, torch.Generator().manual_seed(0))
+        net = net.eval().to(memory_format=torch.channels_last)
+        on_card = copy.deepcopy(net).to(device)
+        with no_tf32(), torch.inference_mode():
+            ref = net(image)
+            out = on_card(image.to(device)).cpu()
+        del on_card
+        err = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        if not (bool(torch.isfinite(out).all()) and scale > 0
+                and err <= BACKBONE_RTOL * scale):
+            raise AssertionError(f'backbone {name} ({norm} norm): error '
+                                 f'{err} of largest value {scale}')
+        log(f'backbone {name} ({norm} norm): features {tuple(out.shape)}, '
+            f'stride {net.stride}, out_features {net.out_features}, max abs '
+            f'err {err:.3g} = {err / scale:.3g} of the largest value (tol '
+            f'{BACKBONE_RTOL}, TF32 off) [{card}]')
+
+
+def phase_resnet50(port, device, card):
+    """(b) resnet50 with the cocokp heads at the JAX defaults (stride 16,
+    2048 features; random, seed 0) serving the main path's requests on the
+    module graph (``'auto'``), with the CifHr launches read around them;
+    then the batch-1 forward profile in float32 and bf16. Returns the model
+    and the CifHr launches."""
+    from openpifpaf_tpu_torch.models.factory import Factory
+    from openpifpaf_tpu_torch.plugins.coco.constants import cocokp_head_metas
+    from openpifpaf_tpu_torch.predictor import Predictor
+
+    model = Factory('resnet50').from_scratch(
+        cocokp_head_metas(), generator=torch.Generator().manual_seed(0))
+    base = model.base_net
+    if (type(base).__name__, base.stride, base.out_features) != \
+            ('Resnet', 16, 2048):
+        raise AssertionError(f'resnet50: {base.stride} {base.out_features}')
+    predictor = Predictor(model=model, device=device)
+    if predictor._backbone is not None:
+        raise AssertionError("resnet50: 'auto' did not pick the module graph")
+    check_fields_against_cpu(predictor, device)
+    reset_launches(port)
+    serve(predictor, make_requests(), card, 'resnet50')
+    launches = read_launches(port)['cifhr_accumulate']
+    if launches == 0:
+        raise AssertionError('resnet50 serving launched no CifHr kernel')
+    log(f'resnet50: {launches} CifHr kernel launches')
+
+    p16 = Predictor(model=model, device=device, bf16=True)
+    image = test_image(device)
+    with torch.inference_mode():
+        pairs = zip(p16._forward(image), predictor._forward(image))
+        for what, (o, r) in zip(('cif', 'caf'), pairs):
+            rel = float((o - r).abs().max()) / float(r.abs().max())
+            if not (bool(torch.isfinite(o).all()) and rel <= BF16_FIELD_RTOL):
+                raise AssertionError(f'resnet50 bf16: {what} error {rel}')
+            log(f'resnet50 bf16: {what} max abs err {rel:.3g} of the largest '
+                f'float32 value (tol {BF16_FIELD_RTOL})')
+    phase_profile({'resnet50': predictor, 'resnet50 bf16': p16}, device,
+                  card)
+    return model, launches
+
+
+def _port_run(module, *args):
+    """``python -m module args`` of this checkout; raises on failure."""
+    done = subprocess.run(
+        [sys.executable, '-m', module, *args], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=600)
+    if done.returncode != 0:
+        raise AssertionError(f'{module} exited {done.returncode}: '
+                             f'{done.stderr[-3000:]}')
+    return done
+
+
+def phase_eval(model, card):
+    """(c) ``python -m openpifpaf_tpu_torch.eval`` on the card over a
+    synthetic COCO set with the resnet50 saved as a checkpoint of the port;
+    the ground truth as predictions through ``metric.Coco`` (AP 1.0); one
+    ``benchmark.py`` entry over the same checkpoint."""
+    import tempfile
+    from openpifpaf_tpu_torch import __version__
+    from openpifpaf_tpu_torch.annotation import Annotation
+    from openpifpaf_tpu_torch.models import factory as models_factory
+    from openpifpaf_tpu_torch.plugins.coco import constants
+    from openpifpaf_tpu_torch.plugins.coco.cocokp import CocoKp
+    from openpifpaf_tpu_torch.training import checkpoint
+    from torch_port_helpers import restored_statics, write_synthetic_coco
+
+    with tempfile.TemporaryDirectory() as directory:
+        ann_file, image_dir = write_synthetic_coco(
+            os.path.join(directory, 'coco'), n_images=EVAL_IMAGES,
+            image_hw=TRAIN_IMAGE_HW, seed=0)
+        ckpt = os.path.join(directory, 'resnet50')
+        checkpoint.save(ckpt, state_dict=model.state_dict(), meta={
+            'base_name': 'resnet50', 'epoch': 0, 'version': __version__,
+            'backbone_options': {
+                'shufflenetv2k': dict(models_factory.SHUFFLENETV2K_OPTIONS),
+                'resnet': dict(models_factory.RESNET_OPTIONS)},
+            'head_metas': [checkpoint.headmeta_to_dict(m)
+                           for m in model.head_metas]})
+        with restored_statics(CocoKp):
+            CocoKp.eval_annotations = ann_file
+            CocoKp.eval_image_dir = image_dir
+            datamodule = CocoKp()
+            n_images = len(datamodule.eval_loader().dataset)
+            metric = datamodule.metrics()[0]
+        flags = ['--dataset', 'cocokp', '--cocokp-val-annotations', ann_file,
+                 '--cocokp-val-image-dir', image_dir, '--coco-eval-long-edge',
+                 str(EVAL_LONG_EDGE), '--eval-loader-warmup', '0']
+        out = os.path.join(directory, 'eval')
+        t0 = time.perf_counter()
+        _port_run('openpifpaf_tpu_torch.eval', *flags, '--checkpoint', ckpt,
+                  '--output', out)
+        wall = time.perf_counter() - t0
+        with open(out + '.stats.json') as f:
+            stats = json.load(f)
+        if not (len(stats['stats']) == 10
+                and np.all(np.isfinite(stats['stats']))
+                and stats['n_images'] == n_images > 0
+                and stats['nn_time'] > 0 and stats['decoder_time'] > 0
+                and stats['file_size'] == os.path.getsize(ckpt + '.pt')):
+            raise AssertionError(f'eval stats {stats}, {n_images} images')
+        per_image = {k: stats[k] / n_images * 1e3
+                     for k in ('total_time', 'nn_time', 'decoder_time')}
+        log(f'eval (c): resnet50 over {n_images} images at long edge '
+            f'{EVAL_LONG_EDGE}: per image total {per_image["total_time"]:.2f} '
+            f'ms, nn {per_image["nn_time"]:.2f} ms, decoder '
+            f'{per_image["decoder_time"]:.2f} ms (the first image included); '
+            f'stats {[round(v, 4) for v in stats["stats"]]} (random '
+            f'weights); whole command {wall:.1f} s [{card}]')
+
+        with open(ann_file) as f:
+            data = json.load(f)
+        for image in data['images']:
+            metric.accumulate([
+                Annotation(constants.COCO_KEYPOINTS,
+                           constants.COCO_PERSON_SKELETON).set(
+                    np.asarray(a['keypoints'], np.float32).reshape(17, 3),
+                    fixed_score=1.0, fixed_bbox=a['bbox'])
+                for a in data['annotations'] if a['image_id'] == image['id']],
+                {'image_id': image['id']})
+        gt_stats = metric.stats()['stats']
+        if gt_stats[0] != 1.0:
+            raise AssertionError(f'ground truth as predictions: {gt_stats}')
+        log(f'eval (c): the ground truth as predictions gives AP '
+            f'{gt_stats[0]}, AR {gt_stats[5]}')
+
+        bench = os.path.join(directory, 'bench')
+        done = _port_run('openpifpaf_tpu_torch.benchmark', '--checkpoints',
+                         ckpt, '--output', bench, '--n-images', '2', *flags)
+        with open(os.path.join(bench, ckpt.replace('/', '-')
+                               + '.eval-cocokp.stats.json')) as f:
+            bench_stats = json.load(f)
+        if bench_stats['n_images'] != 2:
+            raise AssertionError(f'benchmark stats {bench_stats}')
+        log('eval (c): benchmark.py, one entry over 2 images:')
+        log(done.stdout.strip())
+
+
+def phase_other_backbones(port, device, card):
+    """Phase 12: (a)-(c); returns the CifHr launches of (b)."""
+    phase_backbones(device, card)
+    model, launches = phase_resnet50(port, device, card)
+    phase_eval(model, card)
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, rows, row):
     """One kernel's entry of the JSON line: times and bound of ``row``,
     the largest error of all ``rows``."""
@@ -1307,6 +1522,7 @@ def main():
     lab_results = phase_lab_kernels(port, device, card)
     launches.update(phase_lab(port, card))
     phase_train(port, device, card)
+    launches['cifhr_accumulate'] += phase_other_backbones(port, device, card)
 
     # no single PyTorch call computes the CifHr map; times at F=17 K=256
     entries = [kernel_entry('cifhr_accumulate', 'cifhr.cu',

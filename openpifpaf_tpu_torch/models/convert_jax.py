@@ -1,24 +1,36 @@
 """Weight bridge from the JAX package's flax variables to the port.
 
-:func:`state_dict_from_jax` inverts the flax names that
-``openpifpaf_tpu/models/convert_torch.py::_map_shufflenetv2k`` writes for
-a ShuffleNetV2K ``Shell``:
+:func:`state_dict_from_jax` maps the flax auto-names of every backbone of
+``openpifpaf_tpu/models/basenetworks.py`` and of the heads to the port's
+module names:
 
-- ``base_net/ConvNormAct_0`` is the input block, a 3x3
+- ShuffleNetV2K: ``base_net/ConvNormAct_0`` is the input block, a 3x3
   ``base_net/ConvNormAct_1`` is ``input_conv2`` and a 1x1 last
-  ``base_net/ConvNormAct_*`` is conv5;
-- ``base_net/InvertedResidualK_b`` is ``base_net.blocks.b`` (with
-  ``conv5_as_stage``, the last two are ``base_net.conv5.0`` and ``.1``):
-  five ``ConvNormAct`` for a stage's first block (branch1 then branch2),
-  three for the others (branch2);
+  ``base_net/ConvNormAct_*`` is conv5; ``base_net/InvertedResidualK_b`` is
+  ``base_net.blocks.b`` (with ``conv5_as_stage``, the last two are
+  ``base_net.conv5.0`` and ``.1``): five ``ConvNormAct`` for a stage's
+  first block (branch1 then branch2), three for the others (branch2);
+- Resnet: ``Conv_0`` and ``BatchNorm_0`` are ``stem.conv`` and
+  ``stem.norm``, a ``ConvNormAct_0`` is ``input_conv2``;
+  ``Bottleneck_b``/``BasicBlock_b`` is ``blocks.b``, its ``ConvNormAct_i``
+  ``conv1``, ``conv2``, (``conv3``,) ``projection`` in that order;
+- MobileNetV2/V3: ``ConvNormAct_0`` is ``stem``, ``ConvNormAct_1``
+  ``conv_last``; ``InvertedResidualV2_b``'s ``ConvNormAct_i`` is
+  ``blocks.b.convs.i``; ``InvertedResidualV3_b``'s last ``ConvNormAct``
+  is ``blocks.b.project``, the others ``blocks.b.convs.i``, and its
+  ``SqueezeExcite_0/Conv_0``, ``Conv_1`` are ``se.reduce``, ``se.expand``;
+- SqueezeNet: ``Conv_0`` is ``stem.conv``; ``Fire_f``'s ``Conv_0``,
+  ``Conv_1``, ``Conv_2`` are ``fires.f.squeeze``, ``expand1``,
+  ``expand3``;
 - ``head_nets_i/Conv_0`` is ``head_nets.i.conv``.
 
-Kernels go from HWIO to OIHW (depthwise ``(K, K, 1, C)`` to
-``(C, 1, K, K)``), BatchNorm ``scale/bias/mean/var`` to
-``weight/bias/running_mean/running_var``. Every flax leaf must map to a
-port name and every mapped layer must be complete, or it raises;
-:func:`load_jax_variables` then loads strictly, so a port parameter that
-the flax tree lacks raises too.
+A ``ConvNormAct``'s norm is its ``BatchNorm_0`` or ``GroupNorm_0``.
+Kernels go from HWIO to OIHW (depthwise ``(K, K, 1, C)`` to ``(C, 1, K,
+K)``), BatchNorm ``scale/bias/mean/var`` to
+``weight/bias/running_mean/running_var``, GroupNorm ``scale/bias`` to
+``weight/bias``. Every flax leaf must map to a port name and every mapped
+layer must be complete, or it raises; :func:`load_jax_variables` then
+loads strictly, so a port parameter that the flax tree lacks raises too.
 """
 
 import re
@@ -96,6 +108,104 @@ def _conv_norm_act_names(base_params):
     return names
 
 
+def _children(base_params, prefix, kind):
+    """Sorted indices i of the modules ``kind_i`` right under ``prefix``."""
+    n = len(prefix)
+    return sorted({_index(p[n], kind) for p in base_params
+                   if p[:n] == prefix and len(p) > n + 1
+                   and p[n].startswith(kind + '_')})
+
+
+def _check_contiguous(indices, what):
+    if indices != list(range(len(indices))):
+        raise KeyError(f'{what} {indices}: not numbered 0..n-1')
+
+
+def _resnet_layers(base_params):
+    layers = {('Conv_0',): ('stem.conv', 'conv'),
+              ('BatchNorm_0',): ('stem.norm', 'bn')}
+    top = _children(base_params, (), 'ConvNormAct')
+    if top not in ([], [0]):
+        raise KeyError(f'base_net ConvNormAct {top}: a Resnet has at most '
+                       'input_conv2')
+    if top:
+        layers[('ConvNormAct_0',)] = ('input_conv2', 'cna')
+    kinds = {'Bottleneck': ('conv1', 'conv2', 'conv3', 'projection'),
+             'BasicBlock': ('conv1', 'conv2', 'projection')}
+    found = [kind for kind in kinds if _children(base_params, (), kind)]
+    if len(found) != 1:
+        raise KeyError(f'base_net has blocks of kinds {found}: not a Resnet')
+    kind = found[0]
+    targets = kinds[kind]
+    blocks = _children(base_params, (), kind)
+    _check_contiguous(blocks, f'base_net {kind}')
+    for b in blocks:
+        cnas = _children(base_params, (f'{kind}_{b}',), 'ConvNormAct')
+        if cnas not in (list(range(len(targets) - 1)),
+                        list(range(len(targets)))):
+            raise KeyError(f'{kind}_{b} has ConvNormAct {cnas}')
+        for i in cnas:
+            layers[(f'{kind}_{b}', f'ConvNormAct_{i}')] = (
+                f'blocks.{b}.{targets[i]}', 'cna')
+    return layers
+
+
+def _mobilenet_layers(base_params, kind):
+    top = _children(base_params, (), 'ConvNormAct')
+    if top != [0, 1]:
+        raise KeyError(f'base_net ConvNormAct {top}: a MobileNet has the '
+                       'stem and the last conv')
+    layers = {('ConvNormAct_0',): ('stem', 'cna'),
+              ('ConvNormAct_1',): ('conv_last', 'cna')}
+    blocks = _children(base_params, (), kind)
+    _check_contiguous(blocks, f'base_net {kind}')
+    for b in blocks:
+        block = (f'{kind}_{b}',)
+        cnas = _children(base_params, block, 'ConvNormAct')
+        if cnas not in ([0, 1], [0, 1, 2]):
+            raise KeyError(f'{kind}_{b} has ConvNormAct {cnas}')
+        for i in cnas:
+            name = 'project' if kind == 'InvertedResidualV3' \
+                and i == cnas[-1] else f'convs.{i}'
+            layers[block + (f'ConvNormAct_{i}',)] = (f'blocks.{b}.{name}',
+                                                     'cna')
+        if kind == 'InvertedResidualV3' and _children(
+                base_params, block, 'SqueezeExcite'):
+            for i, name in enumerate(('reduce', 'expand')):
+                layers[block + ('SqueezeExcite_0', f'Conv_{i}')] = (
+                    f'blocks.{b}.se.{name}', 'conv')
+    return layers
+
+
+def _squeezenet_layers(base_params):
+    layers = {('Conv_0',): ('stem.conv', 'conv')}
+    fires = _children(base_params, (), 'Fire')
+    _check_contiguous(fires, 'base_net Fire')
+    for f in fires:
+        for i, name in enumerate(('squeeze', 'expand1', 'expand3')):
+            layers[(f'Fire_{f}', f'Conv_{i}')] = (f'fires.{f}.{name}', 'conv')
+    return layers
+
+
+def _base_net_layers(base_params):
+    """{flax module path under ``base_net``: (port module name, kind)},
+    kind 'cna' (a ConvNormAct), 'conv' (a conv, biased or not) or 'bn'
+    (a bare BatchNorm), for the backbone family the names belong to."""
+    kinds = {path[0].rsplit('_', 1)[0] for path in base_params}
+    if 'InvertedResidualK' in kinds:
+        return {path: (name, 'cna') for path, name in
+                _conv_norm_act_names(base_params).items()}
+    if kinds & {'Bottleneck', 'BasicBlock'}:
+        return _resnet_layers(base_params)
+    for kind in ('InvertedResidualV2', 'InvertedResidualV3'):
+        if kind in kinds:
+            return _mobilenet_layers(base_params, kind)
+    if 'Fire' in kinds:
+        return _squeezenet_layers(base_params)
+    raise KeyError(f'base_net modules {sorted(kinds)}: no backbone family '
+                   'of the JAX package')
+
+
 def _conv_weight(kernel):
     if kernel.ndim != 4:
         raise ValueError(f'conv kernel must be HWIO, got {kernel.shape}')
@@ -117,29 +227,41 @@ def state_dict_from_jax(variables):
         used.add((id(tree), path))
         return tree[path]
 
-    cna_names = _conv_norm_act_names(
+    def conv(f, t):
+        out[f'{t}.weight'] = _conv_weight(take(params, f + ('kernel',), t))
+        if f + ('bias',) in params:
+            out[f'{t}.bias'] = take(params, f + ('bias',), t)
+
+    def batch_norm(f, t):
+        out[f'{t}.weight'] = take(params, f + ('scale',), t)
+        out[f'{t}.bias'] = take(params, f + ('bias',), t)
+        out[f'{t}.running_mean'] = take(stats, f + ('mean',), t)
+        out[f'{t}.running_var'] = take(stats, f + ('var',), t)
+        out[f'{t}.num_batches_tracked'] = np.zeros((), np.int64)
+
+    layers = _base_net_layers(
         {p[1:]: v for p, v in params.items() if p[0] == 'base_net'})
-    for module_path, name in cna_names.items():
+    for module_path, (name, kind) in layers.items():
         f = ('base_net',) + module_path
         t = f'base_net.{name}'
-        out[f'{t}.conv.weight'] = _conv_weight(
-            take(params, f + ('Conv_0', 'kernel'), t))
-        out[f'{t}.norm.weight'] = take(params, f + ('BatchNorm_0', 'scale'), t)
-        out[f'{t}.norm.bias'] = take(params, f + ('BatchNorm_0', 'bias'), t)
-        out[f'{t}.norm.running_mean'] = take(
-            stats, f + ('BatchNorm_0', 'mean'), t)
-        out[f'{t}.norm.running_var'] = take(
-            stats, f + ('BatchNorm_0', 'var'), t)
-        out[f'{t}.norm.num_batches_tracked'] = np.zeros((), np.int64)
+        if kind == 'conv':
+            conv(f, t)
+        elif kind == 'bn':
+            batch_norm(f, t)
+        else:
+            conv(f + ('Conv_0',), f'{t}.conv')
+            if f + ('GroupNorm_0', 'scale') in params:
+                g = f + ('GroupNorm_0',)
+                out[f'{t}.norm.weight'] = take(params, g + ('scale',), t)
+                out[f'{t}.norm.bias'] = take(params, g + ('bias',), t)
+            else:
+                batch_norm(f + ('BatchNorm_0',), f'{t}.norm')
 
     heads = sorted(_index(p[0], 'head_nets') for p in params
                    if p[0].startswith('head_nets_') and p[1:] == (
                        'Conv_0', 'kernel'))
     for i in heads:
-        f = (f'head_nets_{i}', 'Conv_0')
-        t = f'head_nets.{i}.conv'
-        out[f'{t}.weight'] = _conv_weight(take(params, f + ('kernel',), t))
-        out[f'{t}.bias'] = take(params, f + ('bias',), t)
+        conv((f'head_nets_{i}', 'Conv_0'), f'head_nets.{i}.conv')
 
     left = sorted('/'.join(p) for tree in (params, stats) for p in tree
                   if (id(tree), p) not in used)

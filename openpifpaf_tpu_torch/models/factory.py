@@ -1,10 +1,11 @@
 """Network factory (port of ``openpifpaf_tpu/models/factory.py``:
-``BASE_FACTORIES`` for the ShuffleNetV2K family, the backbone flags and
-``Factory``).
+``BASE_FACTORIES`` with every backbone of the JAX registry, the backbone
+flags and ``Factory``).
 
 Random initialisation follows flax's defaults, drawn from an explicit
 ``torch.Generator``: truncated-normal (LeCun) convolution kernels, zero
-biases, BatchNorm scale 1, bias 0, running mean 0 and variance 1.
+biases, BatchNorm and GroupNorm scale 1, bias 0, running mean 0 and
+variance 1.
 """
 
 import math
@@ -18,8 +19,7 @@ from . import basenetworks, heads
 from .shell import Shell, assign_strides
 
 #: family-level backbone options, set by ``cli``/``configure`` and written
-#: into checkpoints, as in the JAX package. The port's ShuffleNetV2K has
-#: BatchNorm only: its group and instance norms are not ported (A2).
+#: into checkpoints, as in the JAX package
 SHUFFLENETV2K_OPTIONS = {
     'kernel': 5,
     'stage4_dilation': 1,
@@ -29,8 +29,6 @@ SHUFFLENETV2K_OPTIONS = {
     'norm': 'batch',
     'non_linearity': 'relu',
 }
-#: the ResNet family's options, kept for the checkpoint's meta: ResNet
-#: is not ported yet (ROADMAP A7)
 RESNET_OPTIONS = {
     'pool0_stride': 0,
     'input_conv_stride': 2,
@@ -41,14 +39,12 @@ RESNET_OPTIONS = {
 
 
 def _snk(repeats, channels):
-    def build():
-        options = dict(SHUFFLENETV2K_OPTIONS)
-        if options.pop('norm') != 'batch':
-            raise NotImplementedError(
-                'ShuffleNetV2K with group or instance norm is not yet '
-                'ported to PyTorch (ROADMAP A2)')
-        return basenetworks.ShuffleNetV2K(repeats, channels, **options)
-    return build
+    return lambda: basenetworks.ShuffleNetV2K(
+        repeats, channels, **SHUFFLENETV2K_OPTIONS)
+
+
+def _resnet(layers, **fixed):
+    return lambda: basenetworks.Resnet(layers, **fixed, **RESNET_OPTIONS)
 
 
 BASE_FACTORIES = {
@@ -57,7 +53,30 @@ BASE_FACTORIES = {
     'shufflenetv2k30': _snk([8, 16, 6], [32, 512, 1024, 2048, 2048]),
     'shufflenetv2k44': _snk([12, 24, 8], [32, 512, 1024, 2048, 2048]),
     'shufflenetv2kx5': _snk([6, 13, 6], [42, 640, 1280, 2560, 2560]),
+    # torchvision's ShuffleNetV2 (k=3 blocks, max-pool removed -> stride 16)
+    'shufflenetv2x1': lambda: basenetworks.ShuffleNetV2K(
+        [4, 8, 4], [24, 116, 232, 464, 1024], kernel=3),
+    'shufflenetv2x2': lambda: basenetworks.ShuffleNetV2K(
+        [4, 8, 4], [24, 244, 488, 976, 2048], kernel=3),
+    'resnet18': _resnet((2, 2, 2, 2), base_features=64, basic_block=True),
+    'resnet50': _resnet((3, 4, 6, 3)),
+    'resnet101': _resnet((3, 4, 23, 3)),
+    'resnet152': _resnet((3, 8, 36, 3)),
+    'resnext50': _resnet((3, 4, 6, 3), groups=32, width_per_group=4),
+    'resnext101': _resnet((3, 4, 23, 3), groups=32, width_per_group=8),
+    'mobilenetv2': basenetworks.MobileNetV2,
+    'mobilenetv3large': lambda: basenetworks.MobileNetV3('large'),
+    'mobilenetv3small': lambda: basenetworks.MobileNetV3('small'),
+    'squeezenet': basenetworks.SqueezeNet,
 }
+
+# tracking backbones: the same networks; the 't' prefix only adds the
+# eval-time feature cache of the tracking shell (ROADMAP A10)
+BASE_FACTORIES.update({
+    'tshufflenetv2k16': BASE_FACTORIES['shufflenetv2k16'],
+    'tshufflenetv2k30': BASE_FACTORIES['shufflenetv2k30'],
+    'tresnet50': BASE_FACTORIES['resnet50'],
+})
 
 #: --head-consolidation default
 HEAD_CONSOLIDATION = 'filter_and_extend'
@@ -67,8 +86,7 @@ CF4_OPTIONS = {'dropout_p': 0.0}
 
 
 def cli(parser):
-    """Network flags of the JAX package's ``models/factory.py::cli``, for
-    the backbones the port has."""
+    """Network flags of the JAX package's ``models/factory.py::cli``."""
     group = parser.add_argument_group('network')
     group.add_argument('--head-consolidation',
                        choices=('keep', 'create', 'filter_and_extend'),
@@ -78,6 +96,19 @@ def cli(parser):
                             'datamodule')
     group.add_argument('--cf4-dropout', default=0.0, type=float,
                        help='CompositeField4 dropout probability')
+    group.add_argument('--no-download-progress', dest='download_progress',
+                       default=True, action='store_false',
+                       help='(compat) nothing is downloaded here')
+    # reference-compat: torchvision-pretrained initialization switches.
+    # From-scratch init is always random here; these are accepted so
+    # reference command lines keep working.
+    for name in ('resnet', 'shufflenetv2', 'mobilenetv2', 'mobilenetv3',
+                 'squeezenet'):
+        group.add_argument(f'--{name}-no-pretrain',
+                           dest=f'{name}_pretrained',
+                           default=True, action='store_false',
+                           help='(compat) from-scratch init is always '
+                                'random here')
     group = parser.add_argument_group('shufflenetv2k')
     group.add_argument('--shufflenetv2k-input-conv2-stride',
                        default=SHUFFLENETV2K_OPTIONS['input_conv2_stride'],
@@ -95,8 +126,30 @@ def cli(parser):
                        help='kernel width')
     group.add_argument('--shufflenetv2k-conv5-as-stage',
                        default=False, action='store_true')
+    norm_group = group.add_mutually_exclusive_group()
+    norm_group.add_argument('--shufflenetv2k-instance-norm',
+                            default=False, action='store_true')
+    norm_group.add_argument('--shufflenetv2k-group-norm',
+                            default=False, action='store_true')
     group.add_argument('--shufflenetv2k-leaky-relu',
                        default=False, action='store_true')
+
+    group = parser.add_argument_group('ResNet')
+    group.add_argument('--resnet-pool0-stride',
+                       default=RESNET_OPTIONS['pool0_stride'], type=int,
+                       help='stride of zero removes the pooling op')
+    group.add_argument('--resnet-input-conv-stride',
+                       default=RESNET_OPTIONS['input_conv_stride'], type=int,
+                       help='stride of the input convolution')
+    group.add_argument('--resnet-input-conv2-stride',
+                       default=RESNET_OPTIONS['input_conv2_stride'], type=int,
+                       help='stride of the optional 2nd input convolution')
+    group.add_argument('--resnet-block5-dilation',
+                       default=RESNET_OPTIONS['block5_dilation'], type=int,
+                       help='use dilated convs in block5')
+    group.add_argument('--resnet-remove-last-block',
+                       default=False, action='store_true',
+                       help='create a network without the last block')
 
 
 def configure(args):
@@ -110,8 +163,20 @@ def configure(args):
         kernel=args.shufflenetv2k_kernel,
         conv5_as_stage=args.shufflenetv2k_conv5_as_stage,
     )
+    if args.shufflenetv2k_instance_norm:
+        SHUFFLENETV2K_OPTIONS['norm'] = 'instance'
+    if args.shufflenetv2k_group_norm:
+        SHUFFLENETV2K_OPTIONS['norm'] = 'group'
     if args.shufflenetv2k_leaky_relu:
         SHUFFLENETV2K_OPTIONS['non_linearity'] = 'leaky_relu'
+
+    RESNET_OPTIONS.update(
+        pool0_stride=args.resnet_pool0_stride,
+        input_conv_stride=args.resnet_input_conv_stride,
+        input_conv2_stride=args.resnet_input_conv2_stride,
+        block5_dilation=args.resnet_block5_dilation,
+        remove_last_block=args.resnet_remove_last_block,
+    )
 
 
 #: std of a standard normal truncated to [-2, 2]: flax's
@@ -130,7 +195,7 @@ def init_like_flax(model: nn.Module, generator: torch.Generator):
                                       b=2.0 * std, generator=generator)
                 if module.bias is not None:
                     module.bias.zero_()
-            elif isinstance(module, nn.BatchNorm2d):
+            elif isinstance(module, (nn.BatchNorm2d, nn.GroupNorm)):
                 module.reset_parameters()
     return model
 
@@ -154,9 +219,8 @@ class Factory:
         if base_net is None:
             if self.base_name not in BASE_FACTORIES:
                 raise ValueError(
-                    f'unknown or not yet ported base network '
-                    f'{self.base_name!r}; available: '
-                    f'{sorted(BASE_FACTORIES)}')
+                    f'unknown base network {self.base_name!r}; '
+                    f'available: {sorted(BASE_FACTORIES)}')
             base_net = BASE_FACTORIES[self.base_name]()
         for meta in head_metas:
             if not isinstance(meta, (headmeta.Cif, headmeta.Caf)):

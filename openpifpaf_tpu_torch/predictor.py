@@ -82,8 +82,9 @@ class Predictor:
         aliases ``'halves'``, ``'stencil'``) the BN-folded convs,
         ``'dwpallas'`` the folded convs with the depthwise kernel,
         ``'pallas'`` the folded convs with the fused-block kernel; ``'auto'``
-        takes ``'halves'`` when every stage's channel halves are multiples
-        of 128, the module graph otherwise (k16's 174). ``bf16`` runs the
+        takes ``'halves'`` for a BatchNorm ShuffleNetV2K whose every
+        stage's channel halves are multiples of 128, the module graph
+        otherwise (k16's 174, a ResNet, a group norm). ``bf16`` runs the
         backbone in bfloat16 (weights cast once) and the heads in float32.
         """
         if backbone_engine not in BACKBONE_ENGINES:
@@ -128,9 +129,12 @@ class Predictor:
         engine = self.backbone_engine
         base_net = self.model.base_net
         if engine == 'auto':
-            foldable = isinstance(base_net, ShuffleNetV2K) and all(
-                (c // 2) % 128 == 0
-                for c in base_net.stages_out_channels[1:])
+            # JAX tries the fold and falls back on the flax graph when it
+            # fails: any backbone but a BatchNorm ShuffleNetV2K
+            foldable = isinstance(base_net, ShuffleNetV2K) \
+                and base_net.norm == 'batch' and all(
+                    (c // 2) % 128 == 0
+                    for c in base_net.stages_out_channels[1:])
             engine = 'halves' if foldable else 'flax'
         dtype = torch.bfloat16 if self.bf16 else torch.float32
         if engine == 'flax':
@@ -204,7 +208,13 @@ class Predictor:
         self.last_nn_time = time.perf_counter() - start
         return list(fields)
 
-    def _run_batch(self, image_batch, gt_anns_batch, meta_batch):
+    def _run_batch(self, batch):
+        """Forward, decode and yield one collated batch (images, anns,
+        metas), or (raw images, images, anns, metas)."""
+        if len(batch) == 4:
+            _, image_batch, gt_anns_batch, meta_batch = batch
+        else:
+            image_batch, gt_anns_batch, meta_batch = batch
         fields = self.fields_batch(image_batch)
         pred_batch = self.processor.batch_decode(fields)
         self.last_decoder_time = self.processor.last_decoder_time
@@ -214,17 +224,36 @@ class Predictor:
 
         for pred, gt_anns, meta in zip(pred_batch, gt_anns_batch, meta_batch):
             pred = [ann.inverse_transform(meta) for ann in pred]
+            gt_anns = [ann.inverse_transform(meta) for ann in gt_anns
+                       if hasattr(ann, 'inverse_transform')]
             if self.json_data:
                 pred = [ann.json_data() for ann in pred]
             yield pred, gt_anns, meta
 
+    def _run_batches(self, batches):
+        """The strict serving loop: each batch is forwarded, decoded and
+        yielded before the next one is read."""
+        for batch in batches:
+            yield from self._run_batch(batch)
+
     def dataset(self, data):
         """Iterate a dataset of (image, anns, meta) samples in batches of
         ``batch_size``; yields (predictions, gt_anns, meta) per image."""
-        for start in range(0, len(data), self.batch_size):
-            items = [data[i] for i in
-                     range(start, min(start + self.batch_size, len(data)))]
-            yield from self._run_batch(*collate_images_anns_meta(items))
+        yield from self._run_batches(
+            collate_images_anns_meta(
+                [data[i] for i in range(start, min(start + self.batch_size,
+                                                   len(data)))])
+            for start in range(0, len(data), self.batch_size))
+
+    def dataloader(self, dataloader):
+        """Iterate the collated batches of ``dataloader`` (e.g. a data
+        module's ``eval_loader()``)."""
+        yield from self._run_batches(iter(dataloader))
+
+    def enumerated_dataloader(self, enumerated_dataloader):
+        """As :meth:`dataloader`, for (index, batch) pairs."""
+        yield from self._run_batches(
+            batch for _, batch in iter(enumerated_dataloader))
 
     def images(self, file_names):
         file_names = list(file_names)

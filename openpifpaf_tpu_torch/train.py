@@ -126,9 +126,11 @@ def main(argv=None):
         # that checkpoints written by this run remain loadable
         if loaded_meta.get('base_name'):
             args.basenet = loaded_meta['base_name']
+        backbone_options = loaded_meta.get('backbone_options') or {}
         models_factory.SHUFFLENETV2K_OPTIONS.update(
-            (loaded_meta.get('backbone_options') or {})
-            .get('shufflenetv2k', {}))
+            backbone_options.get('shufflenetv2k', {}))
+        models_factory.RESNET_OPTIONS.update(
+            backbone_options.get('resnet', {}))
     else:
         net_factory = models_factory.Factory(
             base_name=args.basenet, upsample_stride=args.upsample)

@@ -11,8 +11,9 @@ A checkpoint ``path`` is two files:
   ``torch.load(weights_only=True)``.
 
 The JAX package's orbax directories (``path.arrays``) are not read: the
-machine the port runs on has no orbax, and their converter is still to be
-ported (ROADMAP A11).
+machine the port runs on has no orbax, and the port may not import it.
+The tests convert one with ``tests/torch_port_helpers.py::
+orbax_to_port_checkpoint`` (a user-facing converter is ROADMAP A11).
 """
 
 import dataclasses
@@ -109,22 +110,25 @@ def load_shell(path, *, head_metas=None,
     state_dict, meta = load(path)
     ckpt_metas = [headmeta_from_dict(d) for d in meta['head_metas']]
 
-    # models trained with backbone flags (--shufflenetv2k-*) record the
-    # options; apply them only while building the backbone
-    options = models_factory.SHUFFLENETV2K_OPTIONS
-    snapshot = dict(options)
-    options.update((meta.get('backbone_options') or {})
-                   .get('shufflenetv2k', {}))
+    # models trained with backbone flags (--shufflenetv2k-*, --resnet-*)
+    # record the options; apply them only while building the backbone
+    targets = {'shufflenetv2k': models_factory.SHUFFLENETV2K_OPTIONS,
+               'resnet': models_factory.RESNET_OPTIONS}
+    snapshot = {family: dict(options) for family, options in targets.items()}
+    for family, options in (meta.get('backbone_options') or {}).items():
+        if family in targets:
+            targets[family].update(options)
     try:
         base_name = meta['base_name']
         if base_name not in models_factory.BASE_FACTORIES:
-            raise NotImplementedError(
-                f'base network {base_name!r} is not yet ported to PyTorch; '
-                f'available: {sorted(models_factory.BASE_FACTORIES)}')
+            raise ValueError(
+                f'unknown base network {base_name!r}; available: '
+                f'{sorted(models_factory.BASE_FACTORIES)}')
         base_net = models_factory.BASE_FACTORIES[base_name]()
     finally:
-        options.clear()
-        options.update(snapshot)
+        for family, options in targets.items():
+            options.clear()
+            options.update(snapshot[family])
 
     if head_metas is None or head_consolidation == 'keep':
         assign_strides(ckpt_metas, base_net.stride)

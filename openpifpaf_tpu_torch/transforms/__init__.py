@@ -21,6 +21,8 @@ from .hflip import HFlip
 from .image import ImageTransform, Blur, HorizontalBlur, JpegCompression
 from .random import RandomApply, RandomChoice, DeterministicEqualChoice
 from .rotate import RotateBy90, RotateUniform
+from .toannotations import (ToAnnotations, ToKpAnnotations, ToDetAnnotations,
+                            ToCrowdAnnotations)
 from .encoders import Encoders
 from .normalize import (EVAL_TRANSFORM, TRAIN_TRANSFORM, NormalizeImage,
                         ToNumpy, IMAGENET_MEAN, IMAGENET_STD,

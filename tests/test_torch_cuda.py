@@ -2,9 +2,10 @@
 depthwise conv, fused block, branch2, and the Mosaic lab's interleave,
 VALID depthwise and branch2) against their plain versions, the CifHr
 impls against each other, the decode under every configuration
-against the JAX poses of the golden file and against the CPU, and a
-train step against the CPU, BatchNorm's running-statistics rule and the
-bf16 step.
+against the JAX poses of the golden file and against the CPU, a train
+step against the CPU, BatchNorm's running-statistics rule and the bf16
+step, the other backbones (resnet50, a group-norm k16) against the CPU,
+the engine choice on a group-norm k20, and the eval CLI.
 
 Every test here needs a GPU (marker ``gpu``) and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a machine that
@@ -630,3 +631,82 @@ def test_cuda_bf16_train_step(cuda, train_batch):
     assert all(v.dtype != torch.bfloat16
                for v in bf16.model.state_dict().values())
     assert all(torch.isfinite(v).all() for v in bf16.model.state_dict().values())
+
+
+def _no_tf32_fields(model, image, device):
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return Predictor(model=model, device=device).fields_batch(image)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.parametrize('base_name,norm', [('resnet50', 'batch'),
+                                            ('shufflenetv2k16', 'group')])
+def test_cuda_backbone_fields_match_cpu(cuda, base_name, norm):
+    """A full-width resnet50 and a group-norm k16 with the cocokp heads on
+    the card against the CPU (TF32 off): within 1e-4 of each head's
+    largest value."""
+    from openpifpaf_tpu_torch.models import factory as models_factory
+    saved = dict(models_factory.SHUFFLENETV2K_OPTIONS)
+    models_factory.SHUFFLENETV2K_OPTIONS['norm'] = norm
+    try:
+        model = Factory(base_name).from_scratch(cocokp_head_metas())
+    finally:
+        models_factory.SHUFFLENETV2K_OPTIONS.update(saved)
+    image = np.random.RandomState(1).randn(1, 129, 161, 3).astype(np.float32)
+    ref = _no_tf32_fields(model, image, 'cpu')
+    out = _no_tf32_fields(model, image, cuda)
+    for o, r in zip(out, ref):
+        scale = float(r.abs().max())
+        assert scale > 0.0
+        torch.testing.assert_close(o.cpu(), r, rtol=0, atol=1e-4 * scale)
+
+
+def test_cuda_auto_engine_on_group_norm_k20(cuda):
+    """'auto' serves a group-norm k20 (128-aligned halves) on the module
+    graph, as JAX falls back when its fold fails; an explicit engine
+    raises."""
+    model = Factory().from_scratch(
+        cocokp_head_metas(), base_net=basenetworks.ShuffleNetV2K(
+            [1, 1, 1], [32, 512, 1024, 2048, 2048], norm='group'))
+    assert Predictor(model=model, device=cuda)._backbone is None
+    for engine in ('folded', 'dwpallas', 'pallas'):
+        with pytest.raises(ValueError, match='fold'):
+            Predictor(model=model, device=cuda, backbone_engine=engine)
+
+
+def test_cuda_eval_cli_writes_stats(cuda, tmp_path):
+    """``python -m openpifpaf_tpu_torch.eval`` on the card (its default
+    device) over a synthetic set with a saved resnet50 checkpoint."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from openpifpaf_tpu_torch.training import checkpoint
+    from openpifpaf_tpu_torch.training.checkpoint import headmeta_to_dict
+
+    ann_file, image_dir = write_synthetic_coco(str(tmp_path / 'coco'),
+                                               n_images=3)
+    metas = cocokp_head_metas()
+    model = Factory('resnet50').from_scratch(metas)
+    ckpt = str(tmp_path / 'resnet50')
+    checkpoint.save(ckpt, state_dict=model.state_dict(), meta={
+        'base_name': 'resnet50', 'head_metas': [headmeta_to_dict(m)
+                                                for m in metas]})
+    out = str(tmp_path / 'eval')
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    done = subprocess.run(
+        [sys.executable, '-m', 'openpifpaf_tpu_torch.eval', '--dataset',
+         'cocokp', '--checkpoint', ckpt, '--cocokp-val-annotations',
+         ann_file, '--cocokp-val-image-dir', image_dir,
+         '--coco-eval-long-edge', '129', '--eval-loader-warmup', '0',
+         '--output', out],
+        env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+        text=True, timeout=600)
+    assert done.returncode == 0, done.stderr[-3000:]
+    with open(out + '.stats.json') as f:
+        stats = json.load(f)
+    assert len(stats['stats']) == 10 and np.all(np.isfinite(stats['stats']))
+    assert stats['n_images'] == 3 and stats['nn_time'] > 0

@@ -69,7 +69,11 @@ def test_every_port_module_imports_without_jax():
                  'training.losses', 'training.optimize',
                  'training.checkpoint', 'encoder.cif', 'encoder.caf',
                  'transforms.rotate', 'transforms.image',
-                 'datasets.loader', 'plugins.coco.cocokp'):
+                 'datasets.loader', 'plugins.coco.cocokp',
+                 'models.basenetworks', 'models.factory',
+                 'models.convert_jax', 'transforms.toannotations',
+                 'annotation', 'metric', 'metric.base', 'metric.cocoeval',
+                 'metric.coco', 'eval', 'eval_cli', 'benchmark'):
         assert f'openpifpaf_tpu_torch.{name}' in report['modules']
     assert report['loaded'] == []
 

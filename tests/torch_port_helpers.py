@@ -668,6 +668,30 @@ def write_synthetic_coco(directory, *, n_images=16, image_hw=(113, 129),
     return ann_file, image_dir
 
 
+#: the committed orbax checkpoint of the JAX package: a resnet18 without
+#: its last block, overfit on one image (``tests/test_fixture_checkpoint.py``)
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       'fixtures', 'overfit_fixture')
+
+
+def orbax_to_port_checkpoint(src, dst):
+    """The JAX package's checkpoint ``src`` (``src.json`` and the orbax
+    directory ``src.arrays``) as a checkpoint of the port at ``dst``
+    (``dst.json`` with the same meta, ``dst.pt`` from
+    ``convert_jax.state_dict_from_jax``); returns ``dst``. It needs the JAX
+    package and orbax, so it runs where the tests run, not on the card's
+    machine."""
+    from openpifpaf_tpu.training import checkpoint as jax_checkpoint
+    from openpifpaf_tpu_torch.models import convert_jax
+    from openpifpaf_tpu_torch.training import checkpoint as port_checkpoint
+
+    arrays, meta = jax_checkpoint.load(src)
+    state_dict = convert_jax.state_dict_from_jax(
+        {'params': arrays['params'], 'batch_stats': arrays['batch_stats']})
+    port_checkpoint.save(dst, state_dict=state_dict, meta=meta)
+    return dst
+
+
 def jax_golden():
     """The golden file's dict: :func:`jax_golden_scenes` and
     :func:`jax_golden_config` of each of :func:`golden_configs`."""
