@@ -1,13 +1,14 @@
 """Dataset registry and factory (counterpart of
-``openpifpaf_tpu/datasets/factory.py``). The port has the cocokp data
-module only; the JAX package's other plugins and multi-dataset training
-(``cocokp-cocodet`` names) are not ported yet (ROADMAP A11)."""
+``openpifpaf_tpu/datasets/factory.py``). The port has the cocokp and
+cocokpst data modules; the JAX package's other plugins and multi-dataset
+training (``cocokp-cocodet`` names) are not ported yet (ROADMAP A11)."""
 
 
 def datamodules():
     """name -> DataModule class."""
     from ..plugins.coco.cocokp import CocoKp
-    return {'cocokp': CocoKp}
+    from ..plugins.posetrack.cocokpst import CocoKpSt
+    return {'cocokp': CocoKp, 'cocokpst': CocoKpSt}
 
 
 def factory(dataset_name: str):

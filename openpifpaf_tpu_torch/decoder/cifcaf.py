@@ -2,6 +2,8 @@
 CLI-configurable thresholds, ablations and budgets, the adaptive two-tier
 decode, initial (tracked) poses, the decoding order, the tensor ->
 Annotation conversion, and ``CifCafDense`` over sparse + dense CAF heads.
+The decoders' registry and the global ``--cif-th``/``--caf-th`` are
+:mod:`.factory`'s.
 """
 
 import argparse
@@ -16,11 +18,12 @@ import torch
 from .. import headmeta
 from ..annotation import Annotation
 from ..ops.decode_cifcaf import CifCafDecoderConfig, decode_cifcaf
+from .base import Decoder
 
 LOG = logging.getLogger(__name__)
 
 
-class CifCaf:
+class CifCaf(Decoder):
     # CLI-configurable statics (the JAX decoder's flags)
     force_complete = False
     keypoint_threshold = 0.15
@@ -51,12 +54,12 @@ class CifCaf:
     export_decoding_order = False
 
     def __init__(self, cif_meta: headmeta.Cif, caf_meta: headmeta.Caf):
+        super().__init__()
         self.cif_meta = cif_meta
         self.caf_meta = caf_meta
         self.skeleton = np.asarray(caf_meta.skeleton, dtype=np.int64)
         self.n_keypoints = len(cif_meta.keypoints)
         self.score_weights = cif_meta.score_weights
-        self.last_decoder_time = 0.0
         #: indices of the images of the last batch re-decoded at the
         #: crowd tier
         self.last_escalated = []
@@ -89,10 +92,6 @@ class CifCaf:
     @classmethod
     def cli(cls, parser: argparse.ArgumentParser):
         group = parser.add_argument_group('CifCaf decoder')
-        group.add_argument('--cif-th', default=cls.cifhr_threshold,
-                           type=float, help='cif threshold')
-        group.add_argument('--caf-th', default=cls.caf_score_th,
-                           type=float, help='caf threshold')
         group.add_argument('--force-complete-pose', dest='force_complete',
                            default=cls.force_complete, action='store_true')
         group.add_argument('--force-complete-caf-th', type=float,
@@ -142,8 +141,6 @@ class CifCaf:
 
     @classmethod
     def configure(cls, args: argparse.Namespace):
-        cls.cifhr_threshold = args.cif_th
-        cls.caf_score_th = args.caf_th
         cls.force_complete = args.force_complete
         cls.force_complete_caf_th = args.force_complete_caf_th
         cls.nms_before_force_complete = args.nms_before_force_complete
@@ -351,7 +348,7 @@ class CifCaf:
                     ann.frontier_order.append((s, t))
 
 
-class CifCafDense:
+class CifCafDense(Decoder):
     """Decode with the sparse and the dense CAF fields concatenated along
     the edge axis (``--dense-connections``)."""
 
@@ -359,10 +356,10 @@ class CifCafDense:
 
     def __init__(self, cif_meta: headmeta.Cif, caf_meta: headmeta.Caf,
                  dense_caf_meta: headmeta.Caf):
+        super().__init__()
         self.cif_meta = cif_meta
         self.caf_meta = caf_meta
         self.dense_caf_meta = dense_caf_meta
-        self.last_decoder_time = 0.0
 
         self.dense_caf_meta.decoder_confidence_scales = [
             self.dense_coupling for _ in self.dense_caf_meta.skeleton]
@@ -412,29 +409,3 @@ class CifCafDense:
         initial = [initial_annotations] if initial_annotations else None
         return self.batch_decode([f[None] for f in fields], initial)[0]
 
-
-def cli(parser: argparse.ArgumentParser):
-    CifCaf.cli(parser)
-    CifCafDense.cli(parser)
-
-
-def configure(args: argparse.Namespace):
-    CifCaf.configure(args)
-    CifCafDense.configure(args)
-
-
-def factory(head_metas):
-    """The decoder for a model's head metas: :class:`CifCafDense` on a
-    (Cif, Caf, dense Caf) triple when ``--dense-connections`` sets a
-    coupling, else :class:`CifCaf` on one (Cif, Caf) pair."""
-    decoders = CifCafDense.factory(head_metas) + CifCaf.factory(head_metas)
-    names = [type(m).__name__ for m in head_metas]
-    if not decoders:
-        raise ValueError(f'no decoders found for head metas {names}'
-                         + (' (--dense-connections needs a dense Caf head)'
-                            if CifCafDense.dense_coupling else ''))
-    if len(decoders) != 1:
-        raise NotImplementedError(
-            f'the port decodes with one decoder, got {len(decoders)} for '
-            f'{names} (several at once, decoder/multi.py, are ROADMAP A4)')
-    return decoders[0]

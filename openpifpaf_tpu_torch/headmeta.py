@@ -1,5 +1,6 @@
-"""Head metadata (port of ``openpifpaf_tpu/headmeta.py``: ``Base``, ``Cif``
-and ``Caf``): the schema contract shared by heads and decoders.
+"""Head metadata (port of ``openpifpaf_tpu/headmeta.py``: ``Base``, ``Cif``,
+``Caf`` and the tracking metas ``TSingleImageCif``, ``TSingleImageCaf`` and
+``Tcaf``): the schema contract shared by heads and decoders.
 
 Mirrors the semantics of the reference ``openpifpaf/headmeta.py:37-187``:
 a head meta describes the *composition* of a composite field (how many
@@ -137,3 +138,56 @@ class Caf(Base):
         concatenated.base_stride = metas[0].base_stride
         concatenated.upsample_stride = metas[0].upsample_stride
         return concatenated
+
+
+@dataclass
+class TSingleImageCif(Cif):
+    """Single-image CIF head in tracking models."""
+
+
+@dataclass
+class TSingleImageCaf(Caf):
+    """Single-image CAF head in tracking models."""
+
+
+@dataclass
+class Tcaf(Base):
+    """Tracking Composite Association Field (cross-frame associations)."""
+
+    keypoints_single_frame: List[str] = None
+    sigmas_single_frame: List[float] = None
+    pose_single_frame: Any = None
+    draw_skeleton_single_frame: Optional[List[Tuple[int, int]]] = None
+    keypoints: Optional[List[str]] = None
+    sigmas: Optional[List[float]] = None
+    pose: Any = None
+    draw_skeleton: Optional[List[Tuple[int, int]]] = None
+    only_in_field_of_view: bool = False
+
+    n_confidences: ClassVar[int] = 1
+    n_vectors: ClassVar[int] = 2
+    n_scales: ClassVar[int] = 2
+    vector_offsets: ClassVar[List[bool]] = [True, True]
+
+    training_weights: Optional[List[float]] = None
+
+    def __post_init__(self):
+        if self.keypoints is None:
+            self.keypoints = self.keypoints_single_frame + self.keypoints_single_frame
+        if self.sigmas is None:
+            self.sigmas = list(self.sigmas_single_frame) + list(self.sigmas_single_frame)
+        if self.pose is None and self.pose_single_frame is not None:
+            self.pose = np.concatenate(
+                (self.pose_single_frame, self.pose_single_frame), axis=0)
+        if self.draw_skeleton is None and self.draw_skeleton_single_frame is not None:
+            self.draw_skeleton = (self.draw_skeleton_single_frame
+                                  + self.draw_skeleton_single_frame)
+
+    @property
+    def skeleton(self):
+        return [(i + 1, i + 1 + len(self.keypoints_single_frame))
+                for i, _ in enumerate(self.keypoints_single_frame)]
+
+    @property
+    def n_fields(self) -> int:
+        return len(self.keypoints_single_frame)

@@ -22,7 +22,10 @@ module names:
 - SqueezeNet: ``Conv_0`` is ``stem.conv``; ``Fire_f``'s ``Conv_0``,
   ``Conv_1``, ``Conv_2`` are ``fires.f.squeeze``, ``expand1``,
   ``expand3``;
-- ``head_nets_i/Conv_0`` is ``head_nets.i.conv``.
+- ``head_nets_i/Conv_0`` is ``head_nets.i.conv``; in a tracking shell,
+  ``head_nets_i/CompositeField4_0/Conv_0`` is
+  ``head_nets.i.composite_field.conv`` and a Tcaf head's
+  ``feature_reduction`` and ``feature_compute`` keep their names.
 
 A ``ConvNormAct``'s norm is its ``BatchNorm_0`` or ``GroupNorm_0``.
 Kernels go from HWIO to OIHW (depthwise ``(K, K, 1, C)`` to ``(C, 1, K,
@@ -257,11 +260,21 @@ def state_dict_from_jax(variables):
             else:
                 batch_norm(f + ('BatchNorm_0',), f'{t}.norm')
 
-    heads = sorted(_index(p[0], 'head_nets') for p in params
-                   if p[0].startswith('head_nets_') and p[1:] == (
-                       'Conv_0', 'kernel'))
+    heads = sorted({_index(p[0], 'head_nets') for p in params
+                    if p[0].startswith('head_nets_')})
     for i in heads:
-        conv((f'head_nets_{i}', 'Conv_0'), f'head_nets.{i}.conv')
+        f = (f'head_nets_{i}',)
+        t = f'head_nets.{i}'
+        if f + ('Conv_0', 'kernel') in params:
+            conv(f + ('Conv_0',), f'{t}.conv')
+            continue
+        # a tracking head: the CompositeField4 inside, and a Tcaf head's
+        # two convs
+        conv(f + ('CompositeField4_0', 'Conv_0'), f'{t}.composite_field.conv')
+        names = ('feature_reduction', 'feature_compute')
+        if any(f + (name, 'kernel') in params for name in names):
+            for name in names:
+                conv(f + (name,), f'{t}.{name}')
 
     left = sorted('/'.join(p) for tree in (params, stats) for p in tree
                   if (id(tree), p) not in used)
@@ -271,7 +284,7 @@ def state_dict_from_jax(variables):
 
 
 def load_jax_variables(model, variables):
-    """Load flax variables into a port ``Shell`` strictly: a parameter on
-    either side without a counterpart raises."""
+    """Load flax variables into a port ``Shell`` (or ``TrackingShell``)
+    strictly: a parameter on either side without a counterpart raises."""
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
     return model

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from .. import headmeta
-from . import basenetworks, heads
+from . import basenetworks, heads, tracking
 from .shell import Shell, assign_strides
 
 #: family-level backbone options, set by ``cli``/``configure`` and written
@@ -70,8 +70,8 @@ BASE_FACTORIES = {
     'squeezenet': basenetworks.SqueezeNet,
 }
 
-# tracking backbones: the same networks; the 't' prefix only adds the
-# eval-time feature cache of the tracking shell (ROADMAP A10)
+# tracking backbones: the same networks; a tracking model is told by its
+# head metas (``build_shell``), and the Predictor caches its features
 BASE_FACTORIES.update({
     'tshufflenetv2k16': BASE_FACTORIES['shufflenetv2k16'],
     'tshufflenetv2k30': BASE_FACTORIES['shufflenetv2k30'],
@@ -223,10 +223,11 @@ class Factory:
                     f'available: {sorted(BASE_FACTORIES)}')
             base_net = BASE_FACTORIES[self.base_name]()
         for meta in head_metas:
-            if not isinstance(meta, (headmeta.Cif, headmeta.Caf)):
+            if not isinstance(meta, (headmeta.Cif, headmeta.Caf,
+                                     headmeta.Tcaf)):
                 raise NotImplementedError(
                     f'head {type(meta).__name__} is not yet ported '
-                    '(ROADMAP A9/A10)')
+                    '(ROADMAP A9)')
             meta.upsample_stride = self.upsample_stride
         assign_strides(head_metas, base_net.stride)
         return build_shell(base_net, head_metas, generator=generator)
@@ -234,12 +235,23 @@ class Factory:
 
 def build_shell(base_net, head_metas, *, generator=None):
     """Shell of ``base_net`` and a CompositeField4 per meta (with the
-    ``--cf4-dropout`` probability), initialised like flax from
-    ``generator`` (default: seed 0)."""
-    head_nets = [heads.CompositeField4(meta, base_net.out_features,
-                                       dropout_p=CF4_OPTIONS['dropout_p'])
-                 for meta in head_metas]
-    model = Shell(base_net, head_nets)
+    ``--cf4-dropout`` probability), or for tracking metas a TrackingShell
+    of ``TBaseSingleImage`` and ``Tcaf`` heads (no dropout, as in JAX),
+    initialised like flax from ``generator`` (default: seed 0)."""
+    if any(isinstance(meta, (headmeta.Tcaf, headmeta.TSingleImageCif,
+                             headmeta.TSingleImageCaf))
+           for meta in head_metas):
+        head_nets = [
+            tracking.Tcaf(meta, base_net.out_features)
+            if isinstance(meta, headmeta.Tcaf)
+            else tracking.TBaseSingleImage(meta, base_net.out_features)
+            for meta in head_metas]
+        model = tracking.TrackingShell(base_net, head_nets)
+    else:
+        head_nets = [heads.CompositeField4(
+            meta, base_net.out_features, dropout_p=CF4_OPTIONS['dropout_p'])
+            for meta in head_metas]
+        model = Shell(base_net, head_nets)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_like_flax(model, generator)

@@ -54,8 +54,12 @@ def caf_scored(caf, hr, stride, skeleton, *, score_th=0.3, cif_floor=0.1,
     if rescore:
         skeleton = torch.as_tensor(np.asarray(skeleton, dtype=np.int64),
                                    device=caf.device)
-        j1 = skeleton[:, 0] - 1
-        j2 = skeleton[:, 1] - 1
+        # JAX's gather clamps an out-of-range index: a joint at or beyond
+        # the CIF field count (TrackingPose's cross-frame edges name
+        # joints of the second frame) reads the last field
+        n_fields = (hr_cells['x'] if hr is None else hr).shape[0]
+        j1 = torch.clamp_max(skeleton[:, 0] - 1, n_fields - 1)
+        j2 = torch.clamp_max(skeleton[:, 1] - 1, n_fields - 1)
         if hr_cells is not None:
             hs, ws = hr_shape
             fwd_hr = eval_cells({k: a[j2] for k, a in hr_cells.items()},

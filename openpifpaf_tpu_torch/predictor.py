@@ -1,8 +1,9 @@
 """High-level Predictor API (port of ``openpifpaf_tpu/predictor.py``).
 
-Model -> forward -> CifCaf decode, with generators over image files,
-numpy arrays and datasets. The serving loop is strict: each batch is
-forwarded, decoded and yielded before the next one starts.
+Model -> forward -> decode (the decoder factory's ``Multi``), with
+generators over image files, numpy arrays and datasets; a tracking model's
+forward caches the previous frame's features. The serving loop is strict:
+each batch is forwarded, decoded and yielded before the next one starts.
 """
 
 import copy
@@ -17,7 +18,9 @@ from .datasets.collate import collate_images_anns_meta
 from .models import factory as models_factory
 from .models import fused_inference
 from .models.basenetworks import ShuffleNetV2K
+from .models.tracking import TrackingShell
 from .plugins.coco.constants import cocokp_head_metas
+from .signal_ import Signal
 from .training import checkpoint as ckpt_mod
 
 LOG = logging.getLogger(__name__)
@@ -86,6 +89,13 @@ class Predictor:
         stage's channel halves are multiples of 128, the module graph
         otherwise (k16's 174, a ResNet, a group norm). ``bf16`` runs the
         backbone in bfloat16 (weights cast once) and the heads in float32.
+
+        A tracking model (a ``TrackingShell``) serves one frame per batch
+        on the module graph in float32, as JAX's does: the backbone runs on
+        the new frame only, its features stay on the device for the next
+        frame, and the heads run on the pair [new, previous]. The cache is
+        dropped on a resolution change and on the ``eval_reset`` signal.
+        An explicit engine or ``bf16`` raises ``ValueError`` for it.
         """
         if backbone_engine not in BACKBONE_ENGINES:
             raise ValueError(f'unknown backbone engine {backbone_engine!r}; '
@@ -100,17 +110,26 @@ class Predictor:
             model = models_factory.Factory().from_scratch(
                 head_metas or cocokp_head_metas(),
                 generator=torch.Generator().manual_seed(0))
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError("Predictor: no CUDA device found; pass "
-                                   "device='cpu' to run on the CPU")
-            device = 'cuda'
-        self.device = torch.device(device)
+        self.device = torch.device('cuda' if device is None else device)
+        if self.device.type == 'cuda' and not torch.cuda.is_available():
+            raise RuntimeError("Predictor: no CUDA device found; pass "
+                               "device='cpu' to run on the CPU")
         self.model = model.to(self.device).eval()
         self.head_metas = model.head_metas
         self.backbone_engine = backbone_engine
         self.bf16 = bf16
-        self._backbone = self._resolve_backbone_engine()
+        self._tracking = isinstance(self.model, TrackingShell)
+        self._prev_feats = None
+        if self._tracking:
+            if backbone_engine not in ('auto', 'flax') or bf16:
+                raise ValueError(
+                    'a tracking model serves on the module graph in '
+                    f'float32, not backbone_engine={backbone_engine!r}, '
+                    f'bf16={bf16}')
+            self._backbone = None
+            Signal.subscribe('eval_reset', self.reset_tracking)
+        else:
+            self._backbone = self._resolve_backbone_engine()
         self.processor = decoder.factory(self.head_metas)
         self.json_data = json_data
 
@@ -120,6 +139,10 @@ class Predictor:
         self.total_nn_time = 0.0
         self.total_decoder_time = 0.0
         self.total_images = 0
+
+    def reset_tracking(self):
+        """Drop the tracking model's cached features."""
+        self._prev_feats = None
 
     def _resolve_backbone_engine(self):
         """The backbone forward ``fn(x) -> features`` (channels_last NCHW)
@@ -163,6 +186,18 @@ class Predictor:
         features = self._backbone(x).float()
         return tuple(hn(features) for hn in self.model.head_nets)
 
+    def _tracking_fields(self, images):
+        """The tracking model's fields of one frame: the backbone on the
+        frame, the heads on [its features, the previous frame's]."""
+        assert images.shape[0] == 1, \
+            'tracking models process one frame at a time'
+        feats = self.model.backbone(images)
+        prev = self._prev_feats
+        if prev is None or prev.shape != feats.shape:
+            prev = feats  # first frame or resolution change
+        self._prev_feats = feats
+        return self.model.heads(torch.cat([feats, prev]))
+
     def _build_preprocess(self, long_edge=None):
         if long_edge is None:
             long_edge = self.long_edge
@@ -202,7 +237,8 @@ class Predictor:
                                                   dtype=np.float32))
         images = torch.from_numpy(image_batch).to(self.device)
         with torch.inference_mode():
-            fields = self._forward(images)
+            fields = self._tracking_fields(images) if self._tracking \
+                else self._forward(images)
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
         self.last_nn_time = time.perf_counter() - start

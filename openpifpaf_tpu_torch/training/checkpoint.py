@@ -28,7 +28,9 @@ from .. import headmeta
 
 LOG = logging.getLogger(__name__)
 
-HEADMETA_CLASSES = {cls.__name__: cls for cls in (headmeta.Cif, headmeta.Caf)}
+HEADMETA_CLASSES = {cls.__name__: cls for cls in (
+    headmeta.Cif, headmeta.Caf, headmeta.TSingleImageCif,
+    headmeta.TSingleImageCaf, headmeta.Tcaf)}
 
 
 def headmeta_to_dict(meta):
@@ -50,7 +52,7 @@ def headmeta_from_dict(d):
     if name not in HEADMETA_CLASSES:
         raise NotImplementedError(
             f'head meta {name} is not yet ported to PyTorch '
-            '(ROADMAP A9/A10)')
+            '(ROADMAP A9)')
     cls = HEADMETA_CLASSES[name]
     head_index = d.pop('head_index', None)
     base_stride = d.pop('base_stride', None)
@@ -95,7 +97,8 @@ def load(path):
 
 def load_shell(path, *, head_metas=None,
                head_consolidation='filter_and_extend'):
-    """(Shell with the checkpoint's weights, meta), on the CPU.
+    """(Shell with the checkpoint's weights, meta), on the CPU; a
+    TrackingShell for tracking metas.
 
     head_consolidation:
       'keep' — ignore the requested head_metas, use the checkpoint's heads;

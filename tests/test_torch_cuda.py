@@ -5,7 +5,8 @@ impls against each other, the decode under every configuration
 against the JAX poses of the golden file and against the CPU, a train
 step against the CPU, BatchNorm's running-statistics rule and the bf16
 step, the other backbones (resnet50, a group-norm k16) against the CPU,
-the engine choice on a group-norm k20, and the eval CLI.
+the engine choice on a group-norm k20, the eval CLI, and tracking (the
+k16 tracking forward against the CPU, the tracking golden sequence).
 
 Every test here needs a GPU (marker ``gpu``) and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a machine that
@@ -32,9 +33,12 @@ from openpifpaf_tpu_torch.plugins.coco.constants import cocokp_head_metas
 from openpifpaf_tpu_torch.predictor import Predictor
 
 from torch_port_helpers import CONFIGS, GOLDEN, GOLDEN_SPARSE_FLAGS, \
-    GOLDEN_STRIDE, assert_pose_gate, backbone_kernel_inputs, golden_inputs, golden_runs, \
-    lab_kernel_inputs, optimizer_args, order_rows, port_decoder, \
-    port_narrow_shell, pose_rows, random_cells, write_synthetic_coco
+    GOLDEN_STRIDE, TRACKING_GOLDEN, assert_pose_gate, \
+    assert_tracking_frame, backbone_kernel_inputs, decode_frames, \
+    golden_inputs, golden_runs, lab_kernel_inputs, optimizer_args, \
+    order_rows, port_decoder, port_narrow_shell, port_tracking_decoder, \
+    pose_rows, random_cells, reset_port_track_ids, tracking_golden_fields, \
+    write_synthetic_coco
 
 pytestmark = pytest.mark.gpu
 
@@ -710,3 +714,53 @@ def test_cuda_eval_cli_writes_stats(cuda, tmp_path):
         stats = json.load(f)
     assert len(stats['stats']) == 10 and np.all(np.isfinite(stats['stats']))
     assert stats['n_images'] == 3 and stats['nn_time'] > 0
+
+
+def test_cuda_tracking_forward_matches_cpu(cuda):
+    """A full-width tshufflenetv2k16 tracking shell (seed 0) on two frames
+    on the card against the CPU (TF32 off), through the Predictor's split
+    (backbone per frame, heads on [frame, previous frame]): within 1e-4 of
+    each head's largest value."""
+    from openpifpaf_tpu_torch.datasets import factory as datasets_factory
+    model = Factory('tshufflenetv2k16').from_scratch(
+        datasets_factory('cocokpst').head_metas)
+    frames = np.random.RandomState(3).randn(2, 129, 161, 3).astype(
+        np.float32)
+    fields = {}
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for device in ('cpu', cuda):
+            predictor = Predictor(model=model, device=device)
+            fields[str(device)] = [
+                [f.cpu() for f in predictor.fields_batch(frame[None])]
+                for frame in frames]
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    for out, ref in zip(fields[str(cuda)], fields['cpu']):
+        assert [tuple(r.shape) for r in ref] == [
+            (1, 17, 5, 9, 17), (1, 19, 8, 9, 17), (1, 17, 8, 9, 17)]
+        for o, r in zip(out, ref):
+            scale = float(r.abs().max())
+            assert scale > 0.0
+            torch.testing.assert_close(o, r, rtol=0, atol=1e-4 * scale)
+
+
+def test_cuda_tracking_golden_sequence(cuda):
+    """The port's tracking ``Multi`` (CifCaf and TrackingPose, CifHr
+    'auto': the kernel) on the tracking golden file's frames gives the JAX
+    annotations and track ids of each frame."""
+    golden = np.load(TRACKING_GOLDEN)
+    reset_port_track_ids()
+    multi = port_tracking_decoder(GOLDEN_STRIDE)
+    frames = tracking_golden_fields(golden)
+    before = cifhr_cuda.LAUNCHES
+    decoded = decode_frames(multi, frames,
+                            lambda f: torch.from_numpy(f).to(cuda))
+    assert cifhr_cuda.LAUNCHES - before >= 2 * len(frames)
+    for t, anns in enumerate(decoded):
+        assert_tracking_frame(anns, golden[f'frame{t}_poses'],
+                              golden[f'frame{t}_ids'], label=f'frame {t}')

@@ -73,7 +73,17 @@ def test_every_port_module_imports_without_jax():
                  'models.basenetworks', 'models.factory',
                  'models.convert_jax', 'transforms.toannotations',
                  'annotation', 'metric', 'metric.base', 'metric.cocoeval',
-                 'metric.coco', 'eval', 'eval_cli', 'benchmark'):
+                 'metric.coco', 'eval', 'eval_cli', 'benchmark',
+                 'headmeta', 'signal_', 'profiler', 'stream', 'video',
+                 'plugins.posetrack.constants', 'plugins.posetrack.cocokpst',
+                 'datasets.factory', 'models.tracking', 'decoder.base',
+                 'decoder.multi', 'decoder.factory',
+                 'decoder.track_annotation', 'decoder.track_base',
+                 'decoder.tracking_pose', 'decoder.pose_similarity',
+                 'decoder.pose_distance', 'decoder.pose_distance.base',
+                 'decoder.pose_distance.crafted',
+                 'decoder.pose_distance.euclidean',
+                 'decoder.pose_distance.oks'):
         assert f'openpifpaf_tpu_torch.{name}' in report['modules']
     assert report['loaded'] == []
 

@@ -17,6 +17,12 @@ not installed, so this module imports JAX only inside the functions that
 use it. Run this file to write the golden file anew:
 
     JAX_PLATFORMS=cpu python tests/torch_port_helpers.py
+
+It also owns ``golden/torch_tracking_golden.npz``: a synthetic 6-frame
+video at 513x641, stride 16 (:func:`tracking_scene`), its fields stored
+as the cells that differ from an empty cell, with the JAX package's
+tracked annotations of each frame. Write it anew with
+``--tracking``.
 """
 
 import argparse
@@ -321,12 +327,14 @@ def port_decoder(stride, flags=(), overrides=None):
     package's), with ``overrides`` of its config."""
     from openpifpaf_tpu_torch import decoder
     parser = argparse.ArgumentParser()
-    with restored_statics(decoder.CifCaf, decoder.CifCafDense):
+    with restored_statics(*decoder.DECODERS):
         decoder.cli(parser)
         decoder.configure(parser.parse_args(list(flags)))
-        dec = decoder.factory(port_metas(
-            stride, with_dense='--dense-connections' in flags))
-    return _with_config(dec, overrides or {})
+        metas = port_metas(stride,
+                           with_dense='--dense-connections' in flags)
+        decs = decoder.decoders(metas, ['cifcafdense', 'cifcaf'])
+    assert len(decs) == 1, decs
+    return _with_config(decs[0], overrides or {})
 
 
 def jax_metas(stride, with_dense=False):
@@ -692,6 +700,303 @@ def orbax_to_port_checkpoint(src, dst):
     return dst
 
 
+#: the tracking golden file: a synthetic video with the JAX package's
+#: tracked poses and ids of each frame
+TRACKING_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               'golden', 'torch_tracking_golden.npz')
+TRACKING_FRAMES = 6
+#: per person: start centre (x, y) at GOLDEN_HW, velocity in px per frame
+#: and the frames it is in view: person 0 leaves after frame 2, person 3
+#: enters at frame 3. Slow enough that some tracks link (the cross-frame
+#: edges' CifHr rescoring reads the last CIF field, see
+#: ``openpifpaf_tpu_torch/decoder/tracking_pose.py``), so both branches
+#: of ``TrackingPose`` run.
+TRACKING_PEOPLE = (((120.0, 200.0), (3.0, 1.0), range(0, 3)),
+                   ((330.0, 250.0), (-2.0, 2.0), range(0, 6)),
+                   ((510.0, 190.0), (2.0, -2.0), range(0, 6)),
+                   ((160.0, 390.0), (3.0, -1.0), range(3, 6)))
+#: the tracking decoder configurations held against JAX: name -> (CLI
+#: flags, the CIF/CAF metas' dataset)
+TRACKING_CONFIGS = {
+    'default': ((), 'cocokpst'),
+    'track_recovery': (('--trackingpose-track-recovery',), 'cocokpst'),
+    'single_seed': (('--trackingpose-single-seed',), 'cocokpst'),
+    'posetrack2018': ((), 'posetrack2018'),
+}
+#: small static budgets for the CPU tests (the golden file's decode keeps
+#: the defaults)
+TRACKING_TEST_BUDGETS = {'n_seeds': 256, 'n_poses': 32}
+
+
+def tracking_keypoints(n_frames=TRACKING_FRAMES, *, scale=1.0, seed=21):
+    """Per frame, {person: (17, 3) keypoints} of TRACKING_PEOPLE, the
+    positions and the height (110 px) times ``scale``."""
+    import field_fixtures  # imports the JAX package
+
+    rng = np.random.RandomState(seed)
+    frames = []
+    for t in range(n_frames):
+        frame = {}
+        for i, ((x0, y0), (vx, vy), alive) in enumerate(TRACKING_PEOPLE):
+            if t in alive:
+                frame[i] = field_fixtures.synthetic_person(
+                    scale * (x0 + vx * t), scale * (y0 + vy * t),
+                    scale * 110.0, rng)
+        frames.append(frame)
+    return frames
+
+
+def _pair_metas(stride):
+    """JAX Cif and Caf metas over the two frames' 34 keypoints, the Caf
+    with the Tcaf head's cross-frame skeleton: painting a pair of poses
+    with them gives the TCAF field (joint 1 in the current frame, joint 2
+    in the previous one)."""
+    from openpifpaf_tpu import headmeta
+    from openpifpaf_tpu.plugins.coco import constants
+    keypoints = list(constants.COCO_KEYPOINTS) * 2
+    sigmas = list(constants.COCO_PERSON_SIGMAS) * 2
+    pose = np.concatenate([constants.COCO_UPRIGHT_POSE] * 2)
+    n_kp = len(constants.COCO_KEYPOINTS)
+    cif = headmeta.Cif('cif2', 'test', keypoints=keypoints, sigmas=sigmas,
+                       pose=pose)
+    tcaf = headmeta.Caf('tcaf', 'test', keypoints=keypoints, sigmas=sigmas,
+                        pose=pose, skeleton=[(j + 1, j + 1 + n_kp)
+                                             for j in range(n_kp)])
+    for meta in (cif, tcaf):
+        meta.head_index = 0
+        meta.base_stride = stride
+    return cif, tcaf
+
+
+def tracking_scene(hw=GOLDEN_HW, stride=GOLDEN_STRIDE, *, scale=1.0,
+                   n_frames=TRACKING_FRAMES, seed=21):
+    """Per frame, the decoded (cif, caf, tcaf) fields of
+    :func:`tracking_keypoints`, jittered to be tie-free. The TCAF field
+    pairs each person with itself in the previous frame (in the first
+    frame with itself, as the Predictor pairs the first frame with
+    itself)."""
+    import field_fixtures  # imports the JAX package
+
+    frames = tracking_keypoints(n_frames, scale=scale, seed=seed)
+    out = []
+    for t, frame in enumerate(frames):
+        anns = [field_fixtures.annotation_dict(k) for k in frame.values()]
+        cif, caf, _ = field_fixtures.fields_from_annotations(
+            anns, hw, stride=stride)
+        prev = frames[max(t - 1, 0)]
+        pairs = [field_fixtures.annotation_dict(np.concatenate([k, prev[i]]))
+                 for i, k in frame.items() if i in prev]
+        _, tcaf, _ = field_fixtures.fields_from_annotations(
+            pairs, hw, stride=stride, metas=_pair_metas(stride))
+        cif, caf = jitter(cif, caf, seed + 10 * t)
+        _, tcaf = jitter(cif[:1], tcaf, seed + 10 * t + 500)
+        out.append((cif, caf, tcaf))
+    return out
+
+
+def small_tracking_scene():
+    """:func:`tracking_scene` at half size (257x321, stride 16) for the
+    CPU tests."""
+    return tracking_scene((257, 321), GOLDEN_STRIDE, scale=0.5)
+
+
+def _default_field(shape):
+    """The decoded field of an empty cell: zeros, the x/y channels at the
+    cell's index (CIF: x, y at 2, 3; CAF: at 2, 3 and 4, 5)."""
+    n, c, h, w = shape
+    out = np.zeros(shape, np.float32)
+    ix = np.arange(w, dtype=np.float32)[None, :]
+    iy = np.arange(h, dtype=np.float32)[:, None]
+    for ch in (2, 4) if c == 8 else (2,):
+        out[:, ch] = ix
+        out[:, ch + 1] = iy
+    return out
+
+
+def compact_field(field):
+    """(flat cell indices, (N, C) values) of the cells of a (F, C, H, W)
+    field that differ from :func:`_default_field`."""
+    n, c, h, w = field.shape
+    cells = field.transpose(0, 2, 3, 1).reshape(-1, c)
+    default = _default_field(field.shape).transpose(0, 2, 3, 1).reshape(-1, c)
+    index = np.flatnonzero(np.any(cells != default, axis=1))
+    return index.astype(np.int32), cells[index]
+
+
+def expand_field(shape, index, values):
+    """The (F, C, H, W) field of :func:`compact_field`'s output."""
+    n, c, h, w = shape
+    cells = _default_field(shape).transpose(0, 2, 3, 1).reshape(-1, c)
+    cells[index] = values
+    return np.ascontiguousarray(cells.reshape(n, h, w, c).transpose(
+        0, 3, 1, 2))
+
+
+def tracking_golden_fields(golden):
+    """Per frame, the (cif, caf, tcaf) numpy fields of the tracking golden
+    file."""
+    frames = []
+    for t in range(int(golden['n_frames'])):
+        frames.append(tuple(
+            expand_field(tuple(golden[f'{head}_shape']),
+                         golden[f'frame{t}_{head}_index'],
+                         golden[f'frame{t}_{head}_values'])
+            for head in ('cif', 'caf', 'tcaf')))
+    return frames
+
+
+def jax_tracking_metas(stride, dataset='cocokpst'):
+    import openpifpaf_tpu
+    metas = openpifpaf_tpu.datasets.factory('cocokpst').head_metas
+    for i, m in enumerate(metas):
+        m.head_index = i
+        m.base_stride = stride
+        m.dataset = dataset
+    return metas
+
+
+def port_tracking_metas(stride, dataset='cocokpst'):
+    from openpifpaf_tpu_torch.datasets import factory
+    from openpifpaf_tpu_torch.models.shell import assign_strides
+    metas = assign_strides(factory('cocokpst').head_metas, stride)
+    for m in metas:
+        m.dataset = dataset
+    return metas
+
+
+def _cifcaf_of(dec):
+    """The CifCaf decoder that ``dec`` decodes with."""
+    return getattr(dec, 'cifcaf', None) or getattr(dec, 'pose_generator',
+                                                   None) or dec
+
+
+def with_overrides(decoders, overrides):
+    """Each decoder of ``decoders`` with ``overrides`` of its CifCaf's
+    config."""
+    for dec in decoders:
+        inner = _cifcaf_of(dec)
+        inner.config = dataclasses.replace(inner.config, **overrides)
+    return decoders
+
+
+def _tracking_decoder(decoder, factory_module, metas, flags, overrides,
+                      requested):
+    """``factory_module.factory(metas, requested)`` while ``flags``
+    configure the decoders (their class settings are put back after;
+    those that a decoder reads while it decodes are pinned on it first),
+    with ``overrides`` of each CifCaf config."""
+    parser = argparse.ArgumentParser()
+    with restored_statics(*decoder.DECODERS, decoder.TrackBase,
+                          decoder.pose_distance.Oks):
+        factory_module.cli(parser)
+        factory_module.configure(parser.parse_args(list(flags)))
+        multi = factory_module.factory(metas, requested)
+        for dec in multi.decoders:
+            for cls in type(dec).__mro__:
+                for k, v in vars(cls).items():
+                    if not k.startswith('_') and isinstance(
+                            v, (bool, int, float)) and k not in vars(dec):
+                        setattr(dec, k, v)
+    with_overrides(multi.decoders, overrides or {})
+    return multi
+
+
+def jax_tracking_decoder(stride, flags=(), dataset='cocokpst',
+                         overrides=None, requested=None):
+    """The JAX package's ``Multi`` of the tracking metas under ``flags``."""
+    from openpifpaf_tpu import decoder
+    return _tracking_decoder(decoder, decoder.factory,
+                             jax_tracking_metas(stride, dataset), flags,
+                             overrides, requested)
+
+
+def port_tracking_decoder(stride, flags=(), dataset='cocokpst',
+                          overrides=None, requested=None):
+    """The port's ``Multi`` of the tracking metas under ``flags``."""
+    from openpifpaf_tpu_torch import decoder
+    return _tracking_decoder(decoder, decoder,
+                             port_tracking_metas(stride, dataset), flags,
+                             overrides, requested)
+
+
+def reset_port_track_ids():
+    """Restart the port's global track-id counter at 1."""
+    import itertools
+    from openpifpaf_tpu_torch.decoder import track_annotation
+    track_annotation._fresh_ids = itertools.count(1)
+
+
+def reset_track_ids():
+    """Restart the global track-id counters of both packages at 1."""
+    import itertools
+    from openpifpaf_tpu.decoder import track_annotation
+    track_annotation._fresh_ids = itertools.count(1)
+    reset_port_track_ids()
+
+
+def track_rows(annotations):
+    """(poses (n, n_kp, 4), ids (n,), -1 for none) of a frame's
+    annotations."""
+    ids = np.asarray([-1 if a.id_ is None else a.id_ for a in annotations],
+                     np.int64)
+    return pose_rows(annotations), ids
+
+
+def assert_tracking_frame(annotations, poses, ids, label=''):
+    """A frame's annotations against reference rows: the untracked ones
+    (id -1, CifCaf's) within the pose gate, each tracked one against the
+    reference pose of its id (same ids; visibility equal, xy within 1e-3
+    px, confidences within 2e-3)."""
+    ours, our_ids = track_rows(annotations)
+    assert sorted(our_ids.tolist()) == sorted(np.asarray(ids).tolist()), \
+        (label, our_ids, ids)
+    assert_pose_gate(list(ours[our_ids == -1]), list(poses[ids == -1]))
+    for id_ in our_ids[our_ids != -1]:
+        op, = ours[our_ids == id_]
+        rp, = poses[ids == id_]
+        vis = op[:, 0] > 0
+        np.testing.assert_array_equal(vis, rp[:, 0] > 0, err_msg=label)
+        np.testing.assert_allclose(op[vis, 1:3], rp[vis, 1:3], atol=1e-3,
+                                   err_msg=label)
+        np.testing.assert_allclose(op[vis, 0], rp[vis, 0], atol=2e-3,
+                                   err_msg=label)
+
+
+def decode_frames(multi, frames, as_field):
+    """Each frame's annotations of ``multi`` (batch 1 per frame);
+    ``as_field`` turns a numpy field into the decoder's input."""
+    return [multi.batch_decode([as_field(f[None]) for f in fields])[0]
+            for fields in frames]
+
+
+def jax_tracking_golden():
+    """The tracking golden file's dict: the frames of :func:`tracking_scene`
+    compacted (``frame{t}_{head}_index``/``_values``, ``{head}_shape``) and
+    the JAX package's ``Multi`` annotations of each frame under the
+    defaults (``frame{t}_poses`` (n, 17, 4), ``frame{t}_ids``, -1 for
+    CifCaf's)."""
+    reset_track_ids()
+    frames = tracking_scene()
+    out = {'n_frames': np.int64(len(frames))}
+    for head, f in zip(('cif', 'caf', 'tcaf'), frames[0]):
+        out[f'{head}_shape'] = np.asarray(f.shape, np.int64)
+    for t, fields in enumerate(frames):
+        for head, f in zip(('cif', 'caf', 'tcaf'), fields):
+            index, values = compact_field(f)
+            out[f'frame{t}_{head}_index'] = index
+            out[f'frame{t}_{head}_values'] = values
+    with jax_f32():
+        multi = jax_tracking_decoder(GOLDEN_STRIDE)
+        for t, anns in enumerate(decode_frames(multi, frames,
+                                               lambda f: f)):
+            out[f'frame{t}_poses'], out[f'frame{t}_ids'] = track_rows(anns)
+    return out
+
+
+def write_tracking_golden():
+    np.savez_compressed(TRACKING_GOLDEN, **jax_tracking_golden())
+
+
 def jax_golden():
     """The golden file's dict: :func:`jax_golden_scenes` and
     :func:`jax_golden_config` of each of :func:`golden_configs`."""
@@ -708,7 +1013,14 @@ def write_golden():
 
 
 if __name__ == '__main__':
+    import sys
     import jax
     jax.config.update('jax_platforms', 'cpu')
-    write_golden()
-    print('wrote', GOLDEN, os.path.getsize(GOLDEN), 'bytes')
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if '--tracking' in sys.argv[1:]:
+        write_tracking_golden()
+        print('wrote', TRACKING_GOLDEN, os.path.getsize(TRACKING_GOLDEN),
+              'bytes')
+    else:
+        write_golden()
+        print('wrote', GOLDEN, os.path.getsize(GOLDEN), 'bytes')
