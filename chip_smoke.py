@@ -79,7 +79,9 @@ Phases, each of which raises on failure (non-zero exit):
     the loader's share of the loop's wall time; (c) the float32 run's
     checkpoint served by ``Predictor(checkpoint=...)`` on the card (the
     trainer's EMA weights, one request with its fields checked, CifHr
-    launches read around it); (d) 40 steps on one fixed batch: the loss
+    launches read around it), then one more float32 step on (a)'s batch
+    with its CUDA-event time, peak memory and, from ``torch.profiler``,
+    device ops, stream syncs and device busy ms; (d) 40 steps on one fixed batch: the loss
     must fall. The training path runs no hand-written kernel (the step
     is cuDNN through autograd);
 12. other backbones and eval: (a) every ``BASE_FACTORIES`` entry at full
@@ -110,7 +112,25 @@ Phases, each of which raises on failure (non-zero exit):
     ``openpifpaf_tpu_torch.video`` on the card over 8 synthetic JPEGs with
     that model saved as a checkpoint of the port: 8 JSON lines, per-frame
     NN ms (CUDA events), decode ms and device-busy share, peak memory,
-    CifHr launches (counted in the kernels line).
+    CifHr launches (counted in the kernels line);
+14. tracking training and PoseTrack eval, on a synthetic COCO set (as in
+    phase 11): (a) one cocokpst train step of the full-width
+    tshufflenetv2k16 (random, seed 0) on 4 pairs (8 interleaved frames at
+    385 px) of the port's cocokpst pipeline on the card against the same
+    step on the CPU in float64, as in 11a; (b) ``train.main --dataset
+    cocokpst --basenet tshufflenetv2k16`` for 8 steps at the JAX defaults
+    (batch 8, 385 px, augmentation, SGD) in float32: warm step ms, images
+    per second, loader share, peak memory, and ``load_shell`` reads the
+    checkpoint as a TrackingShell, then one more step profiled (as after
+    11b: device ops, syncs, busy ms, the step's peak memory); (c)
+    ``eval.main --dataset
+    posetrack2018 --write-predictions`` with that checkpoint over two
+    synthetic PoseTrack 2018 sequences of 4 frames of 720x1280
+    (``torch_port_helpers.write_synthetic_posetrack2018``, seed 0) at the
+    default long edge 801, batch 1: the CifHr launches of CifCaf and of
+    TrackingPose per frame (counted in the kernels line), NN and decode ms
+    per frame, ``eval_reset`` once at the sequence boundary, one
+    prediction JSON per sequence.
 
 The second-to-last line is a JSON object describing the kernels (with each
 one's bound: the larger of its bytes over the card's memory rate and its
@@ -1089,16 +1109,17 @@ def compare_step(label, names, card_step, cpu32, cpu64, start):
     rel = {k: np.sqrt(v / update) for k, v in err.items()}
     if not (worst[0] <= 1.0 and rel['card'] <= STEP_UPDATE_RTOL):
         raise AssertionError(
-            f'train step {label} on the card vs the CPU float64 step: '
+            f'{label} on the card vs the CPU float64 step: '
             f'{worst[1]} at {worst[0]:.3f} of its allowance, {rel["card"]:.3g} '
             f'of the update over all (CPU float32: {rel["cpu32"]:.3g})')
     return rel, worst
 
 
-def phase_train_step(batch, device, card):
-    """(a) One train step of the full-width k16 on a batch of 8 at 385 px
-    on the card against the same step on the CPU in float64 and float32
-    (TF32 off): losses, parameters, BatchNorm buffers and EMA."""
+def phase_train_step(batch, device, card, label='train step (a)'):
+    """(a) One train step of the full-width model of ``batch`` on its
+    batch of 8 at 385 px on the card against the same step on the CPU in
+    float64 and float32 (TF32 off): losses, parameters, BatchNorm buffers
+    and EMA."""
     import copy
 
     images, targets, metas, model = batch
@@ -1123,21 +1144,22 @@ def phase_train_step(batch, device, card):
     if not (np.isfinite(loss)
             and abs(loss - ref_loss) <= STEP_LOSS_RTOL * abs(ref_loss)
             and head_err <= STEP_LOSS_RTOL * abs(ref_loss)):
-        raise AssertionError(f'train step losses {loss} {heads} on the '
+        raise AssertionError(f'{label} losses {loss} {heads} on the '
                              f'card, {ref_loss} {ref_heads} on the CPU')
     params = [n for n, _ in model.named_parameters()]
     buffers = [n for n in start if n not in params
                and not n.endswith('num_batches_tracked')]
-    for label, names, ours, cpu32, cpu64 in (
+    for kind, names, ours, cpu32, cpu64 in (
             ('parameters', params, state, cpu_state, ref_state),
             ('BatchNorm buffers', buffers, state, cpu_state, ref_state),
             ('EMA', params, ema, cpu_ema, ref_ema)):
-        rel, worst = compare_step(label, names, ours, cpu32, cpu64, start)
-        log(f'train step (a) {label}: error against the CPU float64 step '
+        rel, worst = compare_step(f'{label} {kind}', names, ours, cpu32,
+                                  cpu64, start)
+        log(f'{label} {kind}: error against the CPU float64 step '
             f'{rel["card"]:.3e} of the update (L2) on the card, '
             f'{rel["cpu32"]:.3e} for the CPU float32 step; worst tensor '
             f'{worst[1]} at {worst[0]:.3f} of its allowance')
-    log(f'train step (a): loss {loss} on the card, {ref_loss} in float64 '
+    log(f'{label}: loss {loss} on the card, {ref_loss} in float64 '
         f'on the CPU, head losses within {head_err:.3g}; first step '
         f'{card_s * 1e3:.1f} ms on the card, {cpu32_s:.1f} s (float32) and '
         f'{cpu64_s:.1f} s (float64) on the CPU ({torch.get_num_threads()} '
@@ -1170,68 +1192,103 @@ def read_train_log(path):
     return train, val
 
 
-def phase_train_runs(data, directory, card):
-    """(b) ``train.main`` in-process in float32, ``--bf16`` and
-    ``--remat``: checkpoints written, every loss finite; warm step time
-    (CUDA events), images per second, peak memory and the loader's share
-    of the wall time. Returns the float32 run's output and trainer."""
+def train_run(argv, out, label, card):
+    """``train.main(argv)`` in-process, writing ``out``: checkpoints
+    written, every loss finite; warm step time (CUDA events), images per
+    second, peak memory and the loader's share of the wall time. Returns
+    the trainer."""
     from openpifpaf_tpu_torch import train
     from openpifpaf_tpu_torch.training.trainer import Trainer
 
+    os.makedirs(os.path.dirname(out))
+    events = []
+    original = timed_train_steps(Trainer, events)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        trainer = train.main(argv)
+    finally:
+        Trainer.train_step = original
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    for suffix in ('.epoch000', '.epoch001', ''):
+        for ext in ('.json', '.pt'):
+            if not os.path.exists(out + suffix + ext):
+                raise AssertionError(f'{label}: no {out + suffix + ext}')
+    train_lines, val_lines = read_train_log(out + '.log')
+    losses = [line['loss'] for line in train_lines] + \
+        [line['loss'] for line in val_lines]
+    if len(train_lines) != TRAIN_STEPS or len(val_lines) != 1 \
+            or not np.all(np.isfinite(losses)):
+        raise AssertionError(f'{label}: {len(train_lines)} train lines, '
+                             f'{len(val_lines)} val lines, losses '
+                             f'{losses}')
+    if len(events) != TRAIN_STEPS:
+        raise AssertionError(f'{label}: {len(events)} timed steps')
+    # warm: the steps after the first (cuDNN picks its algorithms)
+    step_ms = [s.elapsed_time(e) for s, e in events][1:]
+    median = float(np.median(step_ms))
+    warm = train_lines[1:]
+    data_s = sum(line['data_time'] for line in warm)
+    time_s = sum(line['time'] for line in warm)
+    log(f'{label}: warm step {median:.2f} ms median '
+        f'(min {min(step_ms):.2f}, max {max(step_ms):.2f} over '
+        f'{len(step_ms)} steps, CUDA events), '
+        f'{TRAIN_BATCH / median * 1e3:.1f} images/s on the device '
+        f'timeline, {TRAIN_BATCH * len(warm) / time_s:.1f} images/s '
+        f'of wall time in the loop (loader included), loader share '
+        f'{data_s / time_s:.3f} (data_time {data_s:.3f} s of '
+        f'{time_s:.3f} s), peak memory {peak / 2 ** 30:.2f} GiB above '
+        f'the {before / 2 ** 30:.2f} GiB held before the run; first '
+        f'step {train_lines[0]["time"]:.3f} s, losses '
+        f'{[round(x, 1) for x in losses]}, whole run {wall:.1f} s '
+        f'[{card}]')
+    return trainer
+
+
+def phase_train_runs(data, directory, card):
+    """(b) ``train.main`` in-process in float32, ``--bf16`` and
+    ``--remat`` (:func:`train_run`). Returns the float32 run's output and
+    trainer."""
     runs = {}
     for label, extra in (('float32', ()), ('bf16', ('--bf16',)),
                          ('remat', ('--remat',))):
         out = os.path.join(directory, label, 'model')
-        os.makedirs(os.path.dirname(out))
-        events = []
-        original = timed_train_steps(Trainer, events)
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        try:
-            trainer = train.main(train_flags(data, out, *extra))
-        finally:
-            Trainer.train_step = original
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() - before
-        for suffix in ('.epoch000', '.epoch001', ''):
-            for ext in ('.json', '.pt'):
-                if not os.path.exists(out + suffix + ext):
-                    raise AssertionError(f'{label}: no {out + suffix + ext}')
-        train_lines, val_lines = read_train_log(out + '.log')
-        losses = [line['loss'] for line in train_lines] + \
-            [line['loss'] for line in val_lines]
-        if len(train_lines) != TRAIN_STEPS or len(val_lines) != 1 \
-                or not np.all(np.isfinite(losses)):
-            raise AssertionError(f'{label}: {len(train_lines)} train lines, '
-                                 f'{len(val_lines)} val lines, losses '
-                                 f'{losses}')
-        if len(events) != TRAIN_STEPS:
-            raise AssertionError(f'{label}: {len(events)} timed steps')
-        # warm: the steps after the first (cuDNN picks its algorithms)
-        step_ms = [s.elapsed_time(e) for s, e in events][1:]
-        median = float(np.median(step_ms))
-        warm = train_lines[1:]
-        data_s = sum(line['data_time'] for line in warm)
-        time_s = sum(line['time'] for line in warm)
-        log(f'train run (b) {label}: warm step {median:.2f} ms median '
-            f'(min {min(step_ms):.2f}, max {max(step_ms):.2f} over '
-            f'{len(step_ms)} steps, CUDA events), '
-            f'{TRAIN_BATCH / median * 1e3:.1f} images/s on the device '
-            f'timeline, {TRAIN_BATCH * len(warm) / time_s:.1f} images/s '
-            f'of wall time in the loop (loader included), loader share '
-            f'{data_s / time_s:.3f} (data_time {data_s:.3f} s of '
-            f'{time_s:.3f} s), peak memory {peak / 2 ** 30:.2f} GiB above '
-            f'the {before / 2 ** 30:.2f} GiB held before the run; first '
-            f'step {train_lines[0]["time"]:.3f} s, losses '
-            f'{[round(x, 1) for x in losses]}, whole run {wall:.1f} s '
-            f'[{card}]')
-        runs[label] = (out, trainer)
+        runs[label] = (out, train_run(train_flags(data, out, *extra), out,
+                                      f'train run (b) {label}', card))
     return runs['float32']
+
+
+def profile_train_step(trainer, batch, label, card):
+    """One more step of ``trainer`` on ``batch`` (images, targets, ...)
+    under ``torch.profiler``: device ops, stream syncs and device busy ms
+    against the step's CUDA-event time, and its peak memory."""
+    images, targets = batch[:2]
+    device = trainer.device
+    images = torch.from_numpy(images).to(device)
+    targets = tuple(torch.from_numpy(t).to(device) for t in targets)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    start.record()
+    trainer.train_step(images, targets)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() - before
+    ops, syncs, busy = decode_profile(
+        lambda: trainer.train_step(images, targets))
+    log(f'{label}, one step outside the run: {step_ms:.2f} ms (CUDA '
+        f'events), peak memory {peak / 2 ** 30:.2f} GiB above the '
+        f'{before / 2 ** 30:.2f} GiB held; a profiled step: {ops} device '
+        f'ops, {syncs} stream syncs, device busy {busy:.2f} ms [{card}]')
 
 
 def phase_serve_checkpoint(port, out, trainer, device, card):
@@ -1299,6 +1356,7 @@ def phase_train(port, device, card):
         phase_train_step(batch, device, card)
         out, trainer = phase_train_runs(data, directory, card)
         phase_serve_checkpoint(port, out, trainer, device, card)
+        profile_train_step(trainer, batch, 'train run (b) float32', card)
         phase_overfit(batch, device, card)
 
 
@@ -1506,13 +1564,13 @@ VIDEO_FRAMES = 8
 TRACKING_RTOL = 1e-4
 
 
-def tracking_model():
-    """A full-width tshufflenetv2k16 with the cocokpst heads (17 CIF
-    fields, 19 CAF and 17 TCAF edges), random from seed 0."""
+def tracking_model(metas=None):
+    """A full-width tshufflenetv2k16 with ``metas`` (default: the cocokpst
+    heads, 17 CIF fields, 19 CAF and 17 TCAF edges), random from seed 0."""
     from openpifpaf_tpu_torch.datasets import factory
     from openpifpaf_tpu_torch.models.factory import Factory
     return Factory('tshufflenetv2k16').from_scratch(
-        factory('cocokpst').head_metas,
+        metas or factory('cocokpst').head_metas,
         generator=torch.Generator().manual_seed(0))
 
 
@@ -1754,6 +1812,265 @@ def phase_tracking(port, device, card):
     return phase_video(port, device, card)
 
 
+#: phase 14: PoseTrack eval over POSETRACK_SEQUENCES synthetic sequences of
+#: POSETRACK_FRAMES frames at PoseTrack's usual 720x1280, at the default
+#: --posetrack-eval-long-edge (801)
+POSETRACK_SEQUENCES = 2
+POSETRACK_FRAMES = 4
+POSETRACK_HW = (720, 1280)
+#: decoder thresholds lowered so that the fields give poses: the eval's
+#: posetrack2018 heads do not match the checkpoint's cocokpst heads by
+#: (dataset, name), so they are new, initialised from seed 0 (as in the
+#: JAX package), with confidences near 0.5 everywhere; at the default
+#: seed threshold (0.5) no pose comes out, at 0.1 the seed budget fills
+POSETRACK_DECODER_FLAGS = ('--seed-threshold', '0.1', '--keypoint-threshold',
+                           '0.01', '--instance-threshold', '0.0')
+#: CifHr tiers each decoder runs per frame with these flags: the fast tier,
+#: and the crowd tier because the seed budget fills; one launch each
+POSETRACK_TIERS = 2
+
+
+def tracking_train_batch(data):
+    """One batch of the port's cocokpst pipeline (augmentation on: 4
+    pairs, 8 interleaved frames at 385 px), its head metas and the
+    full-width tshufflenetv2k16 (random, seed 0)."""
+    from openpifpaf_tpu_torch.datasets import factory
+    from openpifpaf_tpu_torch.plugins.coco.cocokp import CocoKp
+    from torch_port_helpers import restored_statics
+
+    ann_file, image_dir = data
+    with restored_statics(CocoKp):
+        CocoKp.train_annotations, CocoKp.train_image_dir = ann_file, image_dir
+        CocoKp.square_edge = TRAIN_EDGE
+        datamodule = factory('cocokpst')
+        datamodule.batch_size = TRAIN_BATCH
+        model = tracking_model(datamodule.head_metas)
+        np.random.seed(TRAIN_SEED)
+        images, targets, metas = next(iter(datamodule.train_loader()))
+    if images.shape != (TRAIN_BATCH, TRAIN_EDGE, TRAIN_EDGE, 3) \
+            or len(targets) != 3 or len(metas) != TRAIN_BATCH // 2 \
+            or any(t.shape[0] != TRAIN_BATCH // 2 for t in targets):
+        raise AssertionError(f'cocokpst batch {images.shape}, targets '
+                             f'{[t.shape for t in targets]}, {len(metas)} '
+                             'metas')
+    return images, targets, datamodule.head_metas, model
+
+
+def phase_tracking_train(data, directory, device, card):
+    """14a-b: one cocokpst step on the card against the CPU's
+    (:func:`phase_train_step`), then ``train.main --dataset cocokpst
+    --basenet tshufflenetv2k16`` at the JAX defaults (:func:`train_run`);
+    ``load_shell`` reads its checkpoint as a TrackingShell with the
+    trainer's EMA weights. Returns the checkpoint."""
+    from openpifpaf_tpu_torch.models.tracking import TrackingShell
+    from openpifpaf_tpu_torch.training import checkpoint
+
+    batch = tracking_train_batch(data)
+    phase_train_step(batch, device, card, label='tracking train step (14a)')
+    out = os.path.join(directory, 'cocokpst', 'model')
+    trainer = train_run(train_flags(data, out, '--dataset', 'cocokpst',
+                                    '--basenet', 'tshufflenetv2k16'),
+                        out, 'tracking train run (14b) float32', card)
+    model, meta = checkpoint.load_shell(out)
+    written = trainer.ema_state_dict()
+    if not (isinstance(model, TrackingShell)
+            and meta['base_name'] == 'tshufflenetv2k16'
+            and all(torch.equal(v, written[k])
+                    for k, v in model.state_dict().items())):
+        raise AssertionError(f'load_shell({out}): {type(model).__name__}, '
+                             f'{meta["base_name"]}')
+    log(f'tracking train run (14b): load_shell reads {out} as a '
+        f'TrackingShell with the trainer\'s EMA weights, heads '
+        f'{[type(m).__name__ for m in model.head_metas]}')
+    profile_train_step(trainer, batch, 'tracking train run (14b) float32',
+                       card)
+    return out
+
+
+def phase_posetrack_eval(port, ckpt, directory, card):
+    """14c: ``openpifpaf_tpu_torch.eval.main`` (in-process, on the card)
+    ``--dataset posetrack2018 --write-predictions`` with 14b's checkpoint
+    over synthetic PoseTrack 2018 sequences, at batch 1 and the default
+    long edge: per frame the CifHr launches of CifCaf and of TrackingPose
+    (read through the launch counter around each decoder), NN ms (CUDA
+    events) and each decoder's ms; ``eval_reset`` emitted once, when the
+    second sequence's first frame is pulled; the stats and one prediction
+    JSON per sequence. Each decoder must launch the kernel once per tier
+    it ran, POSETRACK_TIERS times per frame. The cells of every CifHr call
+    of the run are kept, and the kernel on them is held bit for bit
+    against its plain version at the eval's map shape. Returns the run's
+    CifHr launches (the comparison's launches come after and are not
+    counted)."""
+    from openpifpaf_tpu_torch import decoder, eval_cli
+    from openpifpaf_tpu_torch.plugins.coco.cocokp import CocoKp
+    from openpifpaf_tpu_torch.plugins.posetrack.cocokpst import CocoKpSt
+    from openpifpaf_tpu_torch.plugins.posetrack.posetrack2017 import \
+        Posetrack2017
+    from openpifpaf_tpu_torch.plugins.posetrack.posetrack2018 import \
+        Posetrack2018
+    from openpifpaf_tpu_torch.predictor import Predictor
+    from openpifpaf_tpu_torch.signal_ import Signal
+    from torch_port_helpers import restored_statics, \
+        write_synthetic_posetrack2018
+
+    _, val_glob, root = write_synthetic_posetrack2018(
+        os.path.join(directory, 'posetrack'), n_sequences=POSETRACK_SEQUENCES,
+        n_frames=POSETRACK_FRAMES, image_hw=POSETRACK_HW, seed=0)
+    frames = []
+    resets = []
+    fields_batch = Predictor.fields_batch
+    batch_decode = decoder.Multi.batch_decode
+    cifhr_cuda = port.cifhr_cuda
+    accumulate = cifhr_cuda.accumulate
+    calls = []
+
+    def timed_fields(self, image_batch):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fields = fields_batch(self, image_batch)
+        end.record()
+        torch.cuda.synchronize()
+        frames.append({'nn_ms': start.elapsed_time(end),
+                       'shape': tuple(image_batch.shape)})
+        return fields
+
+    def counted(dec):
+        inner = dec.batch_decode
+
+        def per_decoder(fields):
+            before = cifhr_cuda.LAUNCHES
+            out = inner(fields)
+            tiers = 1 + len(getattr(dec, 'pose_generator', dec).last_escalated)
+            frames[-1][type(dec).__name__] = (
+                cifhr_cuda.LAUNCHES - before, dec.last_decoder_time * 1e3,
+                tiers)
+            return out
+        return per_decoder
+
+    def kept(x, y, sigma, w, **kw):
+        calls.append(((x.clone(), y.clone(), sigma.clone(), w.clone()), kw))
+        return accumulate(x, y, sigma, w, **kw)
+
+    def counted_decode(self, fields):
+        for dec in self.decoders:
+            if 'batch_decode' not in vars(dec):
+                dec.batch_decode = counted(dec)
+        return batch_decode(self, fields)
+
+    out = os.path.join(directory, 'posetrack-eval')
+    subscribers = list(Signal.subscribers.get('eval_reset', []))
+    Signal.subscribe('eval_reset', lambda: resets.append(len(frames)))
+    Predictor.fields_batch = timed_fields
+    decoder.Multi.batch_decode = counted_decode
+    cifhr_cuda.accumulate = kept
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(port)
+    t0 = time.perf_counter()
+    try:
+        with restored_statics(*decoder.DECODERS, decoder.TrackBase, CocoKp,
+                              CocoKpSt, Posetrack2018, Posetrack2017,
+                              eval_cli.Evaluator):
+            eval_cli.main(['--dataset', 'posetrack2018', '--checkpoint', ckpt,
+                           '--posetrack2018-eval-annotations', val_glob,
+                           '--posetrack2018-data-root', root,
+                           '--write-predictions', '--eval-loader-warmup',
+                           '0', '--output', out, *POSETRACK_DECODER_FLAGS])
+    finally:
+        Predictor.fields_batch = fields_batch
+        decoder.Multi.batch_decode = batch_decode
+        cifhr_cuda.accumulate = accumulate
+        Signal.subscribers['eval_reset'] = subscribers
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    launches = read_launches(port)['cifhr_accumulate']
+
+    n_frames = POSETRACK_SEQUENCES * POSETRACK_FRAMES
+    with open(out + '.stats.json') as f:
+        stats = json.load(f)
+    files = sorted(os.listdir(out))
+    if not (len(frames) == stats['n_images'] == n_frames
+            and stats['nn_time'] > 0 and stats['decoder_time'] > 0
+            and stats['stats'][0] == n_frames):
+        raise AssertionError(f'posetrack eval: {len(frames)} frames, stats '
+                             f'{stats}')
+    if resets != [POSETRACK_FRAMES]:
+        raise AssertionError(f'posetrack eval: eval_reset after frames '
+                             f'{resets}, want once after frame '
+                             f'{POSETRACK_FRAMES}')
+    names = ('CifCaf', 'TrackingPose')
+    for i, frame in enumerate(frames):
+        got = [frame.get(name, (0, 0, 0)) for name in names]
+        if any(g[0] != g[2] or g[2] != POSETRACK_TIERS for g in got):
+            raise AssertionError(f'posetrack eval frame {i}: (CifHr '
+                                 'launches, ms, tiers) per decoder '
+                                 f'{frame}, want {POSETRACK_TIERS} tiers '
+                                 'and one launch per tier')
+    want = len(names) * POSETRACK_TIERS * n_frames
+    if not launches == len(calls) == want:
+        raise AssertionError(f'posetrack eval: {launches} CifHr launches, '
+                             f'{len(calls)} calls, want {want}')
+    hr_shapes = set()
+    for i, (cells, kw) in enumerate(calls):
+        kernel = cifhr_cuda.accumulate(*cells, **kw)
+        plain = port.cifhr.accumulate_dense(*cells, **kw)
+        if not torch.equal(kernel, plain):
+            raise AssertionError(
+                f'posetrack eval CifHr call {i} at {tuple(kernel.shape)}: '
+                'kernel vs plain not bit-equal, max abs err '
+                f'{float((kernel - plain).abs().max())}')
+        hr_shapes.add((*kernel.shape, cells[0].shape[1]))
+    if len(files) != POSETRACK_SEQUENCES:
+        raise AssertionError(f'posetrack eval: prediction files {files}')
+    predictions = []
+    for name in files:
+        with open(os.path.join(out, name)) as f:
+            data = json.load(f)
+        if len(data['images']) != POSETRACK_FRAMES:
+            raise AssertionError(f'{name}: {len(data["images"])} images')
+        predictions.append(len(data['annotations']))
+    for i, frame in enumerate(frames):
+        log(f'posetrack eval (14c) frame {i}: image {frame["shape"]}, NN '
+            f'{frame["nn_ms"]:.3f} ms (CUDA events); CifCaf '
+            f'{frame["CifCaf"][0]} CifHr launches, {frame["CifCaf"][1]:.2f} '
+            f'ms; TrackingPose {frame["TrackingPose"][0]} CifHr launches, '
+            f'{frame["TrackingPose"][1]:.2f} ms [{card}]')
+    per_image = {k: stats[k] / n_frames * 1e3
+                 for k in ('total_time', 'nn_time', 'decoder_time')}
+    log(f'posetrack eval (14c): {n_frames} frames of {POSETRACK_HW} in '
+        f'{POSETRACK_SEQUENCES} sequences, eval_reset once (after frame '
+        f'{resets[0]}), {launches} CifHr kernel launches; per frame (stats,'
+        f' the first included) total {per_image["total_time"]:.2f} ms, nn '
+        f'{per_image["nn_time"]:.2f} ms, decoder '
+        f'{per_image["decoder_time"]:.2f} ms; warm (frames 2-) median NN '
+        f'{np.median([f["nn_ms"] for f in frames[1:]]):.3f} ms, decode '
+        f'{np.median([sum(f[n][1] for n in names) for f in frames[1:]]):.2f}'
+        f' ms; {files} with {predictions} predictions (stats '
+        f'{stats["stats"]}); peak memory {peak / 2 ** 30:.3f} GiB above '
+        f'what the process held; whole command {wall:.1f} s [{card}]')
+    log(f'posetrack eval (14c): the kernel on the cells of all {len(calls)} '
+        'CifHr calls equals its plain version bit for bit at (F, hr_h, '
+        f'hr_w, K) {sorted(hr_shapes)}')
+    return launches
+
+
+def phase_tracking_training(port, device, card):
+    """Phase 14: (a)-(c) on a synthetic COCO set; returns the CifHr
+    launches of (c)."""
+    import tempfile
+    from torch_port_helpers import write_synthetic_coco
+
+    with tempfile.TemporaryDirectory() as directory:
+        data = write_synthetic_coco(os.path.join(directory, 'coco'),
+                                    n_images=TRAIN_IMAGES,
+                                    image_hw=TRAIN_IMAGE_HW, seed=TRAIN_SEED)
+        ckpt = phase_tracking_train(data, directory, device, card)
+        return phase_posetrack_eval(port, ckpt, directory, card)
+
+
 def kernel_entry(name, source, replaces, launches, rows, row):
     """One kernel's entry of the JSON line: times and bound of ``row``,
     the largest error of all ``rows``."""
@@ -1802,6 +2119,8 @@ def main():
     phase_train(port, device, card)
     launches['cifhr_accumulate'] += phase_other_backbones(port, device, card)
     launches['cifhr_accumulate'] += phase_tracking(port, device, card)
+    launches['cifhr_accumulate'] += phase_tracking_training(port, device,
+                                                            card)
 
     # no single PyTorch call computes the CifHr map; times at F=17 K=256
     entries = [kernel_entry('cifhr_accumulate', 'cifhr.cu',

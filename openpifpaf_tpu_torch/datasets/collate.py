@@ -40,3 +40,17 @@ def collate_images_targets_meta(batch):
     ]
     metas = [b[2] for b in batch]
     return images, targets, metas
+
+
+def collate_tracking_images_targets_meta(batch):
+    """Flatten image groups: pairs become an interleaved (2B, ...) batch
+    (frame 2i the current frame of pair i, frame 2i + 1 its previous
+    one), with one target per pair and one meta per pair (its first
+    frame's)."""
+    images = np.stack([np.asarray(im) for group in batch for im in group[0]])
+    targets = [
+        np.stack([np.asarray(b[1][i]) for b in batch])
+        for i in range(len(batch[0][1]))
+    ]
+    metas = [b[2] for b in batch]
+    return images, targets, metas

@@ -1,14 +1,20 @@
 """Dataset registry and factory (counterpart of
-``openpifpaf_tpu/datasets/factory.py``). The port has the cocokp and
-cocokpst data modules; the JAX package's other plugins and multi-dataset
-training (``cocokp-cocodet`` names) are not ported yet (ROADMAP A11)."""
+``openpifpaf_tpu/datasets/factory.py``). The port has the cocokp, cocokpst,
+posetrack2018 and posetrack2017 data modules. Still missing: the keypoint
+plugins built on ``KpDataModule`` (wholebody, crowdpose, animalpose,
+apollocar3d) and plugin discovery (ROADMAP A16), cocodet, cifar10 and
+nuscenes (ROADMAP A9), and multi-dataset training, the ``cocokp-cocodet``
+names (ROADMAP A11)."""
 
 
 def datamodules():
     """name -> DataModule class."""
     from ..plugins.coco.cocokp import CocoKp
     from ..plugins.posetrack.cocokpst import CocoKpSt
-    return {'cocokp': CocoKp, 'cocokpst': CocoKpSt}
+    from ..plugins.posetrack.posetrack2017 import Posetrack2017
+    from ..plugins.posetrack.posetrack2018 import Posetrack2018
+    return {'cocokp': CocoKp, 'cocokpst': CocoKpSt,
+            'posetrack2018': Posetrack2018, 'posetrack2017': Posetrack2017}
 
 
 def factory(dataset_name: str):

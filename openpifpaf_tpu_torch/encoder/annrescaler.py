@@ -188,3 +188,56 @@ class AnnRescaler:
 
         scale = np.sqrt(area) * min(5.0, factor)
         return np.nan if scale < 0.1 else scale
+
+
+class TrackingAnnRescaler(AnnRescaler):
+    """AnnRescaler over (frame1, frame2) annotation pairs (reference
+    ``annrescaler.py:232-310``): keypoint sets concatenate both frames of
+    each track, and the crowd mask is the bounding rectangle of all
+    don't-care boxes from either frame."""
+
+    def bg_mask(self, anns, width_height, *, crowd_margin):
+        anns1, anns2 = anns
+        grid_h, grid_w = _grid_shape(width_height, self.stride)
+        mask = np.ones((grid_h, grid_w), dtype=np.bool_)
+
+        rects = [
+            rect for ann in anns1 + anns2 if _needs_masking(ann)
+            for rect in [_box_cells(ann.get('bbox'), self.stride,
+                                    crowd_margin, grid_h, grid_w)]
+            if rect is not None
+        ]
+        if rects:
+            rects = np.asarray(rects)
+            left, top = rects[:, 0].min(), rects[:, 1].min()
+            right, bottom = rects[:, 2].max(), rects[:, 3].max()
+            if top < bottom and left < right:
+                mask[top:bottom, left:right] = False
+        return mask
+
+    def keypoint_sets(self, anns):
+        anns1, anns2 = anns
+        by_track = {ann['track_id']: ann for ann in anns1
+                    if 'track_id' in ann}
+        sets_bbox = []
+        for ann2 in anns2:
+            if ann2['iscrowd'] or ann2.get('track_id') not in by_track:
+                continue
+            ann1 = by_track[ann2['track_id']]
+            joined = np.concatenate((ann1['keypoints'], ann2['keypoints']),
+                                    axis=0)
+            sets_bbox.append((joined, ann2['bbox']))
+        if not sets_bbox:
+            return []
+
+        # note: selfhidden suppression does not apply across frames
+        # (reference annrescaler.py:289-300 skips it for pairs)
+        if self.suppress_collision:
+            _zero_collisions(sets_bbox)
+        keypoint_sets = [kps for kps, _ in sets_bbox]
+        if self.suppress_invisible:
+            for kps in keypoint_sets:
+                kps[kps[:, 2] < 2.0, 2] = 0.0
+        for kps in keypoint_sets:
+            kps[:, :2] /= self.stride
+        return keypoint_sets

@@ -1,1 +1,2 @@
-"""Dataset plugins of the port (constants and head metas only)."""
+"""Dataset plugins of the port: coco (cocokp) and posetrack (cocokpst,
+posetrack2018, posetrack2017), registered in ``datasets.factory``."""

@@ -399,9 +399,14 @@ class MultiHeadLossAutoTuneVariance(MultiHeadLossBase):
         return total, flat, new_state
 
 
+#: the loss of each head meta; the lookup is by exact type, as in JAX
+#: (CifDet waits for ROADMAP A9)
 LOSSES = {
     headmeta.Cif: CompositeLoss,
     headmeta.Caf: CompositeLoss,
+    headmeta.TSingleImageCif: CompositeLoss,
+    headmeta.TSingleImageCaf: CompositeLoss,
+    headmeta.Tcaf: CompositeLoss,
 }
 
 

@@ -12,6 +12,7 @@ same samples in both packages.
 """
 
 from .preprocess import Preprocess
+from . import pair
 from .compose import Compose
 from .annotations import NormalizeAnnotations, AnnotationJitter
 from .scale import RescaleAbsolute, RescaleRelative, ScaleMix

@@ -6,7 +6,8 @@ against the JAX poses of the golden file and against the CPU, a train
 step against the CPU, BatchNorm's running-statistics rule and the bf16
 step, the other backbones (resnet50, a group-norm k16) against the CPU,
 the engine choice on a group-norm k20, the eval CLI, and tracking (the
-k16 tracking forward against the CPU, the tracking golden sequence).
+k16 tracking forward against the CPU, the tracking golden sequence, a
+cocokpst train step).
 
 Every test here needs a GPU (marker ``gpu``) and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a machine that
@@ -764,3 +765,38 @@ def test_cuda_tracking_golden_sequence(cuda):
     for t, anns in enumerate(decoded):
         assert_tracking_frame(anns, golden[f'frame{t}_poses'],
                               golden[f'frame{t}_ids'], label=f'frame {t}')
+
+
+def test_cuda_cocokpst_train_step(cuda, tmp_path):
+    """One cocokpst train step of a narrow tracking shell on the card: an
+    interleaved batch of 2 pairs (4 frames at 97 px) from the port's
+    cocokpst pipeline, a finite loss for every component of the cif,
+    caf and tcaf heads, and the parameters updated."""
+    from openpifpaf_tpu_torch.datasets import factory as datasets_factory
+    from openpifpaf_tpu_torch.models.tracking import TrackingShell
+    from openpifpaf_tpu_torch.plugins.coco.cocokp import CocoKp
+
+    ann_file, image_dir = write_synthetic_coco(str(tmp_path), n_images=4,
+                                               image_hw=(97, 129), seed=0)
+    saved = (CocoKp.train_annotations, CocoKp.train_image_dir,
+             CocoKp.square_edge)
+    CocoKp.train_annotations, CocoKp.train_image_dir = ann_file, image_dir
+    CocoKp.square_edge = 97
+    try:
+        datamodule = datasets_factory('cocokpst')
+        assign_strides(datamodule.head_metas, 16)
+        datamodule.batch_size = 4
+        np.random.seed(0)
+        images, targets, metas = next(iter(datamodule.train_loader()))
+    finally:
+        (CocoKp.train_annotations, CocoKp.train_image_dir,
+         CocoKp.square_edge) = saved
+    assert images.shape == (4, 97, 97, 3) and len(metas) == 2
+    trainer = _trainer(datamodule.head_metas, cuda)
+    assert isinstance(trainer.model, TrackingShell)
+    before = [p.detach().clone() for p in trainer.model.parameters()]
+    loss, heads = _step(trainer, (images, targets, None))
+    assert np.isfinite(loss)
+    assert len(heads) == 9 and np.all(np.isfinite(heads))
+    assert any(not torch.equal(b, p.detach())
+               for b, p in zip(before, trainer.model.parameters()))

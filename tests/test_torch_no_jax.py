@@ -83,7 +83,19 @@ def test_every_port_module_imports_without_jax():
                  'decoder.pose_distance', 'decoder.pose_distance.base',
                  'decoder.pose_distance.crafted',
                  'decoder.pose_distance.euclidean',
-                 'decoder.pose_distance.oks'):
+                 'decoder.pose_distance.oks', 'encoder.tcaf',
+                 'encoder.single_image', 'encoder.annrescaler',
+                 'transforms.pair', 'transforms.pair.single_image',
+                 'transforms.pair.image_to_tracking',
+                 'transforms.pair.camera_shift', 'transforms.pair.crop',
+                 'transforms.pair.pad', 'transforms.pair.encoders',
+                 'transforms.pair.blank_past',
+                 'transforms.pair.sample_pairing', 'datasets.collate',
+                 'datasets.loader_with_reset', 'plugins.posetrack.datasets',
+                 'plugins.posetrack.normalize',
+                 'plugins.posetrack.posetrack2018',
+                 'plugins.posetrack.posetrack2017',
+                 'plugins.posetrack.metric', 'plugins.posetrack.benchmark'):
         assert f'openpifpaf_tpu_torch.{name}' in report['modules']
     assert report['loaded'] == []
 

@@ -23,9 +23,7 @@ import torch
 
 import openpifpaf_tpu
 from openpifpaf_tpu import decoder as jax_decoder
-from openpifpaf_tpu.models import basenetworks as jax_base
 from openpifpaf_tpu.models import factory as jax_factory
-from openpifpaf_tpu.models import tracking as jax_tracking
 from openpifpaf_tpu.ops import caf_scored as jax_caf_scored
 from openpifpaf_tpu.ops import cifhr as jax_cifhr
 from openpifpaf_tpu.plugins.coco.cocokp import CocoKp as JaxCocoKp
@@ -40,9 +38,10 @@ from openpifpaf_tpu_torch.plugins.coco.cocokp import CocoKp
 from openpifpaf_tpu_torch.predictor import Predictor
 from openpifpaf_tpu_torch.training import checkpoint
 
-from torch_port_helpers import NARROW, jax_f32, jax_tracking_decoder, \
-    jax_tracking_metas, one_torch_thread, port_tracking_decoder, \
-    port_tracking_metas, randomize_variables, restored_statics
+from torch_port_helpers import NARROW, jax_f32, \
+    jax_narrow_tracking_shell, jax_tracking_decoder, jax_tracking_metas, \
+    one_torch_thread, port_tracking_decoder, port_tracking_metas, \
+    randomize_variables, restored_statics
 
 STRIDE = 16
 
@@ -139,11 +138,24 @@ def test_cocokpst_metas_match_jax(with_dense):
             assert len(o.keypoints) == 34
 
 
-def test_cocokpst_training_is_not_ported():
-    datamodule = datasets.factory('cocokpst')
-    for loader in (datamodule.train_loader, datamodule.val_loader):
-        with pytest.raises(NotImplementedError, match='ROADMAP A10'):
-            loader()
+def test_cocokpst_training_is_not_ported(tmp_path):
+    """Tracking training is ported now: cocokpst's train and val loaders
+    no longer raise; they load pairs (half the batch size) through the
+    tracking collate (``tests/test_torch_tracking_train.py`` holds their
+    batches against JAX's)."""
+    from openpifpaf_tpu_torch.datasets import collate
+    from torch_port_helpers import write_synthetic_coco
+    ann_file, image_dir = write_synthetic_coco(str(tmp_path), n_images=2)
+    with restored_statics(CocoKp):
+        CocoKp.train_annotations = CocoKp.val_annotations = ann_file
+        CocoKp.train_image_dir = CocoKp.val_image_dir = image_dir
+        datamodule = datasets.factory('cocokpst')
+        datamodule.batch_size = 8
+        for make_loader in (datamodule.train_loader, datamodule.val_loader):
+            loader = make_loader()
+            assert loader.batch_size == 4
+            assert loader.collate_fn is \
+                collate.collate_tracking_images_targets_meta
 
 
 def test_checkpoint_metas_round_trip():
@@ -158,12 +170,7 @@ def test_checkpoint_metas_round_trip():
 # -- the tracking shell ------------------------------------------------------
 
 def _jax_narrow_tracking_shell():
-    metas = jax_tracking_metas(STRIDE)
-    base = jax_base.ShuffleNetV2K(stages_repeats=NARROW[0],
-                                  stages_out_channels=NARROW[1])
-    heads = tuple(jax_tracking.Tcaf(meta=m) if type(m).__name__ == 'Tcaf'
-                  else jax_tracking.TBaseSingleImage(meta=m) for m in metas)
-    return jax_tracking.TrackingShell(base_net=base, head_nets=heads)
+    return jax_narrow_tracking_shell(jax_tracking_metas(STRIDE))
 
 
 @pytest.fixture(scope='module')

@@ -18,7 +18,6 @@ reported; ``test_torch_tracking_decode.py`` holds the tracked ids.)
 import json
 import sys
 
-import jax
 import numpy as np
 import PIL.Image
 import pytest
@@ -27,9 +26,7 @@ import torch
 import openpifpaf_tpu
 from openpifpaf_tpu import decoder as jax_decoder
 from openpifpaf_tpu import video as jax_video
-from openpifpaf_tpu.models import factory as jax_factory
 from openpifpaf_tpu.signal_ import Signal as JaxSignal
-from openpifpaf_tpu.training import checkpoint as jax_checkpoint
 from openpifpaf_tpu_torch import decoder as port_decoder
 from openpifpaf_tpu_torch import video
 from openpifpaf_tpu_torch.models.tracking import TrackingShell
@@ -37,8 +34,8 @@ from openpifpaf_tpu_torch.predictor import Predictor
 from openpifpaf_tpu_torch.signal_ import Signal
 
 from torch_port_helpers import assert_pose_gate, jax_f32, \
-    jax_tracking_metas, one_torch_thread, orbax_to_port_checkpoint, \
-    pose_rows, randomize_variables, reset_track_ids, restored_statics
+    jax_tracking_checkpoints, jax_tracking_metas, one_torch_thread, \
+    pose_rows, reset_track_ids, restored_statics
 
 #: decoder flags that keep poses in the decode of random-weight fields
 #: added to the heads' confidence biases: a few tens of poses per frame
@@ -55,23 +52,8 @@ def _one_torch_thread():
 @pytest.fixture(scope='module')
 def checkpoints(tmp_path_factory):
     """(JAX checkpoint, the port's conversion of it)."""
-    directory = tmp_path_factory.mktemp('tracking')
-    metas = jax_tracking_metas(16)
-    model, init = jax_factory.Factory(base_name='resnet18').from_scratch(
-        metas)
-    variables = randomize_variables(jax.tree_util.tree_map(
-        np.asarray, init(jax.random.PRNGKey(0), (2, 97, 129, 3))), seed=8)
-    params = variables['params']
-    for i, meta in enumerate(metas):  # confidence channels: BIAS
-        conv = params[f'head_nets_{i}']['CompositeField4_0']['Conv_0']
-        bias = conv['bias'].reshape(meta.n_fields, meta.n_components).copy()
-        bias[:, 1] += BIAS
-        conv['bias'] = bias.reshape(-1)
-    src = str(directory / 'jax')
-    jax_checkpoint.save_shell(src, base_name='resnet18', head_metas=metas,
-                              params=params,
-                              batch_stats=variables['batch_stats'])
-    return src, orbax_to_port_checkpoint(src, str(directory / 'port'))
+    return jax_tracking_checkpoints(str(tmp_path_factory.mktemp('tracking')),
+                                    jax_tracking_metas(16), bias=BIAS)
 
 
 def _configured(decoder, factory, flags, build):

@@ -590,6 +590,20 @@ def jax_narrow_shell(metas, *, dropout_p=0.0):
         CompositeField4(meta=m, dropout_p=dropout_p) for m in metas))
 
 
+def jax_narrow_tracking_shell(metas):
+    """The JAX package's TrackingShell of a :data:`NARROW` ShuffleNetV2K
+    with a TBaseSingleImage per single-image meta and a Tcaf head."""
+    from openpifpaf_tpu import headmeta
+    from openpifpaf_tpu.models import basenetworks, tracking
+    from openpifpaf_tpu.models.shell import assign_strides
+    base = basenetworks.ShuffleNetV2K(stages_repeats=NARROW[0],
+                                      stages_out_channels=NARROW[1])
+    assign_strides(metas, base.stride)
+    return tracking.TrackingShell(base_net=base, head_nets=tuple(
+        tracking.Tcaf(meta=m) if isinstance(m, headmeta.Tcaf)
+        else tracking.TBaseSingleImage(meta=m) for m in metas))
+
+
 def port_narrow_shell(metas):
     from openpifpaf_tpu_torch.models import basenetworks
     from openpifpaf_tpu_torch.models.factory import Factory
@@ -676,6 +690,92 @@ def write_synthetic_coco(directory, *, n_images=16, image_hw=(113, 129),
     return ann_file, image_dir
 
 
+def write_synthetic_posetrack2018(directory, *, n_sequences=2, n_frames=4,
+                                  image_hw=(720, 1280), n_people=3, seed=0):
+    """A PoseTrack 2018 set made from ``np.random.RandomState(seed)``, in
+    the layout that ``plugins/posetrack/datasets.py`` reads: per sequence
+    one JSON (``images`` with ``frame_id``, ``file_name`` and the ignore
+    regions, ``annotations`` with ``image_id``, ``track_id``, ``bbox``,
+    ``bbox_head`` and 17 keypoints) written to ``annotations/train`` and
+    ``annotations/val``, and its frames as JPEGs of ``image_hw`` under
+    ``images/val/<sequence>/``. Each sequence has ``n_people`` upright
+    people with track ids 0.. who move a few pixels per frame (their
+    annotated joints painted as 7x7 squares of a colour per joint on dark
+    noise) and one rectangular ignore region. As in PoseTrack, annotated
+    joints have v=1 and the ears are never annotated. Returns (train
+    annotation glob, val annotation glob, data root)."""
+    import json
+    import PIL.Image
+    from openpifpaf_tpu_torch.plugins.posetrack.constants import \
+        UPRIGHT_POSE
+
+    rng = np.random.RandomState(seed)
+    h, w = image_hw
+    colors = rng.randint(96, 256, (len(UPRIGHT_POSE), 3))
+    pose = UPRIGHT_POSE[:, :2]
+    for split in ('train', 'val'):
+        os.makedirs(os.path.join(directory, 'annotations', split),
+                    exist_ok=True)
+    for s in range(n_sequences):
+        name = f'{s + 1:06d}_mpii_test'
+        image_dir = os.path.join('images', 'val', name)
+        os.makedirs(os.path.join(directory, image_dir), exist_ok=True)
+        people = [(rng.uniform(0.15, 0.85) * w, rng.uniform(0.6, 0.95) * h,
+                   rng.uniform(0.35, 0.7) * h / np.ptp(pose[:, 1]),
+                   rng.uniform(-6.0, 6.0, 2)) for _ in range(n_people)]
+        x0, y0 = rng.uniform(0.0, 0.8) * w, rng.uniform(0.0, 0.8) * h
+        region_x = [x0, x0 + 0.1 * w, x0 + 0.1 * w, x0]
+        region_y = [y0, y0, y0 + 0.1 * h, y0 + 0.1 * h]
+        images, annotations = [], []
+        for t in range(n_frames):
+            frame_id = 10000 * (s + 1) + t
+            image = rng.randint(0, 64, (h, w, 3)).astype(np.uint8)
+            for track_id, (cx, cy, scale, velocity) in enumerate(people):
+                x = cx + velocity[0] * t + scale * pose[:, 0]
+                y = cy + velocity[1] * t - scale * (pose[:, 1]
+                                                    - pose[:, 1].min())
+                v = np.ones(len(pose))
+                v[3:5] = 0.0
+                v[(x < 0) | (x > w - 1) | (y < 0) | (y > h - 1)] = 0.0
+                keypoints = np.stack([np.where(v > 0, x, 0.0),
+                                      np.where(v > 0, y, 0.0), v], axis=1)
+                for (kx, ky, kv), color in zip(keypoints, colors):
+                    if kv > 0:
+                        image[max(0, int(ky) - 3):int(ky) + 4,
+                              max(0, int(kx) - 3):int(kx) + 4] = color
+                vx, vy = x[v > 0], y[v > 0]
+                bbox = [float(vx.min()) - 6.0, float(vy.min()) - 6.0,
+                        float(np.ptp(vx)) + 12.0, float(np.ptp(vy)) + 12.0]
+                head = [float(x[2]) - 10.0, float(y[2]) - 4.0, 20.0,
+                        float(y[1] - y[2]) + 8.0]
+                annotations.append({
+                    'id': len(annotations) + 1, 'image_id': frame_id,
+                    'track_id': track_id, 'category_id': 1,
+                    'keypoints': [round(float(c), 2)
+                                  for c in keypoints.reshape(-1)],
+                    'bbox': [round(c, 2) for c in bbox],
+                    'bbox_head': [round(c, 2) for c in head],
+                })
+            file_name = os.path.join(image_dir, f'{t:06d}.jpg')
+            PIL.Image.fromarray(image).save(
+                os.path.join(directory, file_name), quality=95)
+            images.append({
+                'id': frame_id, 'frame_id': frame_id, 'vid_id': name,
+                'file_name': file_name, 'nframes': n_frames,
+                'is_labeled': True,
+                'ignore_regions_x': [[round(c, 2) for c in region_x]],
+                'ignore_regions_y': [[round(c, 2) for c in region_y]],
+            })
+        for split in ('train', 'val'):
+            with open(os.path.join(directory, 'annotations', split,
+                                   f'{name}.json'), 'w') as f:
+                json.dump({'images': images, 'annotations': annotations,
+                           'categories': [{'id': 1, 'name': 'person'}]}, f)
+    return (os.path.join(directory, 'annotations', 'train', '*.json'),
+            os.path.join(directory, 'annotations', 'val', '*.json'),
+            directory)
+
+
 #: the committed orbax checkpoint of the JAX package: a resnet18 without
 #: its last block, overfit on one image (``tests/test_fixture_checkpoint.py``)
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -698,6 +798,57 @@ def orbax_to_port_checkpoint(src, dst):
         {'params': arrays['params'], 'batch_stats': arrays['batch_stats']})
     port_checkpoint.save(dst, state_dict=state_dict, meta=meta)
     return dst
+
+
+def numpy_variables(shapes, seed):
+    """Flax variables of the ``jax.eval_shape`` tree ``shapes`` drawn with
+    numpy (no flax init to compile): kernels ~ N(0, 1 / fan-in), the rest
+    as :func:`randomize_variables` draws them."""
+    import jax
+    rng = np.random.RandomState(seed)
+
+    def leaf(path, a):
+        name = path[-1].key
+        if name == 'kernel':
+            fan_in = int(np.prod(a.shape[:-1]))
+            return (rng.randn(*a.shape) / np.sqrt(fan_in)).astype(np.float32)
+        if name in ('scale', 'var'):
+            return rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
+        return (0.1 * rng.randn(*a.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def jax_tracking_checkpoints(directory, metas, *, bias=-3.0):
+    """A resnet18 tracking model of the JAX package with ``metas`` (head
+    index and stride set), random weights (:func:`numpy_variables` seed
+    8) and ``bias`` (one value, or one per head) added to the heads'
+    confidence biases (so that the decode of its fields keeps poses),
+    saved as a JAX checkpoint and converted with
+    :func:`orbax_to_port_checkpoint`. Returns (the JAX checkpoint, the
+    port's)."""
+    import jax
+    from openpifpaf_tpu.models import factory as jax_factory
+    from openpifpaf_tpu.training import checkpoint as jax_checkpoint
+
+    model, _ = jax_factory.Factory(base_name='resnet18').from_scratch(metas)
+    variables = numpy_variables(jax.eval_shape(
+        lambda: model.init(jax.random.PRNGKey(0),
+                           jax.numpy.zeros((2, 97, 129, 3)), train=True)),
+        seed=8)
+    params = variables['params']
+    biases = np.broadcast_to(bias, (len(metas),))
+    for i, meta in enumerate(metas):
+        conv = params[f'head_nets_{i}']['CompositeField4_0']['Conv_0']
+        b = conv['bias'].reshape(meta.n_fields, meta.n_components).copy()
+        b[:, 1] += biases[i]
+        conv['bias'] = b.reshape(-1)
+    src = os.path.join(directory, 'jax')
+    jax_checkpoint.save_shell(src, base_name='resnet18', head_metas=metas,
+                              params=params,
+                              batch_stats=variables['batch_stats'])
+    return src, orbax_to_port_checkpoint(src, os.path.join(directory,
+                                                           'port'))
 
 
 #: the tracking golden file: a synthetic video with the JAX package's
@@ -746,17 +897,32 @@ def tracking_keypoints(n_frames=TRACKING_FRAMES, *, scale=1.0, seed=21):
     return frames
 
 
-def _pair_metas(stride):
+def _single_frame_metas(stride, dataset):
+    """JAX (Cif, Caf) metas of ``dataset``'s single-image heads at
+    ``stride``: the test metas of COCO-17 for cocokpst, the data module's
+    for posetrack2018."""
+    import field_fixtures  # imports the JAX package
+    if dataset == 'cocokpst':
+        return field_fixtures.make_metas(stride)
+    import openpifpaf_tpu
+    cif, caf = openpifpaf_tpu.datasets.factory(dataset).head_metas[:2]
+    for i, meta in enumerate((cif, caf)):
+        meta.head_index = i
+        meta.base_stride = stride
+    return cif, caf
+
+
+def _pair_metas(stride, single_frame_metas):
     """JAX Cif and Caf metas over the two frames' 34 keypoints, the Caf
     with the Tcaf head's cross-frame skeleton: painting a pair of poses
     with them gives the TCAF field (joint 1 in the current frame, joint 2
     in the previous one)."""
     from openpifpaf_tpu import headmeta
-    from openpifpaf_tpu.plugins.coco import constants
-    keypoints = list(constants.COCO_KEYPOINTS) * 2
-    sigmas = list(constants.COCO_PERSON_SIGMAS) * 2
-    pose = np.concatenate([constants.COCO_UPRIGHT_POSE] * 2)
-    n_kp = len(constants.COCO_KEYPOINTS)
+    cif = single_frame_metas[0]
+    keypoints = list(cif.keypoints) * 2
+    sigmas = list(cif.sigmas) * 2
+    pose = np.concatenate([cif.pose] * 2)
+    n_kp = len(cif.keypoints)
     cif = headmeta.Cif('cif2', 'test', keypoints=keypoints, sigmas=sigmas,
                        pose=pose)
     tcaf = headmeta.Caf('tcaf', 'test', keypoints=keypoints, sigmas=sigmas,
@@ -769,35 +935,37 @@ def _pair_metas(stride):
 
 
 def tracking_scene(hw=GOLDEN_HW, stride=GOLDEN_STRIDE, *, scale=1.0,
-                   n_frames=TRACKING_FRAMES, seed=21):
+                   n_frames=TRACKING_FRAMES, seed=21, dataset='cocokpst'):
     """Per frame, the decoded (cif, caf, tcaf) fields of
-    :func:`tracking_keypoints`, jittered to be tie-free. The TCAF field
-    pairs each person with itself in the previous frame (in the first
-    frame with itself, as the Predictor pairs the first frame with
-    itself)."""
+    :func:`tracking_keypoints`, jittered to be tie-free, for the heads of
+    ``dataset`` (cocokpst or posetrack2018). The TCAF field pairs each
+    person with itself in the previous frame (in the first frame with
+    itself, as the Predictor pairs the first frame with itself)."""
     import field_fixtures  # imports the JAX package
 
+    metas = _single_frame_metas(stride, dataset)
     frames = tracking_keypoints(n_frames, scale=scale, seed=seed)
     out = []
     for t, frame in enumerate(frames):
         anns = [field_fixtures.annotation_dict(k) for k in frame.values()]
         cif, caf, _ = field_fixtures.fields_from_annotations(
-            anns, hw, stride=stride)
+            anns, hw, stride=stride, metas=metas)
         prev = frames[max(t - 1, 0)]
         pairs = [field_fixtures.annotation_dict(np.concatenate([k, prev[i]]))
                  for i, k in frame.items() if i in prev]
         _, tcaf, _ = field_fixtures.fields_from_annotations(
-            pairs, hw, stride=stride, metas=_pair_metas(stride))
+            pairs, hw, stride=stride, metas=_pair_metas(stride, metas))
         cif, caf = jitter(cif, caf, seed + 10 * t)
         _, tcaf = jitter(cif[:1], tcaf, seed + 10 * t + 500)
         out.append((cif, caf, tcaf))
     return out
 
 
-def small_tracking_scene():
+def small_tracking_scene(dataset='cocokpst'):
     """:func:`tracking_scene` at half size (257x321, stride 16) for the
     CPU tests."""
-    return tracking_scene((257, 321), GOLDEN_STRIDE, scale=0.5)
+    return tracking_scene((257, 321), GOLDEN_STRIDE, scale=0.5,
+                          dataset=dataset)
 
 
 def _default_field(shape):
