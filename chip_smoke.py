@@ -12,8 +12,9 @@ Phases, each of which raises on failure (non-zero exit):
    script, one nvcc per source, all started together;
 3. CifHr kernel vs plain: ``cifhr_cuda.accumulate`` against its plain
    PyTorch version, bit for bit, on seeded random cells at the decode's
-   shapes (F, K) = (17, 256), (17, 1024), (133, 256) and on the golden
-   file's sparse and crowd cells at both tiers' budgets: each call's launch
+   shapes (F, K) = (17, 256), (17, 1024), (133, 256), (133, 1024) and on
+   the golden file's sparse and crowd cells at both tiers' budgets: each
+   call's launch
    plan, one device op per call (``torch.profiler``), the call time (CUDA
    events), the device time alone, with a cold L2 (96 MB written between
    calls) and the card's write floor (``zero_`` of the map);
@@ -131,6 +132,35 @@ Phases, each of which raises on failure (non-zero exit):
     TrackingPose per frame (counted in the kernels line), NN and decode ms
     per frame, ``eval_reset`` once at the sequence boundary, one
     prediction JSON per sequence.
+15. the keypoint plugins (``KpDataModule``, plugin discovery): (a) the
+    port's CifCaf at 133 keypoints on the two contested wholebody scenes
+    of ``tests/golden/torch_wholebody_golden.npz`` (written with the JAX
+    package): the JAX poses within the decode gate, one CifHr launch per
+    tier, warm decode ms, device ops, syncs and busy time per scene; (b)
+    on a synthetic COCO-WholeBody set in pifpaf style (80 JPEGs of
+    427x569, 133 keypoints posed from ``WHOLEBODY_STANDING_POSE``,
+    ``torch_port_helpers.write_synthetic_wholebody``, seed 0) one step of
+    the full-width shufflenetv2k16 with the wholebody heads on a batch of
+    2 on the card against the CPU's float64 step, as in 11a, then
+    ``train.main --dataset wholebody`` for 8 steps at the JAX defaults
+    (batch 8, 385 px, augmentation, SGD, float32), as in 11b; (c)
+    ``predict.main --checkpoint`` of that checkpoint over 481x641 JPEGs
+    (three single-image requests, one batch of two): 133x5 CIF and 160x8
+    CAF fields at 33x41, one CifHr launch per image per tier, NN and
+    decode ms per image, a profiled request's device ops, syncs and busy
+    share; (d) ``eval_cli.main --dataset wholebody`` with it over 4
+    synthetic images at long edge 641: ten finite ``WholeBodyMetric``
+    stats, nn and decoder ms per image, and the ground truth as
+    predictions gives AR 1.0 for each part and AP 1.0 for each part that
+    every person shows; (e) crowdpose, animal, apollo (24) and apollo
+    (66) each served by a random full-width k16 with its heads (one
+    request, field shapes, CifHr launches), then the tracking benchmark
+    wrapper's ``--crowdpose`` over a synthetic CrowdPose set of 4 images
+    whose ``crowdIndex`` values cover the three buckets: each bucket's
+    eval sees the ids of the JAX package's buckets. In (a) and (c)-(e)
+    the kernel on the cells of every CifHr call (F=133 in (a)-(d)) equals
+    its plain version bit for bit. The CifHr launches of (c)-(e) are
+    counted in the kernels line.
 
 The second-to-last line is a JSON object describing the kernels (with each
 one's bound: the larger of its bytes over the card's memory rate and its
@@ -156,8 +186,9 @@ import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, 'tests', 'golden', 'torch_decode_golden.npz')
-#: (n_fields, n_cells): COCO-17 at the fast and crowd tiers, wholebody-133
-KERNEL_SHAPES = ((17, 256), (17, 1024), (133, 256))
+#: (n_fields, n_cells): COCO-17 and wholebody-133 at the fast and crowd
+#: tiers
+KERNEL_SHAPES = ((17, 256), (17, 1024), (133, 256), (133, 1024))
 HR_SHAPE = (513, 641)
 IMAGE_HW = (481, 641)
 #: fields at stride 16 of IMAGE_HW after the Predictor's bucket pad to 513x641
@@ -732,8 +763,9 @@ def make_requests():
     return requests
 
 
-def serve(predictor, requests, card, label):
-    """Answer ``requests``, check every field's shape and values and print
+def serve(predictor, requests, card, label, heads=((17, 5), (19, 8))):
+    """Answer ``requests``, check every field's shape (``heads``: fields
+    and components of each head, cocokp's by default) and values and print
     each request's times; returns the number of forwards."""
     seen = []
     fields_batch = predictor.fields_batch
@@ -762,7 +794,7 @@ def serve(predictor, requests, card, label):
         del predictor.fields_batch
 
     for (b, *_), shapes in zip(timings, seen):
-        want = [((b, 17, 5) + FIELD_HW, True), ((b, 19, 8) + FIELD_HW, True)]
+        want = [((b,) + head + FIELD_HW, True) for head in heads]
         if shapes != want:
             raise AssertionError(f'{label}: fields {shapes}, want {want}')
     for i, (b, e2e, nn_s, dec_s, escalated, n_anns) in enumerate(timings):
@@ -1036,14 +1068,16 @@ OVERFIT_MAX_FIRST = 0.7
 OVERFIT_MAX_SECOND = 0.9
 
 
-def train_flags(data, out, *extra):
+def train_flags(data, out, *extra, prefix='cocokp'):
+    """``train.main``'s flags for a run on ``data`` at the JAX defaults;
+    ``prefix`` names the data module's flags."""
     ann_file, image_dir = data
     return ['--dataset', 'cocokp', '--basenet', 'shufflenetv2k16',
-            '--cocokp-train-annotations', ann_file,
-            '--cocokp-val-annotations', ann_file,
-            '--cocokp-train-image-dir', image_dir,
-            '--cocokp-val-image-dir', image_dir,
-            '--cocokp-square-edge', str(TRAIN_EDGE),
+            f'--{prefix}-train-annotations', ann_file,
+            f'--{prefix}-val-annotations', ann_file,
+            f'--{prefix}-train-image-dir', image_dir,
+            f'--{prefix}-val-image-dir', image_dir,
+            f'--{prefix}-square-edge', str(TRAIN_EDGE),
             '--batch-size', str(TRAIN_BATCH), '--epochs', '1',
             '--train-batches', str(TRAIN_STEPS), '--val-batches', '2',
             '--log-interval', '1', '--seed', str(TRAIN_SEED),
@@ -1463,18 +1497,30 @@ def _port_run(module, *args):
     return done
 
 
+def save_checkpoint(path, model, base_name):
+    """``model`` as a checkpoint of the port's trainer at ``path``."""
+    from openpifpaf_tpu_torch import __version__
+    from openpifpaf_tpu_torch.models import factory as models_factory
+    from openpifpaf_tpu_torch.training import checkpoint
+
+    checkpoint.save(path, state_dict=model.state_dict(), meta={
+        'base_name': base_name, 'epoch': 0, 'version': __version__,
+        'backbone_options': {
+            'shufflenetv2k': dict(models_factory.SHUFFLENETV2K_OPTIONS),
+            'resnet': dict(models_factory.RESNET_OPTIONS)},
+        'head_metas': [checkpoint.headmeta_to_dict(m)
+                       for m in model.head_metas]})
+
+
 def phase_eval(model, card):
     """(c) ``python -m openpifpaf_tpu_torch.eval`` on the card over a
     synthetic COCO set with the resnet50 saved as a checkpoint of the port;
     the ground truth as predictions through ``metric.Coco`` (AP 1.0); one
     ``benchmark.py`` entry over the same checkpoint."""
     import tempfile
-    from openpifpaf_tpu_torch import __version__
     from openpifpaf_tpu_torch.annotation import Annotation
-    from openpifpaf_tpu_torch.models import factory as models_factory
     from openpifpaf_tpu_torch.plugins.coco import constants
     from openpifpaf_tpu_torch.plugins.coco.cocokp import CocoKp
-    from openpifpaf_tpu_torch.training import checkpoint
     from torch_port_helpers import restored_statics, write_synthetic_coco
 
     with tempfile.TemporaryDirectory() as directory:
@@ -1482,13 +1528,7 @@ def phase_eval(model, card):
             os.path.join(directory, 'coco'), n_images=EVAL_IMAGES,
             image_hw=TRAIN_IMAGE_HW, seed=0)
         ckpt = os.path.join(directory, 'resnet50')
-        checkpoint.save(ckpt, state_dict=model.state_dict(), meta={
-            'base_name': 'resnet50', 'epoch': 0, 'version': __version__,
-            'backbone_options': {
-                'shufflenetv2k': dict(models_factory.SHUFFLENETV2K_OPTIONS),
-                'resnet': dict(models_factory.RESNET_OPTIONS)},
-            'head_metas': [checkpoint.headmeta_to_dict(m)
-                           for m in model.head_metas]})
+        save_checkpoint(ckpt, model, 'resnet50')
         with restored_statics(CocoKp):
             CocoKp.eval_annotations = ann_file
             CocoKp.eval_image_dir = image_dir
@@ -1812,6 +1852,43 @@ def phase_tracking(port, device, card):
     return phase_video(port, device, card)
 
 
+@contextlib.contextmanager
+def kept_cifhr_calls(cifhr_cuda):
+    """Within: the cells and keywords of each ``cifhr_cuda.accumulate``
+    call are kept (cloned) in the list this yields."""
+    accumulate = cifhr_cuda.accumulate
+    calls = []
+
+    def kept(x, y, sigma, w, **kw):
+        calls.append(((x.clone(), y.clone(), sigma.clone(), w.clone()), kw))
+        return accumulate(x, y, sigma, w, **kw)
+
+    cifhr_cuda.accumulate = kept
+    try:
+        yield calls
+    finally:
+        cifhr_cuda.accumulate = accumulate
+
+
+def check_kept_calls(port, calls, label):
+    """The kernel on each kept call's cells against its plain version, bit
+    for bit (these launches come after the run's count is read)."""
+    shapes = set()
+    for i, (cells, kw) in enumerate(calls):
+        kernel = port.cifhr_cuda.accumulate(*cells, **kw)
+        plain = port.cifhr.accumulate_dense(*cells, **kw)
+        if not torch.equal(kernel, plain):
+            raise AssertionError(
+                f'{label} CifHr call {i} at {tuple(kernel.shape)}: kernel '
+                'vs plain not bit-equal, max abs err '
+                f'{float((kernel - plain).abs().max())}')
+        shapes.add((*kernel.shape, cells[0].shape[1]))
+    log(f'{label}: the kernel on the cells of all {len(calls)} CifHr calls '
+        'equals its plain version bit for bit at (F, hr_h, hr_w, K) '
+        f'{sorted(shapes)}')
+    return shapes
+
+
 #: phase 14: PoseTrack eval over POSETRACK_SEQUENCES synthetic sequences of
 #: POSETRACK_FRAMES frames at PoseTrack's usual 720x1280, at the default
 #: --posetrack-eval-long-edge (801)
@@ -1921,8 +1998,6 @@ def phase_posetrack_eval(port, ckpt, directory, card):
     fields_batch = Predictor.fields_batch
     batch_decode = decoder.Multi.batch_decode
     cifhr_cuda = port.cifhr_cuda
-    accumulate = cifhr_cuda.accumulate
-    calls = []
 
     def timed_fields(self, image_batch):
         start = torch.cuda.Event(enable_timing=True)
@@ -1948,10 +2023,6 @@ def phase_posetrack_eval(port, ckpt, directory, card):
             return out
         return per_decoder
 
-    def kept(x, y, sigma, w, **kw):
-        calls.append(((x.clone(), y.clone(), sigma.clone(), w.clone()), kw))
-        return accumulate(x, y, sigma, w, **kw)
-
     def counted_decode(self, fields):
         for dec in self.decoders:
             if 'batch_decode' not in vars(dec):
@@ -1963,7 +2034,6 @@ def phase_posetrack_eval(port, ckpt, directory, card):
     Signal.subscribe('eval_reset', lambda: resets.append(len(frames)))
     Predictor.fields_batch = timed_fields
     decoder.Multi.batch_decode = counted_decode
-    cifhr_cuda.accumulate = kept
     gc.collect()
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
@@ -1971,9 +2041,10 @@ def phase_posetrack_eval(port, ckpt, directory, card):
     reset_launches(port)
     t0 = time.perf_counter()
     try:
-        with restored_statics(*decoder.DECODERS, decoder.TrackBase, CocoKp,
-                              CocoKpSt, Posetrack2018, Posetrack2017,
-                              eval_cli.Evaluator):
+        with kept_cifhr_calls(cifhr_cuda) as calls, \
+                restored_statics(*decoder.DECODERS, decoder.TrackBase, CocoKp,
+                                 CocoKpSt, Posetrack2018, Posetrack2017,
+                                 eval_cli.Evaluator):
             eval_cli.main(['--dataset', 'posetrack2018', '--checkpoint', ckpt,
                            '--posetrack2018-eval-annotations', val_glob,
                            '--posetrack2018-data-root', root,
@@ -1982,7 +2053,6 @@ def phase_posetrack_eval(port, ckpt, directory, card):
     finally:
         Predictor.fields_batch = fields_batch
         decoder.Multi.batch_decode = batch_decode
-        cifhr_cuda.accumulate = accumulate
         Signal.subscribers['eval_reset'] = subscribers
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - before
@@ -2013,16 +2083,7 @@ def phase_posetrack_eval(port, ckpt, directory, card):
     if not launches == len(calls) == want:
         raise AssertionError(f'posetrack eval: {launches} CifHr launches, '
                              f'{len(calls)} calls, want {want}')
-    hr_shapes = set()
-    for i, (cells, kw) in enumerate(calls):
-        kernel = cifhr_cuda.accumulate(*cells, **kw)
-        plain = port.cifhr.accumulate_dense(*cells, **kw)
-        if not torch.equal(kernel, plain):
-            raise AssertionError(
-                f'posetrack eval CifHr call {i} at {tuple(kernel.shape)}: '
-                'kernel vs plain not bit-equal, max abs err '
-                f'{float((kernel - plain).abs().max())}')
-        hr_shapes.add((*kernel.shape, cells[0].shape[1]))
+    check_kept_calls(port, calls, 'posetrack eval (14c)')
     if len(files) != POSETRACK_SEQUENCES:
         raise AssertionError(f'posetrack eval: prediction files {files}')
     predictions = []
@@ -2051,9 +2112,6 @@ def phase_posetrack_eval(port, ckpt, directory, card):
         f' ms; {files} with {predictions} predictions (stats '
         f'{stats["stats"]}); peak memory {peak / 2 ** 30:.3f} GiB above '
         f'what the process held; whole command {wall:.1f} s [{card}]')
-    log(f'posetrack eval (14c): the kernel on the cells of all {len(calls)} '
-        'CifHr calls equals its plain version bit for bit at (F, hr_h, '
-        f'hr_w, K) {sorted(hr_shapes)}')
     return launches
 
 
@@ -2069,6 +2127,478 @@ def phase_tracking_training(port, device, card):
                                     image_hw=TRAIN_IMAGE_HW, seed=TRAIN_SEED)
         ckpt = phase_tracking_train(data, directory, device, card)
         return phase_posetrack_eval(port, ckpt, directory, card)
+
+
+#: phase 15: the keypoint plugins. Wholebody's served heads: 133 CIF fields
+#: of 5 components and 160 CAF edges of 8 (the decoded layout)
+WHOLEBODY_HEADS = ((133, 5), (160, 8))
+#: 15b: one wholebody step on the card against the CPU's float64 step at
+#: this batch (the run itself takes TRAIN_BATCH)
+WHOLEBODY_STEP_BATCH = 2
+#: 15d: the eval's synthetic wholebody images (TRAIN_IMAGE_HW, seed 1), at
+#: EVAL_LONG_EDGE
+WHOLEBODY_EVAL_IMAGES = 4
+#: 15e: the other plugins, each served by a random k16 with its heads:
+#: (label, data module, flags, CIF fields, CAF edges)
+PLUGIN_CASES = (('crowdpose', 'crowdpose', (), 14, 15),
+                ('animal', 'animal', (), 20, 20),
+                ('apollo 24', 'apollo', (), 24, 49),
+                ('apollo 66', 'apollo', ('--apollo-use-66-kps',), 66, 108))
+#: 15e: the tracking benchmark wrapper's --crowdpose over this many
+#: synthetic CrowdPose images, with the buckets of the JAX package's
+#: crowdpose module (min <= crowdIndex < max, the top bucket closed)
+CROWDPOSE_IMAGES = 4
+CROWDPOSE_BUCKETS = {'easy': (0.0, 0.1), 'medium': (0.1, 0.8),
+                     'hard': (0.8, 1.0)}
+
+
+def phase_wholebody_golden(port, device, card):
+    """15a: the port's CifCaf at 133 keypoints on the contested scenes of
+    ``tests/golden/torch_wholebody_golden.npz``: JAX's poses within the
+    gate, one CifHr launch per tier; the warm batch-1 decode time (median
+    of 3 after one) and one profiled decode's device ops, stream syncs and
+    busy time; the kernel on every call's cells against its plain
+    version."""
+    from openpifpaf_tpu_torch.decoder import CifCaf
+    from torch_port_helpers import WHOLEBODY_GOLDEN, WHOLEBODY_SEEDS, \
+        port_wholebody_metas
+
+    golden = np.load(WHOLEBODY_GOLDEN)
+    decoder = CifCaf(*port_wholebody_metas())
+    cifhr_cuda = port.cifhr_cuda
+    with kept_cifhr_calls(cifhr_cuda) as calls:
+        for seed in WHOLEBODY_SEEDS:
+            wholebody_golden_scene(decoder, golden, seed, cifhr_cuda,
+                                   device, card)
+    check_kept_calls(port, calls, 'wholebody golden (15a)')
+
+
+def wholebody_golden_scene(decoder, golden, seed, cifhr_cuda, device, card):
+    """One scene of :func:`phase_wholebody_golden`."""
+    from torch_port_helpers import assert_pose_gate, pose_rows
+
+    fields = [torch.from_numpy(golden[f'scene{seed}_{head}'][None])
+              .to(device) for head in ('cif', 'caf')]
+
+    def decode():
+        return decoder.batch_decode(fields)[0]
+
+    before = cifhr_cuda.LAUNCHES
+    anns = decode()
+    launches = cifhr_cuda.LAUNCHES - before
+    tiers = 1 + len(decoder.last_escalated)
+    if launches != tiers or any(a.data.shape != (133, 3) for a in anns):
+        raise AssertionError(f'wholebody golden scene {seed}: {launches} '
+                             f'CifHr launches for {tiers} tiers')
+    assert_pose_gate(pose_rows(anns), list(golden[f'scene{seed}_poses']))
+    seconds = []
+    for _ in range(4):
+        decode()
+        seconds.append(decoder.last_decoder_time)
+    ops, syncs, busy = decode_profile(decode)
+    ms = float(np.median(seconds[1:])) * 1e3
+    log(f'wholebody golden (15a) scene {seed}: {len(anns)} poses of 133 '
+        f'keypoints match the JAX decode, {launches} CifHr launches '
+        f'({tiers} tier{"s" if tiers > 1 else ""}); warm batch-1 decode '
+        f'{ms:.2f} ms (median of '
+        f'{[round(t * 1e3, 2) for t in seconds[1:]]}), {ops} device ops, '
+        f'{syncs} stream syncs, device busy {busy:.3f} ms per decode '
+        f'[{card}]')
+
+
+def wholebody_train_batch(data):
+    """One batch of WHOLEBODY_STEP_BATCH of the port's wholebody pipeline
+    (augmentation on, 385 px), its head metas and the full-width k16 with
+    the wholebody heads (random, seed 0)."""
+    from openpifpaf_tpu_torch.models.factory import Factory
+    from openpifpaf_tpu_torch.plugins.wholebody import Wholebody
+
+    ann_file, image_dir = data
+    datamodule = Wholebody(train_annotations=ann_file,
+                           train_image_dir=image_dir, square_edge=TRAIN_EDGE,
+                           batch_size=WHOLEBODY_STEP_BATCH)
+    model = Factory().from_scratch(
+        datamodule.head_metas,
+        generator=torch.Generator().manual_seed(TRAIN_SEED))
+    np.random.seed(TRAIN_SEED)
+    images, targets, _ = next(iter(datamodule.train_loader()))
+    field = (TRAIN_EDGE - 1) // 16 + 1
+    want = [(WHOLEBODY_STEP_BATCH, 133, 5, field, field),
+            (WHOLEBODY_STEP_BATCH, 160, 9, field, field)]
+    if [t.shape for t in targets] != want:
+        raise AssertionError(f'wholebody targets {[t.shape for t in targets]}'
+                             f', want {want}')
+    return images, targets, datamodule.head_metas, model
+
+
+def phase_wholebody_train(data, directory, device, card):
+    """15b: one wholebody step on the card against the CPU's float64 step
+    (:func:`phase_train_step`), then ``train.main --dataset wholebody
+    --basenet shufflenetv2k16`` at the JAX defaults (:func:`train_run`).
+    Returns the checkpoint."""
+    phase_train_step(wholebody_train_batch(data), device, card,
+                     label='wholebody train step (15b)')
+    out = os.path.join(directory, 'wholebody', 'model')
+    train_run(train_flags(data, out, '--dataset', 'wholebody',
+                          prefix='wholebody'),
+              out, 'wholebody train run (15b) float32', card)
+    return out
+
+
+@contextlib.contextmanager
+def recorded_runs(records):
+    """Within: each ``Predictor.fields_batch`` appends to ``records`` its
+    image shape, NN ms (CUDA events) and field shapes; each
+    ``CifCaf.batch_decode`` adds its CifHr launches, tiers and ms."""
+    from openpifpaf_tpu_torch.decoder import CifCaf
+    from openpifpaf_tpu_torch.ops import cifhr_cuda
+    from openpifpaf_tpu_torch.predictor import Predictor
+
+    fields_batch = Predictor.fields_batch
+    batch_decode = CifCaf.batch_decode
+
+    def timed_fields(self, image_batch):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fields = fields_batch(self, image_batch)
+        end.record()
+        torch.cuda.synchronize()
+        records.append({
+            'images': len(image_batch), 'nn_ms': start.elapsed_time(end),
+            'fields': [tuple(f.shape[1:3]) for f in fields],
+            'finite': all(bool(torch.isfinite(f).all()) for f in fields),
+            'hw': tuple(fields[0].shape[-2:])})
+        return fields
+
+    def counted_decode(self, *args, **kwargs):
+        before = cifhr_cuda.LAUNCHES
+        out = batch_decode(self, *args, **kwargs)
+        records[-1].update(launches=cifhr_cuda.LAUNCHES - before,
+                           tiers=len(out) + len(self.last_escalated),
+                           decode_ms=self.last_decoder_time * 1e3,
+                           poses=[len(a) for a in out])
+        return out
+
+    Predictor.fields_batch = timed_fields
+    CifCaf.batch_decode = counted_decode
+    try:
+        yield records
+    finally:
+        Predictor.fields_batch = fields_batch
+        CifCaf.batch_decode = batch_decode
+
+
+def check_records(records, label, heads, card, at_field_hw=True):
+    """Each forward's fields (finite, ``heads``, at FIELD_HW if
+    ``at_field_hw``) and one CifHr launch per image per tier; prints each
+    one's times."""
+    for i, r in enumerate(records):
+        if r['fields'] != list(heads) or not r['finite'] \
+                or (at_field_hw and r['hw'] != FIELD_HW):
+            raise AssertionError(f'{label} forward {i}: fields {r}, want '
+                                 f'{heads} at {FIELD_HW}')
+        if r.get('launches') != r.get('tiers'):
+            raise AssertionError(f'{label} forward {i}: {r.get("launches")} '
+                                 f'CifHr launches for {r.get("tiers")} '
+                                 'image tiers')
+        log(f'{label} forward {i}: batch {r["images"]}, NN '
+            f'{r["nn_ms"] / r["images"]:.3f} ms/image (CUDA events), decode '
+            f'{r["decode_ms"] / r["images"]:.2f} ms/image, {r["launches"]} '
+            f'CifHr launches for {r["tiers"]} image tiers, poses '
+            f'{r["poses"]}{" (first call, warm-up)" if i == 0 else ""} '
+            f'[{card}]')
+
+
+def phase_wholebody_predict(port, ckpt, directory, device, card):
+    """15c: ``predict.main --checkpoint`` of 15b's checkpoint over 481x641
+    JPEGs (padded to 513x641): three single-image requests, then one batch
+    of two, in-process; fields, launches and times per forward
+    (:func:`recorded_runs`); the kernel on every F=133 call's cells
+    against its plain version; then one warm request of a ``Predictor``
+    of the checkpoint profiled: device ops, stream syncs and the device's
+    busy share of the request's wall time. Returns the runs' CifHr
+    launches."""
+    import PIL.Image
+    from openpifpaf_tpu_torch import decoder, predict
+    from openpifpaf_tpu_torch.predictor import Predictor
+    from torch_port_helpers import restored_statics
+
+    requests = make_requests()
+    files = []
+    for i, images in enumerate(requests):
+        files.append([])
+        for j, image in enumerate(images):
+            path = os.path.join(directory, f'request{i}-{j}.jpg')
+            PIL.Image.fromarray(image).save(path, quality=95)
+            files[-1].append(path)
+    out = os.path.join(directory, 'predictions')
+    os.makedirs(out)
+    reset_launches(port)
+    with recorded_runs([]) as records, \
+            kept_cifhr_calls(port.cifhr_cuda) as calls, \
+            restored_statics(*decoder.DECODERS):
+        predict.main([*files[0], *files[1], *files[2], '--checkpoint', ckpt,
+                      '--json-output', out])
+        predict.main([*files[3], '--checkpoint', ckpt, '--batch-size', '2',
+                      '--json-output', out])
+    launches = read_launches(port)['cifhr_accumulate']
+    if [r['images'] for r in records] != [1, 1, 1, 2]:
+        raise AssertionError(f'wholebody predict: forwards {records}')
+    check_records(records, 'wholebody predict (15c)', WHOLEBODY_HEADS, card)
+    written = sorted(os.listdir(out))
+    if len(written) != 5:
+        raise AssertionError(f'wholebody predict wrote {written}')
+    for name in written:
+        with open(os.path.join(out, name)) as f:
+            if any(len(a['keypoints']) != 133 * 3 for a in json.load(f)):
+                raise AssertionError(f'{name}: not 133 keypoints')
+    if launches != len(calls) or launches != sum(r['launches']
+                                                 for r in records):
+        raise AssertionError(f'wholebody predict: {launches} CifHr launches, '
+                             f'{len(calls)} calls')
+    check_kept_calls(port, calls, 'wholebody predict (15c)')
+
+    predictor = Predictor(checkpoint=ckpt, device=device)
+    image = requests[0]
+    list(predictor.numpy_images(image))
+    start = time.perf_counter()
+    list(predictor.numpy_images(image))
+    wall = (time.perf_counter() - start) * 1e3
+    nn_ms, decode_ms = (predictor.last_nn_time * 1e3,
+                        predictor.last_decoder_time * 1e3)
+    ops, syncs, busy = decode_profile(
+        lambda: list(predictor.numpy_images(image)))
+    log(f'wholebody predict (15c): {launches} CifHr launches in the runs; '
+        f'a warm request: {wall:.2f} ms of wall time (NN {nn_ms:.2f} ms, '
+        f'decode {decode_ms:.2f} ms), profiled: {ops} '
+        f'device ops, {syncs} stream syncs, device busy {busy:.3f} ms, '
+        f'{busy / wall:.3f} of the wall time; predictions {written} '
+        f'[{card}]')
+    return launches
+
+
+def phase_wholebody_eval(port, ckpt, directory, card):
+    """15d: ``eval_cli.main --dataset wholebody`` (in-process, on the card)
+    with 15b's checkpoint over WHOLEBODY_EVAL_IMAGES synthetic images at
+    EVAL_LONG_EDGE: the ten WholeBodyMetric stats finite, nn and decoder
+    ms per image, the CifHr launches, the kernel on every F=133 call's
+    cells against its plain version; the ground truth as predictions gives
+    AR 1.0 for each part and AP 1.0 for each part that every person
+    shows. Returns the run's CifHr launches."""
+    from openpifpaf_tpu_torch import datasets, decoder, eval_cli
+    from openpifpaf_tpu_torch.annotation import Annotation
+    from openpifpaf_tpu_torch.plugins import wholebody
+    from openpifpaf_tpu_torch.plugins.wholebody.metric import PART_SLICES
+    from torch_port_helpers import restored_statics, \
+        write_synthetic_wholebody
+
+    ann_file, image_dir = write_synthetic_wholebody(
+        os.path.join(directory, 'wholebody-eval'),
+        n_images=WHOLEBODY_EVAL_IMAGES, image_hw=TRAIN_IMAGE_HW, seed=1)
+    out = os.path.join(directory, 'wholebody-eval', 'eval')
+    reset_launches(port)
+    t0 = time.perf_counter()
+    with recorded_runs([]) as records, \
+            kept_cifhr_calls(port.cifhr_cuda) as calls, \
+            restored_statics(*decoder.DECODERS, eval_cli.Evaluator,
+                             *datasets.datamodules().values()):
+        eval_cli.main(['--dataset', 'wholebody', '--checkpoint', ckpt,
+                       '--wholebody-val-annotations', ann_file,
+                       '--wholebody-val-image-dir', image_dir,
+                       '--wholebody-eval-long-edge', str(EVAL_LONG_EDGE),
+                       '--eval-loader-warmup', '0', '--output', out])
+    wall = time.perf_counter() - t0
+    launches = read_launches(port)['cifhr_accumulate']
+    with open(out + '.stats.json') as f:
+        stats = json.load(f)
+    n_images = stats['n_images']
+    if not (len(stats['stats']) == 10 and np.all(np.isfinite(stats['stats']))
+            and stats['text_labels'][::2] == [
+                f'AP_{p}' for p in ('body', 'foot', 'face', 'hand',
+                                    'wholebody')]
+            and n_images == len(records) > 0):
+        raise AssertionError(f'wholebody eval stats {stats}, {len(records)} '
+                             'forwards')
+    if launches != len(calls) or launches != sum(r['launches']
+                                                 for r in records):
+        raise AssertionError(f'wholebody eval: {launches} CifHr launches, '
+                             f'{len(calls)} calls')
+    check_records(records, 'wholebody eval (15d)', WHOLEBODY_HEADS, card,
+                  at_field_hw=False)
+    check_kept_calls(port, calls, 'wholebody eval (15d)')
+    per_image = {k: stats[k] / n_images * 1e3
+                 for k in ('total_time', 'nn_time', 'decoder_time')}
+    log(f'wholebody eval (15d): {n_images} images at long edge '
+        f'{EVAL_LONG_EDGE} (fields {sorted({r["hw"] for r in records})}), '
+        f'{launches} CifHr launches;'
+        f' per image total {per_image["total_time"]:.2f} ms, nn '
+        f'{per_image["nn_time"]:.2f} ms, decoder '
+        f'{per_image["decoder_time"]:.2f} ms (the first image included); '
+        f'stats {dict(zip(stats["text_labels"], stats["stats"]))} (random '
+        f'weights after 8 steps); whole command {wall:.1f} s [{card}]')
+
+    with open(ann_file) as f:
+        data = json.load(f)
+    with restored_statics(wholebody.Wholebody):
+        wholebody.Wholebody.eval_annotations = ann_file
+        metric, = wholebody.Wholebody().metrics()
+    for image in data['images']:
+        metric.accumulate([
+            Annotation(wholebody.WHOLEBODY_KEYPOINTS,
+                       wholebody.WHOLEBODY_SKELETON).set(
+                np.asarray(a['keypoints'], np.float32).reshape(133, 3),
+                fixed_score=1.0, fixed_bbox=a['bbox'])
+            for a in data['annotations'] if a['image_id'] == image['id']],
+            {'image_id': image['id']})
+    # a person whose part lies outside the image is an ignored ground
+    # truth of that part, while its prediction still counts (COCO's
+    # protocol, JAX's metric): AP is 1.0 exactly for the parts every
+    # person shows, AR 1.0 for all
+    gt_stats = metric.stats()['stats']
+    hidden = {part: sum(not np.any(np.asarray(a['keypoints']).reshape(
+        133, 3)[sl, 2] > 0) for a in data['annotations'])
+        for part, sl in PART_SLICES.items()}
+    for i, part in enumerate(PART_SLICES):
+        ap, ar = gt_stats[2 * i:2 * i + 2]
+        if ar != 1.0 or (ap == 1.0) != (hidden[part] == 0):
+            raise AssertionError(f'wholebody ground truth as predictions: '
+                                 f'{part} AP {ap}, AR {ar} with '
+                                 f'{hidden[part]} people hiding the part')
+    log(f'wholebody eval (15d): the ground truth as predictions gives AR 1.0 '
+        f'for every part and AP {dict(zip(PART_SLICES, gt_stats[::2]))}, '
+        f'1.0 for every part that no person hides (people hiding each '
+        f'part: {hidden})')
+    return launches
+
+
+def plugin_metas(name, flags):
+    """The head metas of data module ``name`` configured by ``flags``
+    (its class settings are put back after)."""
+    import argparse
+    from openpifpaf_tpu_torch import datasets
+    from torch_port_helpers import restored_statics
+
+    cls = datasets.datamodules()[name]
+    parser = argparse.ArgumentParser()
+    with restored_statics(cls):
+        cls.cli(parser)
+        cls.configure(parser.parse_args(list(flags)))
+        return cls().head_metas
+
+
+def serve_plugin(port, label, name, flags, n_kp, n_edges, device, card):
+    """One request of a random full-width k16 with the heads of data
+    module ``name`` under ``flags``: its field shapes and CifHr launches.
+    Returns (launches, the model)."""
+    from openpifpaf_tpu_torch.predictor import Predictor
+
+    metas = plugin_metas(name, flags)
+    if [m.n_fields for m in metas] != [n_kp, n_edges]:
+        raise AssertionError(f'{label}: heads {metas}')
+    predictor = Predictor(head_metas=metas, device=device)
+    reset_launches(port)
+    serve(predictor, make_requests()[:1], card, f'plugin (15e) {label}',
+          heads=((n_kp, 5), (n_edges, 8)))
+    count = read_launches(port)['cifhr_accumulate']
+    if count == 0:
+        raise AssertionError(f'{label}: no CifHr launch')
+    log(f'plugin (15e) {label}: {n_kp} CIF fields, {n_edges} CAF edges at '
+        f'{FIELD_HW}, {count} CifHr launches')
+    return count, predictor.model
+
+
+def phase_plugins(port, directory, device, card):
+    """15e: each of PLUGIN_CASES served by a random full-width k16 with its
+    heads (seed 0): one request, its field shapes, its CifHr launches, the
+    kernel on each call's cells against its plain version; then
+    the tracking benchmark wrapper's ``--crowdpose`` with the crowdpose
+    model saved as a checkpoint, over a synthetic CrowdPose set whose
+    ``crowdIndex`` values cover the three buckets: each bucket's eval sees
+    the ids of CROWDPOSE_BUCKETS. Returns the requests' CifHr launches."""
+    from openpifpaf_tpu_torch.plugins.posetrack import benchmark
+    from torch_port_helpers import write_synthetic_crowdpose
+
+    launches = 0
+    crowdpose_model = None
+    with kept_cifhr_calls(port.cifhr_cuda) as calls:
+        for label, name, flags, n_kp, n_edges in PLUGIN_CASES:
+            count, model = serve_plugin(port, label, name, flags, n_kp,
+                                        n_edges, device, card)
+            launches += count
+            if name == 'crowdpose':
+                crowdpose_model = model
+    check_kept_calls(port, calls, 'plugin (15e)')
+
+    ann_file, image_dir = write_synthetic_crowdpose(
+        os.path.join(directory, 'crowdpose'), n_images=CROWDPOSE_IMAGES,
+        image_hw=TRAIN_IMAGE_HW, seed=0)
+    with open(ann_file) as f:
+        data = json.load(f)
+    with_people = {a['image_id'] for a in data['annotations']}
+    want = {}
+    for bucket, (lo, hi) in CROWDPOSE_BUCKETS.items():
+        want[bucket] = sorted(
+            i['id'] for i in data['images'] if i['id'] in with_people
+            and (lo <= i['crowdIndex'] < hi
+                 or (bucket == 'hard' and i['crowdIndex'] == hi)))
+        if not want[bucket]:
+            raise AssertionError(f'crowdpose bucket {bucket} is empty')
+    want[''] = sorted(with_people)
+    ckpt = os.path.join(directory, 'crowdpose-k16')
+    save_checkpoint(ckpt, crowdpose_model, 'shufflenetv2k16')
+    out = os.path.join(directory, 'crowdpose-bench')
+    # the wrapper's evals are ``python -m`` processes of this checkout
+    pythonpath = os.environ.get('PYTHONPATH')
+    os.environ['PYTHONPATH'] = os.pathsep.join(filter(None, (ROOT,
+                                                             pythonpath)))
+    t0 = time.perf_counter()
+    try:
+        benchmark.main(['--checkpoints', ckpt, '--crowdpose', '--output',
+                        out, '--crowdpose-val-annotations', ann_file,
+                        '--crowdpose-image-dir', image_dir,
+                        '--eval-loader-warmup', '0'])
+    finally:
+        if pythonpath is None:
+            del os.environ['PYTHONPATH']
+        else:
+            os.environ['PYTHONPATH'] = pythonpath
+    wall = time.perf_counter() - t0
+    for suffix in ('', '.easy', '.medium', '.hard'):
+        with open(os.path.join(out + suffix, ckpt.replace('/', '-')
+                               + '.eval-crowdpose.stats.json')) as f:
+            stats = json.load(f)
+        bucket = suffix.lstrip('.')
+        if not (stats['n_images'] == len(want[bucket])
+                and len(stats['stats']) == 10
+                and np.all(np.isfinite(stats['stats']))):
+            raise AssertionError(f'crowdpose benchmark {suffix or "all"}: '
+                                 f'{stats}, want the ids {want[bucket]}')
+        log(f'plugin (15e) crowdpose benchmark {bucket or "all"}: '
+            f'{stats["n_images"]} images (ids {want[bucket]}), decoder '
+            f'{stats["decoder_time"] / stats["n_images"] * 1e3:.2f} ms/image')
+    log(f'plugin (15e) crowdpose benchmark: 4 evals in {wall:.1f} s '
+        f'[{card}]')
+    return launches
+
+
+def phase_plugins_path(port, device, card):
+    """Phase 15: (a)-(e); returns the CifHr launches of (c)-(e)."""
+    import tempfile
+    from torch_port_helpers import write_synthetic_wholebody
+
+    phase_wholebody_golden(port, device, card)
+    with tempfile.TemporaryDirectory() as directory:
+        data = write_synthetic_wholebody(
+            os.path.join(directory, 'wholebody-data'), n_images=TRAIN_IMAGES,
+            image_hw=TRAIN_IMAGE_HW, seed=TRAIN_SEED)
+        ckpt = phase_wholebody_train(data, directory, device, card)
+        launches = phase_wholebody_predict(port, ckpt, directory, device,
+                                           card)
+        launches += phase_wholebody_eval(port, ckpt, directory, card)
+        launches += phase_plugins(port, directory, device, card)
+    log(f'phase 15: {launches} CifHr launches in (c)-(e)')
+    return launches
 
 
 def kernel_entry(name, source, replaces, launches, rows, row):
@@ -2121,6 +2651,7 @@ def main():
     launches['cifhr_accumulate'] += phase_tracking(port, device, card)
     launches['cifhr_accumulate'] += phase_tracking_training(port, device,
                                                             card)
+    launches['cifhr_accumulate'] += phase_plugins_path(port, device, card)
 
     # no single PyTorch call computes the CifHr map; times at F=17 K=256
     entries = [kernel_entry('cifhr_accumulate', 'cifhr.cu',

@@ -3,7 +3,7 @@ parts of ``openpifpaf_tpu/datasets`` that single-dataset training and
 eval use)."""
 
 from .module import DataModule
-from .factory import datamodules, factory
+from .factory import DATAMODULES, datamodules, factory
 from .loader import Loader
 from .loader_with_reset import LoaderWithReset
 from . import collate

@@ -1,20 +1,17 @@
 """Dataset registry and factory (counterpart of
-``openpifpaf_tpu/datasets/factory.py``). The port has the cocokp, cocokpst,
-posetrack2018 and posetrack2017 data modules. Still missing: the keypoint
-plugins built on ``KpDataModule`` (wholebody, crowdpose, animalpose,
-apollocar3d) and plugin discovery (ROADMAP A16), cocodet, cifar10 and
-nuscenes (ROADMAP A9), and multi-dataset training, the ``cocokp-cocodet``
-names (ROADMAP A11)."""
+``openpifpaf_tpu/datasets/factory.py``). ``DATAMODULES`` is filled by
+plugin discovery (``openpifpaf_tpu_torch/plugin.py``) on first use, not at
+import. Multi-dataset training, the ``cocokp-cocodet`` names, is not ported
+yet (ROADMAP A11)."""
+
+DATAMODULES = {}
 
 
 def datamodules():
-    """name -> DataModule class."""
-    from ..plugins.coco.cocokp import CocoKp
-    from ..plugins.posetrack.cocokpst import CocoKpSt
-    from ..plugins.posetrack.posetrack2017 import Posetrack2017
-    from ..plugins.posetrack.posetrack2018 import Posetrack2018
-    return {'cocokp': CocoKp, 'cocokpst': CocoKpSt,
-            'posetrack2018': Posetrack2018, 'posetrack2017': Posetrack2017}
+    """name -> DataModule class, every plugin registered."""
+    from .. import plugin
+    plugin.register()
+    return DATAMODULES
 
 
 def factory(dataset_name: str):

@@ -1,9 +1,8 @@
 """Tracking benchmark wrapper (copy of
 ``openpifpaf_tpu/plugins/posetrack/benchmark.py``): runs the port's
-generic benchmark with posetrack defaults and tracking-specific ablation
-suites. Eval flags it does not know, such as ``--device cpu``, go
-through to each eval unchanged. Its ``--crowdpose`` mode needs the
-crowdpose data module, which is not ported yet (ROADMAP A16): it raises.
+generic benchmark with posetrack or crowdpose defaults and
+tracking-specific ablation suites. Eval flags it does not know, such as
+``--device cpu``, go through to each eval unchanged.
 
     python -m openpifpaf_tpu_torch.plugins.posetrack.benchmark \
         --checkpoints CKPT --ablation-1
@@ -41,10 +40,6 @@ def cli(argv=None):
                         help='track recovery')
     parser.add_argument('--debug', default=False, action='store_true')
     args, eval_args = parser.parse_known_args(argv)
-    if args.crowdpose:
-        raise NotImplementedError(
-            '--crowdpose needs the crowdpose data module, which is not '
-            'yet ported to PyTorch (ROADMAP A16)')
 
     logging.basicConfig(
         level=logging.INFO if not args.debug else logging.DEBUG)
@@ -54,11 +49,22 @@ def cli(argv=None):
 
     dataset = None
     if not any(a.startswith('--dataset') for a in eval_args):
-        dataset = 'posetrack2018'
-        if not any(a.startswith('--write-predictions') for a in eval_args):
-            eval_args.append('--write-predictions')
-        if not any(a.startswith('--decoder') for a in eval_args):
-            eval_args.append('--decoder=trackingpose:0')
+        if args.crowdpose:
+            dataset = 'crowdpose'
+            if not any(a.startswith('--force-complete-pose')
+                       for a in eval_args):
+                eval_args.append('--force-complete-pose')
+            if not any(a.startswith('--seed-threshold') for a in eval_args):
+                eval_args.append('--seed-threshold=0.2')
+            if not any(a.startswith('--decoder') for a in eval_args):
+                eval_args.append('--decoder=cifcaf:0')
+        else:
+            dataset = 'posetrack2018'
+            if not any(a.startswith('--write-predictions')
+                       for a in eval_args):
+                eval_args.append('--write-predictions')
+            if not any(a.startswith('--decoder') for a in eval_args):
+                eval_args.append('--decoder=trackingpose:0')
 
     if args.output is None:
         now = datetime.datetime.now().strftime('%y%m%d-%H%M%S')
@@ -69,6 +75,12 @@ def cli(argv=None):
 
 def ablation_list(args, eval_args):
     ablations = [('', eval_args)]
+    if args.crowdpose:
+        ablations += [
+            ('.easy', eval_args + ['--crowdpose-index=easy']),
+            ('.medium', eval_args + ['--crowdpose-index=medium']),
+            ('.hard', eval_args + ['--crowdpose-index=hard']),
+        ]
     if args.ablation_1:
         ablations += [
             ('.greedy', eval_args + ['--greedy']),
@@ -115,7 +127,8 @@ def main(argv=None):
     for suffix, ablation_args in ablation_list(args, eval_args):
         Benchmark(
             args.checkpoints, args.output + suffix,
-            reference=(args.checkpoints[0] if len(args.checkpoints) == 1
+            reference=(args.checkpoints[0]
+                       if len(args.checkpoints) == 1 and not args.crowdpose
                        else None),
             dataset=dataset or 'posetrack2018',
             eval_args=ablation_args,

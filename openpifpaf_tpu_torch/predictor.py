@@ -106,7 +106,8 @@ class Predictor:
                 head_consolidation=models_factory.HEAD_CONSOLIDATION)
         if model is None:
             LOG.warning('no checkpoint given: using randomly initialized '
-                        'cocokp model')
+                        '%s model', head_metas[0].dataset if head_metas
+                        else 'cocokp')
             model = models_factory.Factory().from_scratch(
                 head_metas or cocokp_head_metas(),
                 generator=torch.Generator().manual_seed(0))

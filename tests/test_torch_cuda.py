@@ -5,9 +5,9 @@ impls against each other, the decode under every configuration
 against the JAX poses of the golden file and against the CPU, a train
 step against the CPU, BatchNorm's running-statistics rule and the bf16
 step, the other backbones (resnet50, a group-norm k16) against the CPU,
-the engine choice on a group-norm k20, the eval CLI, and tracking (the
+the engine choice on a group-norm k20, the eval CLI, tracking (the
 k16 tracking forward against the CPU, the tracking golden sequence, a
-cocokpst train step).
+cocokpst train step) and the wholebody-133 golden decode.
 
 Every test here needs a GPU (marker ``gpu``) and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a machine that
@@ -34,7 +34,8 @@ from openpifpaf_tpu_torch.plugins.coco.constants import cocokp_head_metas
 from openpifpaf_tpu_torch.predictor import Predictor
 
 from torch_port_helpers import CONFIGS, GOLDEN, GOLDEN_SPARSE_FLAGS, \
-    GOLDEN_STRIDE, TRACKING_GOLDEN, assert_pose_gate, \
+    GOLDEN_STRIDE, TRACKING_GOLDEN, WHOLEBODY_GOLDEN, WHOLEBODY_SEEDS, \
+    assert_pose_gate, port_wholebody_metas, \
     assert_tracking_frame, backbone_kernel_inputs, decode_frames, \
     golden_inputs, golden_runs, lab_kernel_inputs, optimizer_args, \
     order_rows, port_decoder, port_narrow_shell, port_tracking_decoder, \
@@ -203,6 +204,23 @@ def test_cuda_decode_matches_golden_jax_poses(cuda):
                                 a.joint_scales[:, None]], axis=1)
                 for a in anns]
         assert_pose_gate(ours, list(golden[f'{name}_poses']))
+
+
+def test_cuda_wholebody_decode_matches_golden_jax_poses(cuda):
+    """``CifCaf`` at 133 keypoints on CUDA tensors, CifHr through the
+    kernel, gives the JAX poses of ``golden/torch_wholebody_golden.npz``
+    (the contested scenes, tie-free gate)."""
+    golden = np.load(WHOLEBODY_GOLDEN)
+    decoder = CifCaf(*port_wholebody_metas())
+    for seed in WHOLEBODY_SEEDS:
+        fields = [torch.from_numpy(golden[f'scene{seed}_{head}'][None])
+                  .to(cuda) for head in ('cif', 'caf')]
+        before = cifhr_cuda.LAUNCHES
+        annotations, = decoder.batch_decode(fields)
+        assert cifhr_cuda.LAUNCHES > before
+        assert all(a.data.shape == (133, 3) for a in annotations)
+        assert_pose_gate(pose_rows(annotations),
+                         list(golden[f'scene{seed}_poses']))
 
 
 def test_cuda_cif_hr_pallas_launches_once_and_equals_dense(cuda):

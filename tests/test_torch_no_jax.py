@@ -95,7 +95,12 @@ def test_every_port_module_imports_without_jax():
                  'plugins.posetrack.normalize',
                  'plugins.posetrack.posetrack2018',
                  'plugins.posetrack.posetrack2017',
-                 'plugins.posetrack.metric', 'plugins.posetrack.benchmark'):
+                 'plugins.posetrack.metric', 'plugins.posetrack.benchmark',
+                 'plugin', 'datasets.kp_module', 'plugins.wholebody',
+                 'plugins.wholebody.metric', 'plugins.crowdpose',
+                 'plugins.animalpose', 'plugins.animalpose.voc_to_coco',
+                 'plugins.apollocar3d', 'plugins.apollocar3d.metrics',
+                 'plugins.apollocar3d.apollo_to_coco'):
         assert f'openpifpaf_tpu_torch.{name}' in report['modules']
     assert report['loaded'] == []
 

@@ -680,7 +680,8 @@ def test_posetrack2018_eval_loader_resets_between_sequences(posetrack):
 
 def test_posetrack_data_modules_registered():
     names = sorted(datasets.datamodules())
-    assert names == ['cocokp', 'cocokpst', 'posetrack2017', 'posetrack2018']
+    assert names == ['animal', 'apollo', 'cocokp', 'cocokpst', 'crowdpose',
+                     'posetrack2017', 'posetrack2018', 'wholebody']
     for name in ('posetrack2018', 'posetrack2017'):
         ours = datasets.factory(name).head_metas
         ref = openpifpaf_tpu.datasets.factory(name).head_metas
@@ -697,8 +698,9 @@ def test_posetrack_data_modules_registered():
 def test_benchmark_ablations_match_jax(monkeypatch):
     """Every ablation suite passes the JAX wrapper's eval flags, each one a
     flag of the port's eval CLI; an eval flag the wrapper does not know,
-    ``--device cpu``, reaches every eval; ``--crowdpose`` raises (ROADMAP
-    A16)."""
+    ``--device cpu``, reaches every eval; ``--crowdpose`` evaluates
+    crowdpose with JAX's eval flags and its three ``--crowdpose-index``
+    buckets."""
     import argparse
     from openpifpaf_tpu_torch import decoder
     argv = ['--checkpoints', 'a', '--ablation-1', '--ablation-2',
@@ -722,5 +724,16 @@ def test_benchmark_ablations_match_jax(monkeypatch):
     args, eval_args, _ = benchmark.cli([*argv, '--device', 'cpu'])
     assert all(flags[flags.index('--device') + 1] == 'cpu'
                for _, flags in benchmark.ablation_list(args, eval_args))
-    with pytest.raises(NotImplementedError, match='ROADMAP A16'):
-        benchmark.cli(['--crowdpose'])
+    argv = ['--checkpoints', 'a', '--crowdpose']
+    monkeypatch.setattr('sys.argv', ['benchmark'] + argv)
+    args, eval_args, dataset = benchmark.cli(argv)
+    r_args, r_eval_args, r_dataset = jax_benchmark.cli()
+    assert dataset == r_dataset == 'crowdpose'
+    assert eval_args == r_eval_args
+    assert {'--force-complete-pose', '--seed-threshold=0.2',
+            '--decoder=cifcaf:0'} <= set(eval_args)
+    ours = benchmark.ablation_list(args, eval_args)
+    assert ours == jax_benchmark.ablation_list(r_args, r_eval_args)
+    assert [suffix for suffix, _ in ours] == ['', '.easy', '.medium', '.hard']
+    for _, flags in ours:
+        parser.parse_args(flags)

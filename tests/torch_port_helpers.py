@@ -23,6 +23,11 @@ video at 513x641, stride 16 (:func:`tracking_scene`), its fields stored
 as the cells that differ from an empty cell, with the JAX package's
 tracked annotations of each frame. Write it anew with
 ``--tracking``.
+
+And ``golden/torch_wholebody_golden.npz``: the two contested wholebody-133
+scenes of ``test_wholebody_parity.py`` (137x177, stride 8) with the JAX
+``CifCaf._decode_adaptive`` poses on them. Write it anew with
+``--wholebody``.
 """
 
 import argparse
@@ -626,24 +631,29 @@ def optimizer_args(**overrides):
 
 
 def write_synthetic_coco(directory, *, n_images=16, image_hw=(113, 129),
-                         seed=0):
+                         seed=0, keypoints=None, skeleton=None, pose=None):
     """A COCO keypoint set made from ``np.random.RandomState(seed)``: JPEG
     images of ``image_hw`` with 1-4 upright people each (their visible
     joints painted as 5x5 squares of a colour per joint on dark noise)
     and the annotation JSON. Returns (annotation file, image directory).
     Visibility is 2 for 80% of the joints, 1 for 10%, 0 for the rest and
-    for joints outside the image."""
+    for joints outside the image. ``keypoints``, ``skeleton`` and the
+    upright ``pose`` default to COCO's 17; another dataset's give its
+    annotations in pifpaf style (one ``keypoints`` list of them all)."""
     import json
     import PIL.Image
     from openpifpaf_tpu_torch.plugins.coco.constants import \
         COCO_KEYPOINTS, COCO_PERSON_SKELETON, COCO_UPRIGHT_POSE
 
+    if keypoints is None:
+        keypoints, skeleton, pose = (COCO_KEYPOINTS, COCO_PERSON_SKELETON,
+                                     COCO_UPRIGHT_POSE)
     rng = np.random.RandomState(seed)
     image_dir = os.path.join(directory, 'images')
     os.makedirs(image_dir, exist_ok=True)
     h, w = image_hw
-    colors = rng.randint(96, 256, (len(COCO_KEYPOINTS), 3))
-    pose = COCO_UPRIGHT_POSE[:, :2]
+    colors = rng.randint(96, 256, (len(keypoints), 3))
+    pose = np.asarray(pose)[:, :2]
     images, annotations = [], []
     for image_id in range(1, n_images + 1):
         image = rng.randint(0, 64, (h, w, 3)).astype(np.uint8)
@@ -658,9 +668,9 @@ def write_synthetic_coco(directory, *, n_images=16, image_hw=(113, 129),
             v[~inside] = 0.0
             if np.sum(v > 0) < 3:
                 continue
-            keypoints = np.stack([np.where(v > 0, x, 0.0),
-                                  np.where(v > 0, y, 0.0), v], axis=1)
-            for (kx, ky, kv), color in zip(keypoints, colors):
+            kps = np.stack([np.where(v > 0, x, 0.0),
+                            np.where(v > 0, y, 0.0), v], axis=1)
+            for (kx, ky, kv), color in zip(kps, colors):
                 if kv > 0:
                     image[max(0, int(ky) - 2):int(ky) + 3,
                           max(0, int(kx) - 2):int(kx) + 3] = color
@@ -671,7 +681,7 @@ def write_synthetic_coco(directory, *, n_images=16, image_hw=(113, 129),
                 'id': len(annotations) + 1, 'image_id': image_id,
                 'category_id': 1, 'iscrowd': 0,
                 'keypoints': [round(float(c), 2)
-                              for c in keypoints.reshape(-1)],
+                              for c in kps.reshape(-1)],
                 'num_keypoints': int(np.sum(v > 0)),
                 'bbox': [round(c, 2) for c in bbox],
                 'area': round(bbox[2] * bbox[3], 2),
@@ -685,8 +695,42 @@ def write_synthetic_coco(directory, *, n_images=16, image_hw=(113, 129),
     with open(ann_file, 'w') as f:
         json.dump({'images': images, 'annotations': annotations,
                    'categories': [{'id': 1, 'name': 'person',
-                                   'keypoints': COCO_KEYPOINTS,
-                                   'skeleton': COCO_PERSON_SKELETON}]}, f)
+                                   'keypoints': list(keypoints),
+                                   'skeleton': [list(e) for e in skeleton]}]},
+                  f)
+    return ann_file, image_dir
+
+
+def write_synthetic_wholebody(directory, **kwargs):
+    """:func:`write_synthetic_coco` with COCO-WholeBody's 133 keypoints in
+    pifpaf style, posed from ``WHOLEBODY_STANDING_POSE``."""
+    from openpifpaf_tpu_torch.plugins import wholebody
+    return write_synthetic_coco(
+        directory, keypoints=wholebody.WHOLEBODY_KEYPOINTS,
+        skeleton=wholebody.WHOLEBODY_SKELETON,
+        pose=wholebody.WHOLEBODY_STANDING_POSE, **kwargs)
+
+
+#: ``crowdIndex`` of the synthetic CrowdPose images, in turn: each of the
+#: three ``--crowdpose-index`` buckets, with both ends of the closed top
+#: bucket and the lower bounds of the half-open ones
+CROWD_INDICES = (0.0, 0.1, 0.8, 1.0, 0.05, 0.5, 0.95)
+
+
+def write_synthetic_crowdpose(directory, **kwargs):
+    """:func:`write_synthetic_coco` with CrowdPose's 14 keypoints, each
+    image's ``crowdIndex`` taken in turn from :data:`CROWD_INDICES`."""
+    import json
+    from openpifpaf_tpu_torch.plugins import crowdpose
+    ann_file, image_dir = write_synthetic_coco(
+        directory, keypoints=crowdpose.KEYPOINTS,
+        skeleton=crowdpose.SKELETON, pose=crowdpose.UPRIGHT_POSE, **kwargs)
+    with open(ann_file) as f:
+        data = json.load(f)
+    for i, image in enumerate(data['images']):
+        image['crowdIndex'] = CROWD_INDICES[i % len(CROWD_INDICES)]
+    with open(ann_file, 'w') as f:
+        json.dump(data, f)
     return ann_file, image_dir
 
 
@@ -1165,6 +1209,63 @@ def write_tracking_golden():
     np.savez_compressed(TRACKING_GOLDEN, **jax_tracking_golden())
 
 
+#: golden/torch_wholebody_golden.npz: the contested wholebody-133 scenes
+#: of ``test_wholebody_parity.py`` (137x177, stride 8, seeds 0 and 1)
+WHOLEBODY_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                'golden', 'torch_wholebody_golden.npz')
+WHOLEBODY_STRIDE = 8
+WHOLEBODY_SEEDS = (0, 1)
+
+
+def jax_wholebody_metas(stride=WHOLEBODY_STRIDE):
+    import openpifpaf_tpu
+    metas = openpifpaf_tpu.datasets.factory('wholebody').head_metas
+    for i, m in enumerate(metas):
+        m.head_index = i
+        m.base_stride = stride
+    return metas
+
+
+def port_wholebody_metas(stride=WHOLEBODY_STRIDE):
+    from openpifpaf_tpu_torch.datasets import factory
+    from openpifpaf_tpu_torch.models.shell import assign_strides
+    return assign_strides(factory('wholebody').head_metas, stride)
+
+
+def wholebody_scene(seed):
+    """(cif, caf) of ``test_wholebody_parity.py``'s contested scene of
+    ``seed``: 2-3 overlapping wholebody people, tie-free confidences."""
+    from test_wholebody_parity import _scene
+    return _scene(jax_wholebody_metas(), seed)[:2]
+
+
+def jax_wholebody_poses(decoder, cif, caf):
+    """The kept poses (n, 133, 4) [v, x, y, s] of JAX's
+    ``CifCaf._decode_adaptive`` on one scene, in slot order."""
+    decode = decoder._decode_adaptive  # pylint: disable=protected-access
+    with jax_f32():
+        poses, keep, _ = decode(WHOLEBODY_STRIDE, (cif[None], caf[None]))
+    return np.asarray(poses)[0][np.asarray(keep)[0] > 0]
+
+
+def jax_wholebody_golden():
+    """The wholebody golden file's dict: ``scene{seed}_cif``, ``_caf`` and
+    ``_poses`` (JAX's decode) of each seed of WHOLEBODY_SEEDS."""
+    from openpifpaf_tpu.decoder.cifcaf import CifCaf
+    decoder = CifCaf(*jax_wholebody_metas())
+    out = {}
+    for seed in WHOLEBODY_SEEDS:
+        cif, caf = wholebody_scene(seed)
+        out[f'scene{seed}_cif'] = cif
+        out[f'scene{seed}_caf'] = caf
+        out[f'scene{seed}_poses'] = jax_wholebody_poses(decoder, cif, caf)
+    return out
+
+
+def write_wholebody_golden():
+    np.savez_compressed(WHOLEBODY_GOLDEN, **jax_wholebody_golden())
+
+
 def jax_golden():
     """The golden file's dict: :func:`jax_golden_scenes` and
     :func:`jax_golden_config` of each of :func:`golden_configs`."""
@@ -1185,7 +1286,11 @@ if __name__ == '__main__':
     import jax
     jax.config.update('jax_platforms', 'cpu')
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    if '--tracking' in sys.argv[1:]:
+    if '--wholebody' in sys.argv[1:]:
+        write_wholebody_golden()
+        print('wrote', WHOLEBODY_GOLDEN, os.path.getsize(WHOLEBODY_GOLDEN),
+              'bytes')
+    elif '--tracking' in sys.argv[1:]:
         write_tracking_golden()
         print('wrote', TRACKING_GOLDEN, os.path.getsize(TRACKING_GOLDEN),
               'bytes')
