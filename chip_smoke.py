@@ -161,6 +161,32 @@ Phases, each of which raises on failure (non-zero exit):
     the kernel on the cells of every CifHr call (F=133 in (a)-(d)) equals
     its plain version bit for bit. The CifHr launches of (c)-(e) are
     counted in the kernels line.
+16. detection (CifDet): (a) ``decoder.CifDet.batch_decode`` on the card on
+    the two 80-category scenes of ``tests/golden/torch_cifdet_golden.npz``
+    (written with the JAX package) under each configuration: JAX's
+    detections on every seed slot (keep mask and categories equal, scores
+    within 2e-6, boxes within 1e-3 px), warm decode ms, device ops, stream
+    syncs and busy ms per decode; (b) a full-width shufflenetv2k16 with the
+    cocodet head (random, seed 0) answers the main path's requests on the
+    module graph, then with ``backbone_engine`` ``'pallas'`` and
+    ``'dwpallas'``: (80, 6, 33, 41) fields, each engine's equal to the
+    module graph's (TF32 off), its kernel launching 13 times per forward
+    (counted in the kernels line), NN and decode ms per image; (c) on a
+    synthetic COCO detection set (80 JPEGs of 427x569 with 1-5 boxes of
+    several categories, some crowds, no keypoints,
+    ``torch_port_helpers.write_synthetic_cocodet``, seed 0) one step of
+    that model on a batch of 2 against the CPU's float64 step, as in 11a,
+    then ``train.main --dataset cocodet`` for 8 steps at the JAX defaults
+    (batch 8, 513 px, augmentation, SGD, float32), as in 11b, and
+    ``predict.main --checkpoint`` of its checkpoint writing the detections'
+    JSON; (d) ``eval_cli.main --dataset cocodet`` with it over 4 synthetic
+    images at long edge 641: the ten finite bbox stats of ``metric.Coco``,
+    nn and decoder ms per image; the ground truth as predictions gives AP
+    and AR 1.0; (e) random resnet18 and mobilenetv3small with the cocodet
+    head and k16 with the nuscenes head (23 categories), one request each
+    with its field shapes, then ``train.main --dataset cifar10 --basenet
+    cifar10net`` for 4 steps on synthetic CIFAR batches and ``eval_cli.main
+    --dataset cifar10``: a finite ``Classification`` accuracy.
 
 The second-to-last line is a JSON object describing the kernels (with each
 one's bound: the larger of its bytes over the card's memory rate and its
@@ -788,7 +814,8 @@ def serve(predictor, requests, card, label, heads=((17, 5), (19, 8))):
                 raise AssertionError(f'{len(out)} answers for {len(images)}')
             timings.append((len(images), e2e, predictor.last_nn_time,
                             predictor.last_decoder_time,
-                            predictor.processor.decoders[0].last_escalated,
+                            getattr(predictor.processor.decoders[0],
+                                    'last_escalated', []),
                             [len(pred) for pred, _, _ in out]))
     finally:
         del predictor.fields_batch
@@ -855,6 +882,44 @@ def compare_fields(out, ref, label, **tol):
     return errs
 
 
+def serve_engines(port, predictor, engines, device, card, label,
+                  heads=((17, 5), (19, 8))):
+    """``engines`` ({engine: its kernel, or None}) each on ``predictor``'s
+    model: fields equal to the module graph's (TF32 off), the main path's
+    requests (:func:`serve`, fields of ``heads``) with the engine's kernel
+    launching FORWARD_LAUNCHES times per forward and no other backbone
+    kernel. Returns ({kernel: launches}, {engine: its predictor})."""
+    from openpifpaf_tpu_torch.predictor import Predictor
+
+    image = test_image(device)
+    with no_tf32(), torch.inference_mode():
+        ref = predictor._forward(image)
+    launches, predictors = {}, {}
+    for engine, kernel in engines.items():
+        p = Predictor(model=predictor.model, device=device,
+                      backbone_engine=engine)
+        predictors[engine] = p
+        with no_tf32(), torch.inference_mode():
+            errs = compare_fields(p._forward(image), ref, f'{label} {engine}',
+                                  **ENGINE_TOL)
+        log(f'{label} {engine}: fields vs module graph, max abs err per head '
+            f'{errs} (TF32 off, rtol/atol {ENGINE_TOL["rtol"]})')
+        reset_launches(port)
+        forwards = serve(p, make_requests(), card, f'{label} {engine}',
+                         heads=heads)
+        counts = read_launches(port)
+        for name in ('depthwise_conv', 'shuffle_block', 'shuffle_branch2'):
+            want = FORWARD_LAUNCHES * forwards if name == kernel else 0
+            if counts[name] != want:
+                raise AssertionError(f'{label} {engine}: {counts[name]} '
+                                     f'{name} launches in {forwards} '
+                                     f'forwards, want {want}')
+        if kernel is not None:
+            launches[kernel] = counts[kernel]
+        log(f'{label} {engine}: launches {counts} in {forwards} forwards')
+    return launches, predictors
+
+
 def phase_engines(port, predictor, device, card):
     """Each backbone engine on the module path's model and requests;
     returns {kernel name: launches in its engine's run} and the engines'
@@ -864,31 +929,11 @@ def phase_engines(port, predictor, device, card):
     image = test_image(device)
     with no_tf32(), torch.inference_mode():
         ref = predictor._forward(image)
-    engine_kernel = {'dwpallas': 'depthwise_conv', 'pallas': 'shuffle_block',
-                     'folded': None}
-    launches = {}
-    predictors = {'module graph': predictor}
-    for engine, kernel in engine_kernel.items():
-        p = Predictor(model=predictor.model, device=device,
-                      backbone_engine=engine)
-        predictors[engine] = p
-        with no_tf32(), torch.inference_mode():
-            errs = compare_fields(p._forward(image), ref, engine,
-                                  **ENGINE_TOL)
-        log(f'engine {engine}: fields vs module graph, max abs err per head '
-            f'{errs} (TF32 off, rtol/atol {ENGINE_TOL["rtol"]})')
-        reset_launches(port)
-        forwards = serve(p, make_requests(), card, f'engine {engine}')
-        counts = read_launches(port)
-        for name in ('depthwise_conv', 'shuffle_block', 'shuffle_branch2'):
-            want = FORWARD_LAUNCHES * forwards if name == kernel else 0
-            if counts[name] != want:
-                raise AssertionError(f'engine {engine}: {counts[name]} '
-                                     f'{name} launches in {forwards} '
-                                     f'forwards, want {want}')
-        if kernel is not None:
-            launches[kernel] = counts[kernel]
-        log(f'engine {engine}: launches {counts} in {forwards} forwards')
+    launches, engine_predictors = serve_engines(
+        port, predictor, {'dwpallas': 'depthwise_conv',
+                          'pallas': 'shuffle_block', 'folded': None},
+        device, card, 'engine')
+    predictors = {'module graph': predictor, **engine_predictors}
 
     p16 = Predictor(model=predictor.model, device=device,
                     backbone_engine='pallas', bf16=True)
@@ -2601,6 +2646,314 @@ def phase_plugins_path(port, device, card):
     return launches
 
 
+#: phase 16: the cocodet head of 80 categories at stride 16, the nuscenes
+#: head of 23
+DET_HEADS = ((80, 6),)
+#: 16b: the engines served under the cocodet head and their kernels
+DET_ENGINES = {'pallas': 'shuffle_block', 'dwpallas': 'depthwise_conv'}
+#: 16c: the run at the cocodet default square edge (the one step against
+#: the CPU's float64 step at TRAIN_EDGE, as 15b)
+DET_TRAIN_EDGE = 513
+DET_STEP_BATCH = 2
+#: 16d: the eval's synthetic detection images (TRAIN_IMAGE_HW, seed 1) at
+#: the cocodet default long edge 641
+DET_EVAL_IMAGES = 4
+#: 16e: the published detection configurations served at random weights:
+#: (label, backbone, data module, categories)
+DET_CASES = (('resnet18 cocodet', 'resnet18', 'cocodet', 80),
+             ('mobilenetv3small cocodet', 'mobilenetv3small', 'cocodet', 80),
+             ('shufflenetv2k16 nuscenes', 'shufflenetv2k16', 'nuscenes', 23))
+#: 16e: the cifar10 run: synthetic CIFAR batches (seed 0), train steps of
+#: a batch of 8, then the test batch evaluated
+CIFAR_TRAIN_IMAGES = 64
+CIFAR_TEST_IMAGES = 16
+CIFAR_STEPS = 4
+
+
+def det_annotations(golden, key):
+    """(category, score, xywh box) of the kept detections of the golden
+    arrays ``key``, in the order of ``decoder.CifDet``'s host loop."""
+    score = golden[f'{key}_score']
+    rows = []
+    for j in np.argsort(-score):
+        if golden[f'{key}_keep'][j]:
+            box = golden[f'{key}_box'][j].copy()
+            box[2:] -= box[:2]
+            rows.append((int(golden[f'{key}_category'][j]), float(score[j]),
+                         box))
+    return rows
+
+
+def assert_det_rows(anns, rows, label):
+    """The detection gate on ``decoder.CifDet``'s annotations: the same
+    count, the same categories in the same order, scores within 2e-6,
+    boxes within 1e-3 px."""
+    if len(anns) != len(rows) or [a.category_id for a in anns] != [
+            r[0] for r in rows]:
+        raise AssertionError(f'{label}: categories '
+                             f'{[a.category_id for a in anns]}, want '
+                             f'{[r[0] for r in rows]}')
+    for a, (_, score, box) in zip(anns, rows):
+        if abs(a.score - score) > 2e-6 or np.abs(a.bbox - box).max() > 1e-3:
+            raise AssertionError(f'{label}: {a.score} {a.bbox}, want '
+                                 f'{score} {box}')
+
+
+def phase_det_golden(device, card):
+    """16a: ``decoder.CifDet.batch_decode`` on the card on the scenes of
+    ``tests/golden/torch_cifdet_golden.npz`` under each configuration:
+    the raw decode on every seed slot and the annotations within the
+    detection gate; warm decode ms (median of 3 after one), device ops,
+    stream syncs and busy ms per decode."""
+    import dataclasses
+    from openpifpaf_tpu_torch import headmeta
+    from openpifpaf_tpu_torch.decoder import CifDet
+    from openpifpaf_tpu_torch.ops.decode_cifdet import build_cifdet_decoder
+    from torch_port_helpers import CIFDET_CONFIGS, CIFDET_GOLDEN, \
+        CIFDET_SCENES, CIFDET_STRIDE, assert_det_gate, cifdet_golden_fields
+
+    golden = np.load(CIFDET_GOLDEN)
+    fields = cifdet_golden_fields(golden)
+    meta = headmeta.CifDet('cifdet', 'cocodet', categories=[
+        f'c{i}' for i in range(fields['sparse'].shape[0])])
+    meta.head_index, meta.base_stride = 0, CIFDET_STRIDE
+    for scene in CIFDET_SCENES:
+        batch = [torch.from_numpy(fields[scene][None]).to(device)]
+        for config, overrides in CIFDET_CONFIGS.items():
+            key = f'{scene}_{config}'
+            decoder = CifDet([meta])
+            decoder.config = dataclasses.replace(decoder.config, **overrides)
+            raw = build_cifdet_decoder(stride=CIFDET_STRIDE,
+                                       config=decoder.config)(batch[0])
+            if raw['score'].device != batch[0].device:
+                raise AssertionError(f'det golden {key}: the decode left '
+                                     'the fields\' device')
+            assert_det_gate({k: v[0].cpu().numpy() for k, v in raw.items()},
+                            {k: golden[f'{key}_{k}'] for k in (
+                                'category', 'score', 'box', 'keep')}, key)
+            anns = decoder.batch_decode(batch)[0]
+            assert_det_rows(anns, det_annotations(golden, key),
+                            f'det golden (16a) {key}')
+            seconds = []
+            for _ in range(4):
+                decoder.batch_decode(batch)
+                seconds.append(decoder.last_decoder_time)
+            ops, syncs, busy = decode_profile(
+                lambda: decoder.batch_decode(batch))
+            log(f'det golden (16a) {key}: {len(anns)} detections of '
+                f'{len({a.category_id for a in anns})} categories match the '
+                f'JAX decode; warm batch-1 decode '
+                f'{np.median(seconds[1:]) * 1e3:.2f} ms (median of '
+                f'{[round(t * 1e3, 2) for t in seconds[1:]]}), {ops} device '
+                f'ops, {syncs} stream syncs, device busy {busy:.3f} ms per '
+                f'decode [{card}]')
+
+
+def det_train_batch(data):
+    """One batch of DET_STEP_BATCH of the port's cocodet pipeline
+    (augmentation on, TRAIN_EDGE), its head metas and the full-width k16
+    with the cocodet head (random, seed 0)."""
+    from openpifpaf_tpu_torch.models.factory import Factory
+    from openpifpaf_tpu_torch.plugins.coco.cocodet import CocoDet
+    from torch_port_helpers import restored_statics
+
+    with restored_statics(CocoDet):
+        CocoDet.train_annotations, CocoDet.train_image_dir = data
+        CocoDet.square_edge = TRAIN_EDGE
+        datamodule = CocoDet()
+        datamodule.batch_size = DET_STEP_BATCH
+        model = Factory().from_scratch(
+            datamodule.head_metas,
+            generator=torch.Generator().manual_seed(TRAIN_SEED))
+        np.random.seed(TRAIN_SEED)
+        images, targets, _ = next(iter(datamodule.train_loader()))
+    field = (TRAIN_EDGE - 1) // 16 + 1
+    want = [(DET_STEP_BATCH, 80, 7, field, field)]
+    if [t.shape for t in targets] != want \
+            or not (targets[0][:, :, 0] == 1.0).any():
+        raise AssertionError(f'cocodet targets {[t.shape for t in targets]}'
+                             f', want {want} with positives')
+    return images, targets, datamodule.head_metas, model
+
+
+def phase_det_train(data, directory, device, card):
+    """16c: one cocodet step on the card against the CPU's float64 step
+    (:func:`phase_train_step`), ``train.main --dataset cocodet`` at the
+    JAX defaults (:func:`train_run`, square edge DET_TRAIN_EDGE), and
+    ``predict.main --checkpoint`` of its checkpoint writing
+    ``AnnotationDet.json_data()``. Returns the checkpoint."""
+    import PIL.Image
+    from openpifpaf_tpu_torch import datasets, decoder, predict
+    from torch_port_helpers import restored_statics
+
+    phase_train_step(det_train_batch(data), device, card,
+                     label='cocodet train step (16c)')
+    out = os.path.join(directory, 'cocodet', 'model')
+    with restored_statics(*decoder.DECODERS,
+                          *datasets.datamodules().values()):
+        train_run(train_flags(data, out, '--dataset', 'cocodet',
+                              '--cocodet-square-edge', str(DET_TRAIN_EDGE),
+                              prefix='cocodet'),
+                  out, f'cocodet train run (16c) float32, '
+                  f'{DET_TRAIN_EDGE} px', card)
+        path = os.path.join(directory, 'det-request.jpg')
+        PIL.Image.fromarray(make_requests()[0][0]).save(path, quality=95)
+        # thresholds 0: every seed is a detection, whatever 8 steps made
+        # of the weights
+        predict.main([path, '--checkpoint', out, '--json-output', directory,
+                      '--cif-th', '0', '--seed-threshold', '0',
+                      '--instance-threshold', '0'])
+    with open(path + '.predictions.json') as f:
+        dets = json.load(f)
+    if not dets or any(sorted(d) != ['bbox', 'category', 'category_id',
+                                     'score'] for d in dets):
+        raise AssertionError(f'cocodet predict JSON: {dets[:3]}')
+    log(f'cocodet predict (16c): {len(dets)} detections in the JSON, first '
+        f'{dets[0]} [{card}]')
+    return out
+
+
+def phase_det_eval(ckpt, directory, card):
+    """16d: ``eval_cli.main --dataset cocodet`` with 16c's checkpoint over
+    DET_EVAL_IMAGES synthetic images at the default long edge 641: the
+    ten bbox stats of ``metric.Coco`` finite, nn and decoder ms per
+    image; the ground truth as predictions gives AP and AR 1.0."""
+    from openpifpaf_tpu_torch import datasets, decoder, eval_cli
+    from openpifpaf_tpu_torch.annotation import AnnotationDet
+    from openpifpaf_tpu_torch.plugins.coco.cocodet import CocoDet
+    from openpifpaf_tpu_torch.plugins.coco.constants import COCO_CATEGORIES
+    from torch_port_helpers import restored_statics, write_synthetic_cocodet
+
+    ann_file, image_dir = write_synthetic_cocodet(
+        os.path.join(directory, 'cocodet-eval'), n_images=DET_EVAL_IMAGES,
+        image_hw=TRAIN_IMAGE_HW, seed=1)
+    out = os.path.join(directory, 'cocodet-eval', 'eval')
+    t0 = time.perf_counter()
+    with restored_statics(*decoder.DECODERS, eval_cli.Evaluator,
+                          *datasets.datamodules().values()):
+        eval_cli.main(['--dataset', 'cocodet', '--checkpoint', ckpt,
+                       '--cocodet-val-annotations', ann_file,
+                       '--cocodet-val-image-dir', image_dir,
+                       '--eval-loader-warmup', '0', '--output', out])
+    wall = time.perf_counter() - t0
+    with open(out + '.stats.json') as f:
+        stats = json.load(f)
+    with open(ann_file) as f:
+        data = json.load(f)
+    # the eval keeps the images with a box that is not a crowd region
+    n_images = stats['n_images']
+    want = len({a['image_id'] for a in data['annotations']
+                if not a['iscrowd']})
+    if not (len(stats['stats']) == 10 and np.all(np.isfinite(stats['stats']))
+            and n_images == want > 0):
+        raise AssertionError(f'cocodet eval stats {stats}, want {want} '
+                             'images')
+    per_image = {k: stats[k] / n_images * 1e3
+                 for k in ('total_time', 'nn_time', 'decoder_time')}
+    log(f'cocodet eval (16d): {n_images} of {DET_EVAL_IMAGES} images (the '
+        f'others hold crowd regions only) at long edge 641, per image '
+        f'total {per_image["total_time"]:.2f} ms, nn '
+        f'{per_image["nn_time"]:.2f} ms, decoder '
+        f'{per_image["decoder_time"]:.2f} ms (the first image included); '
+        f'stats {dict(zip(stats["text_labels"], stats["stats"]))} (8-step '
+        f'weights); whole command {wall:.1f} s [{card}]')
+
+    with restored_statics(CocoDet):
+        CocoDet.eval_annotations = ann_file
+        coco, = CocoDet().metrics()
+    for image in data['images']:
+        coco.accumulate([
+            AnnotationDet(COCO_CATEGORIES).set(a['category_id'], 1.0,
+                                               a['bbox'])
+            for a in data['annotations']
+            if a['image_id'] == image['id'] and not a['iscrowd']],
+            {'image_id': image['id']})
+    gt = dict(zip(*[coco.stats()[k] for k in ('text_labels', 'stats')]))
+    if gt['AP'] != 1.0 or gt['AR'] != 1.0:
+        raise AssertionError(f'cocodet ground truth as predictions: {gt}')
+    log(f'cocodet eval (16d): the ground truth as predictions gives {gt}')
+
+
+def phase_det_others(directory, device, card):
+    """16e: each of DET_CASES served by a random model (seed 0), one
+    request with its field shapes; then ``train.main --dataset cifar10
+    --basenet cifar10net`` for CIFAR_STEPS steps on synthetic CIFAR
+    batches and ``eval_cli.main --dataset cifar10`` of its checkpoint:
+    the ``Classification`` accuracy finite."""
+    from openpifpaf_tpu_torch import datasets, decoder, eval_cli, train
+    from openpifpaf_tpu_torch.models.factory import Factory
+    from openpifpaf_tpu_torch.predictor import Predictor
+    from torch_port_helpers import restored_statics, write_synthetic_cifar10
+
+    for label, base_name, name, n_categories in DET_CASES:
+        metas = plugin_metas(name, ())
+        model = Factory(base_name).from_scratch(
+            metas, generator=torch.Generator().manual_seed(TRAIN_SEED))
+        serve(Predictor(model=model, device=device), make_requests()[:1],
+              card, f'det (16e) {label}', heads=((n_categories, 6),))
+
+    root = write_synthetic_cifar10(os.path.join(directory, 'cifar10'),
+                                   n_train=CIFAR_TRAIN_IMAGES,
+                                   n_test=CIFAR_TEST_IMAGES, seed=TRAIN_SEED)
+    out = os.path.join(directory, 'cifar10', 'model')
+    t0 = time.perf_counter()
+    with restored_statics(*decoder.DECODERS, eval_cli.Evaluator,
+                          *datasets.datamodules().values()):
+        train.main(['--dataset', 'cifar10', '--basenet', 'cifar10net',
+                    '--cifar10-root-dir', root, '--batch-size', '8',
+                    '--epochs', '1', '--train-batches', str(CIFAR_STEPS),
+                    '--val-batches', '1', '--log-interval', '1',
+                    '--output', out])
+        eval_cli.main(['--dataset', 'cifar10', '--checkpoint', out,
+                       '--cifar10-root-dir', root, '--eval-loader-warmup',
+                       '0', '--output', out + '.eval'])
+    wall = time.perf_counter() - t0
+    train_lines, val_lines = read_train_log(out + '.log')
+    with open(out + '.eval.stats.json') as f:
+        stats = json.load(f)
+    if len(train_lines) != CIFAR_STEPS or not np.all(np.isfinite(
+            [line['loss'] for line in train_lines + val_lines])) \
+            or stats['text_labels'] != ['accuracy'] \
+            or not np.isfinite(stats['stats'][0]) \
+            or stats['n_images'] != CIFAR_TEST_IMAGES:
+        raise AssertionError(f'cifar10: {train_lines} {val_lines} {stats}')
+    log(f'det (16e) cifar10: {CIFAR_STEPS} steps (losses '
+        f'{[line["loss"] for line in train_lines]}), eval of '
+        f'{stats["n_images"]} images: accuracy {stats["stats"][0]}, decoder '
+        f'{stats["decoder_time"] / stats["n_images"] * 1e3:.2f} ms/image; '
+        f'train and eval {wall:.1f} s [{card}]')
+
+
+def phase_detection(port, device, card):
+    """Phase 16: (a)-(e); returns {kernel: launches} of (b)."""
+    import tempfile
+    from openpifpaf_tpu_torch.predictor import Predictor
+    from torch_port_helpers import write_synthetic_cocodet
+
+    t0 = time.perf_counter()
+    phase_det_golden(device, card)
+    predictor = Predictor(head_metas=plugin_metas('cocodet', ()),
+                          device=device)
+    reset_launches(port)
+    serve(predictor, make_requests(), card, 'cocodet (16b) module graph',
+          heads=DET_HEADS)
+    if any(read_launches(port).values()):
+        raise AssertionError(f'cocodet module graph: launches '
+                             f'{read_launches(port)}')
+    launches, _ = serve_engines(port, predictor, DET_ENGINES, device, card,
+                                'cocodet (16b)', heads=DET_HEADS)
+    with tempfile.TemporaryDirectory() as directory:
+        data = write_synthetic_cocodet(
+            os.path.join(directory, 'cocodet-data'), n_images=TRAIN_IMAGES,
+            image_hw=TRAIN_IMAGE_HW, seed=TRAIN_SEED)
+        ckpt = phase_det_train(data, directory, device, card)
+        phase_det_eval(ckpt, directory, card)
+        phase_det_others(directory, device, card)
+    log(f'phase 16: launches {launches} in (b); {time.perf_counter() - t0:.1f}'
+        f' s [{card}]')
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, rows, row):
     """One kernel's entry of the JSON line: times and bound of ``row``,
     the largest error of all ``rows``."""
@@ -2652,6 +3005,8 @@ def main():
     launches['cifhr_accumulate'] += phase_tracking_training(port, device,
                                                             card)
     launches['cifhr_accumulate'] += phase_plugins_path(port, device, card)
+    for name, count in phase_detection(port, device, card).items():
+        launches[name] += count
 
     # no single PyTorch call computes the CifHr map; times at F=17 K=256
     entries = [kernel_entry('cifhr_accumulate', 'cifhr.cu',

@@ -6,4 +6,5 @@ from .module import DataModule
 from .factory import DATAMODULES, datamodules, factory
 from .loader import Loader
 from .loader_with_reset import LoaderWithReset
+from .wrapped import WrappedDataset
 from . import collate

@@ -7,6 +7,7 @@ and ``configure`` are the registry's flags.
 
 from .base import Decoder
 from .cifcaf import CifCaf, CifCafDense
+from .cifdet import CifDet
 from .multi import Multi
 from .track_annotation import TrackAnnotation
 from .track_base import TrackBase

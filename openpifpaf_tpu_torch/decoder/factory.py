@@ -1,22 +1,20 @@
 """Decoder factory (port of ``openpifpaf_tpu/decoder/factory.py``): the
 registry of decoders, their flags, ``--decoder name[:i]`` selection and
 the ``Multi`` over every decoder that the head metas admit.
-
-``CifDet`` is not in the registry until the detection decoder is ported
-(ROADMAP A9).
 """
 
 import argparse
 import logging
 
 from .cifcaf import CifCaf, CifCafDense
+from .cifdet import CifDet
 from .multi import Multi
 from .pose_similarity import PoseSimilarity
 from .tracking_pose import TrackingPose
 
 LOG = logging.getLogger(__name__)
 
-DECODERS = {CifCaf, CifCafDense, TrackingPose, PoseSimilarity}
+DECODERS = {CifCaf, CifCafDense, CifDet, TrackingPose, PoseSimilarity}
 
 #: wrap every built decoder's ``batch_decode`` in a cProfile dump
 profile_decoder = None
@@ -57,6 +55,7 @@ def configure(args: argparse.Namespace):
                  args.decoder_workers)
     CifCaf.cifhr_threshold = args.cif_th
     CifCaf.caf_score_th = args.caf_th
+    CifDet.cifhr_threshold = args.cif_th
     for decoder in DECODERS:
         decoder.configure(args)
 

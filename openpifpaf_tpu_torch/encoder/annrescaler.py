@@ -190,6 +190,37 @@ class AnnRescaler:
         return np.nan if scale < 0.1 else scale
 
 
+class AnnRescalerDet:
+    def __init__(self, stride, n_categories):
+        self.stride = stride
+        self.n_categories = n_categories
+
+    def valid_area(self, meta):
+        if 'valid_area' not in meta:
+            return None
+        return tuple(edge / self.stride for edge in meta['valid_area'])
+
+    def detections(self, anns):
+        return [(ann['category_id'], np.asarray(ann['bbox']) / self.stride)
+                for ann in anns if not ann['iscrowd']]
+
+    def bg_mask(self, anns, width_height, *, crowd_margin):
+        """Per-category paintable mask; a crowd box only blanks its own
+        category plane."""
+        grid_h, grid_w = _grid_shape(width_height, self.stride)
+        mask = np.ones((self.n_categories, grid_h, grid_w), dtype=np.bool_)
+        for ann in anns:
+            if not ann['iscrowd']:
+                continue
+            rect = _box_cells(ann.get('bbox'), self.stride, crowd_margin,
+                              grid_h, grid_w)
+            if rect is None:
+                continue
+            left, top, right, bottom = rect
+            mask[ann['category_id'] - 1, top:bottom, left:right] = False
+        return mask
+
+
 class TrackingAnnRescaler(AnnRescaler):
     """AnnRescaler over (frame1, frame2) annotation pairs (reference
     ``annrescaler.py:232-310``): keypoint sets concatenate both frames of

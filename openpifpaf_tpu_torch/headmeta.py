@@ -1,6 +1,7 @@
 """Head metadata (port of ``openpifpaf_tpu/headmeta.py``: ``Base``, ``Cif``,
-``Caf`` and the tracking metas ``TSingleImageCif``, ``TSingleImageCaf`` and
-``Tcaf``): the schema contract shared by heads and decoders.
+``Caf``, the detection meta ``CifDet`` and the tracking metas
+``TSingleImageCif``, ``TSingleImageCaf`` and ``Tcaf``): the schema
+contract shared by heads and decoders.
 
 Mirrors the semantics of the reference ``openpifpaf/headmeta.py:37-187``:
 a head meta describes the *composition* of a composite field (how many
@@ -10,7 +11,8 @@ specific information (keypoint names, skeleton, sigmas, ...).
 Everything downstream dispatches on these dataclasses:
 datasets construct them, the network factory builds one head per meta,
 the loss factory builds one composite loss per meta, and the decoder
-factory pairs (Cif, Caf) metas into decode pipelines.
+factory pairs (Cif, Caf) metas into decode pipelines and gives each
+CifDet meta its detection decoder.
 """
 
 from dataclasses import dataclass, field
@@ -138,6 +140,29 @@ class Caf(Base):
         concatenated.base_stride = metas[0].base_stride
         concatenated.upsample_stride = metas[0].upsample_stride
         return concatenated
+
+
+@dataclass
+class CifDet(Base):
+    """Composite Intensity Field for detection: one field per category.
+
+    Decoded field channels: [logb, confidence, x, y, w, h].
+    """
+
+    categories: List[str] = None
+
+    n_confidences: ClassVar[int] = 1
+    n_vectors: ClassVar[int] = 2
+    n_scales: ClassVar[int] = 0
+    vector_offsets: ClassVar[List[bool]] = [True, False]
+
+    decoder_min_scale: float = 0.0
+
+    training_weights: Optional[List[float]] = None
+
+    @property
+    def n_fields(self) -> int:
+        return len(self.categories)
 
 
 @dataclass

@@ -1,6 +1,6 @@
 """Evaluation metrics: verbatim copies of the numpy modules ``base``,
-``cocoeval`` and ``coco`` of ``openpifpaf_tpu/metric`` (``classification``
-waits for Cifar10, ROADMAP A9)."""
+``cocoeval``, ``coco`` and ``classification`` of ``openpifpaf_tpu/metric``."""
 
 from .base import Base
 from .coco import Coco
+from .classification import Classification

@@ -16,8 +16,10 @@ LOG = logging.getLogger(__name__)
 class Coco(Base):
     text_labels_keypoints = ['AP', 'AP0.5', 'AP0.75', 'APM', 'APL',
                              'AR', 'AR0.5', 'AR0.75', 'ARM', 'ARL']
+    #: the ten values of ``CocoEval.stats`` in bbox mode (the JAX package
+    #: labels the last four 'ART1', 'ART10', 'AR', 'ARS')
     text_labels_bbox = ['AP', 'AP0.5', 'AP0.75', 'APS', 'APM', 'APL',
-                        'ART1', 'ART10', 'AR', 'ARS', 'ARM', 'ARL']
+                        'AR', 'ARS', 'ARM', 'ARL']
 
     def __init__(self, gt_by_image_id=None, *, max_per_image=20,
                  category_ids=None, iou_type='keypoints',

@@ -22,6 +22,8 @@ module names:
 - SqueezeNet: ``Conv_0`` is ``stem.conv``; ``Fire_f``'s ``Conv_0``,
   ``Conv_1``, ``Conv_2`` are ``fires.f.squeeze``, ``expand1``,
   ``expand3``;
+- a backbone of bare convs (the cifar10 plugin's ``Cifar10Net``):
+  ``Conv_i`` is ``convs.i``;
 - ``head_nets_i/Conv_0`` is ``head_nets.i.conv``; in a tracking shell,
   ``head_nets_i/CompositeField4_0/Conv_0`` is
   ``head_nets.i.composite_field.conv`` and a Tcaf head's
@@ -205,6 +207,10 @@ def _base_net_layers(base_params):
             return _mobilenet_layers(base_params, kind)
     if 'Fire' in kinds:
         return _squeezenet_layers(base_params)
+    if kinds == {'Conv'}:
+        convs = _children(base_params, (), 'Conv')
+        _check_contiguous(convs, 'base_net Conv')
+        return {(f'Conv_{i}',): (f'convs.{i}', 'conv') for i in convs}
     raise KeyError(f'base_net modules {sorted(kinds)}: no backbone family '
                    'of the JAX package')
 

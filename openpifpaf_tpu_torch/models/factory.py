@@ -179,6 +179,19 @@ def configure(args):
     )
 
 
+def base_factory(name):
+    """The constructor of backbone ``name``; plugins add backbones
+    (``cifar10net``) when they register, so an unknown name registers them
+    first. Raises ``ValueError`` for a name no one registers."""
+    if name not in BASE_FACTORIES:
+        from .. import plugin
+        plugin.register()
+    if name not in BASE_FACTORIES:
+        raise ValueError(f'unknown base network {name!r}; '
+                         f'available: {sorted(BASE_FACTORIES)}')
+    return BASE_FACTORIES[name]
+
+
 #: std of a standard normal truncated to [-2, 2]: flax's
 #: ``variance_scaling`` divides by it so the kernel keeps variance 1/fan_in
 _TRUNC_STD = 0.87962566103423978
@@ -217,17 +230,8 @@ class Factory:
         """Shell with randomly initialised weights. ``base_net`` overrides
         the ``base_name`` backbone (e.g. a narrow ShuffleNetV2K)."""
         if base_net is None:
-            if self.base_name not in BASE_FACTORIES:
-                raise ValueError(
-                    f'unknown base network {self.base_name!r}; '
-                    f'available: {sorted(BASE_FACTORIES)}')
-            base_net = BASE_FACTORIES[self.base_name]()
+            base_net = base_factory(self.base_name)()
         for meta in head_metas:
-            if not isinstance(meta, (headmeta.Cif, headmeta.Caf,
-                                     headmeta.Tcaf)):
-                raise NotImplementedError(
-                    f'head {type(meta).__name__} is not yet ported '
-                    '(ROADMAP A9)')
             meta.upsample_stride = self.upsample_stride
         assign_strides(head_metas, base_net.stride)
         return build_shell(base_net, head_metas, generator=generator)

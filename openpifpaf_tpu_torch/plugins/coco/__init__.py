@@ -1,8 +1,10 @@
-"""COCO plugin: the cocokp data module, its constants and head metas. The
-cocodet data module is not ported yet (ROADMAP A9)."""
+"""COCO plugin: the keypoint (cocokp) and detection (cocodet) data modules,
+their constants and head metas."""
 
 
 def register():
     from ...datasets.factory import DATAMODULES
+    from .cocodet import CocoDet
     from .cocokp import CocoKp
     DATAMODULES['cocokp'] = CocoKp
+    DATAMODULES['cocodet'] = CocoDet

@@ -29,7 +29,7 @@ from .. import headmeta
 LOG = logging.getLogger(__name__)
 
 HEADMETA_CLASSES = {cls.__name__: cls for cls in (
-    headmeta.Cif, headmeta.Caf, headmeta.TSingleImageCif,
+    headmeta.Cif, headmeta.Caf, headmeta.CifDet, headmeta.TSingleImageCif,
     headmeta.TSingleImageCaf, headmeta.Tcaf)}
 
 
@@ -50,9 +50,8 @@ def headmeta_from_dict(d):
     d = dict(d)
     name = d.pop('__class__')
     if name not in HEADMETA_CLASSES:
-        raise NotImplementedError(
-            f'head meta {name} is not yet ported to PyTorch '
-            '(ROADMAP A9)')
+        raise ValueError(f'unknown head meta {name!r}; '
+                         f'known: {sorted(HEADMETA_CLASSES)}')
     cls = HEADMETA_CLASSES[name]
     head_index = d.pop('head_index', None)
     base_stride = d.pop('base_stride', None)
@@ -122,12 +121,7 @@ def load_shell(path, *, head_metas=None,
         if family in targets:
             targets[family].update(options)
     try:
-        base_name = meta['base_name']
-        if base_name not in models_factory.BASE_FACTORIES:
-            raise ValueError(
-                f'unknown base network {base_name!r}; available: '
-                f'{sorted(models_factory.BASE_FACTORIES)}')
-        base_net = models_factory.BASE_FACTORIES[base_name]()
+        base_net = models_factory.base_factory(meta['base_name'])()
     finally:
         for family, options in targets.items():
             options.clear()

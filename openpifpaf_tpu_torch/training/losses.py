@@ -400,10 +400,10 @@ class MultiHeadLossAutoTuneVariance(MultiHeadLossBase):
 
 
 #: the loss of each head meta; the lookup is by exact type, as in JAX
-#: (CifDet waits for ROADMAP A9)
 LOSSES = {
     headmeta.Cif: CompositeLoss,
     headmeta.Caf: CompositeLoss,
+    headmeta.CifDet: CompositeLoss,
     headmeta.TSingleImageCif: CompositeLoss,
     headmeta.TSingleImageCaf: CompositeLoss,
     headmeta.Tcaf: CompositeLoss,

@@ -22,6 +22,8 @@ from .hflip import HFlip
 from .image import ImageTransform, Blur, HorizontalBlur, JpegCompression
 from .random import RandomApply, RandomChoice, DeterministicEqualChoice
 from .rotate import RotateBy90, RotateUniform
+from .minsize import MinSize
+from .unclipped import UnclippedArea, UnclippedSides
 from .toannotations import (ToAnnotations, ToKpAnnotations, ToDetAnnotations,
                             ToCrowdAnnotations)
 from .encoders import Encoders

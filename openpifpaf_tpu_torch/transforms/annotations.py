@@ -22,9 +22,11 @@ class NormalizeAnnotations(Preprocess):
                 # already a converted annotation object
                 # (reference transforms/annotations.py:19-21)
                 continue
-            if 'keypoints' in ann:
-                ann['keypoints'] = np.asarray(
-                    ann['keypoints'], dtype=np.float32).reshape(-1, 3)
+            # a detection annotation (COCO's instances files) has no
+            # keypoints, which every geometric transform moves: it gets
+            # none, as in OpenPifPaf (the JAX package raises KeyError)
+            ann['keypoints'] = np.asarray(
+                ann.get('keypoints', ()), dtype=np.float32).reshape(-1, 3)
             if 'bbox' in ann:
                 ann['bbox'] = np.asarray(ann['bbox'], dtype=np.float32)
             if 'bbox_original' not in ann and 'bbox' in ann:

@@ -33,6 +33,8 @@ class _HorizontalSwap:
             for i, name in enumerate(keypoints)])
 
     def __call__(self, keypoints):
+        if not len(keypoints):
+            return keypoints  # a detection annotation has none to swap
         swapped = np.zeros(keypoints.shape)
         swapped[self.permutation] = keypoints
         return swapped

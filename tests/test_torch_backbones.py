@@ -34,6 +34,7 @@ from openpifpaf_tpu.models import factory as jax_factory
 from openpifpaf_tpu.models.heads import CompositeField4 as JaxCompositeField4
 from openpifpaf_tpu.models.shell import Shell as JaxShell, \
     assign_strides as jax_assign_strides
+from openpifpaf_tpu_torch import datasets
 from openpifpaf_tpu_torch.models import basenetworks, convert_jax
 from openpifpaf_tpu_torch.models import factory as port_factory
 from openpifpaf_tpu_torch.plugins.coco.constants import cocokp_head_metas
@@ -234,9 +235,9 @@ def _zeros_like_shapes(tree):
         lambda s: np.broadcast_to(np.zeros((), s.dtype), s.shape), tree)
 
 
-#: the entries of ``openpifpaf_tpu/models/factory.py``; the JAX package's
-#: plugins add ``cifar10net`` (ROADMAP A9)
-REGISTRY = set(jax_factory.BASE_FACTORIES) - {'cifar10net'}
+#: the entries of ``openpifpaf_tpu/models/factory.py`` and the
+#: ``cifar10net`` that both packages' cifar10 plugins add
+REGISTRY = set(jax_factory.BASE_FACTORIES)
 
 
 @pytest.mark.parametrize('name', sorted(REGISTRY))
@@ -244,6 +245,7 @@ def test_registry_entry_bridges_at_full_width(name):
     """Every ``BASE_FACTORIES`` entry: the flax init's names and shapes
     through the bridge are the port's ``state_dict``, strict both ways,
     with equal ``stride`` and ``out_features``."""
+    datasets.datamodules()  # the plugins register their backbones
     assert set(port_factory.BASE_FACTORIES) == REGISTRY
     jax_net = jax_factory.BASE_FACTORIES[name]()
     shapes = jax.eval_shape(lambda: jax_net.init(

@@ -7,7 +7,8 @@ step against the CPU, BatchNorm's running-statistics rule and the bf16
 step, the other backbones (resnet50, a group-norm k16) against the CPU,
 the engine choice on a group-norm k20, the eval CLI, tracking (the
 k16 tracking forward against the CPU, the tracking golden sequence, a
-cocokpst train step) and the wholebody-133 golden decode.
+cocokpst train step), the wholebody-133 golden decode, and detection (the
+CifDet golden decode, the engines under the cocodet head).
 
 Every test here needs a GPU (marker ``gpu``) and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a machine that
@@ -33,6 +34,8 @@ from openpifpaf_tpu_torch.ops import cifhr, cifhr_cuda
 from openpifpaf_tpu_torch.plugins.coco.constants import cocokp_head_metas
 from openpifpaf_tpu_torch.predictor import Predictor
 
+from torch_port_helpers import CIFDET_CONFIGS, CIFDET_GOLDEN, \
+    CIFDET_SCENES, CIFDET_STRIDE, assert_det_gate, cifdet_golden_fields
 from torch_port_helpers import CONFIGS, GOLDEN, GOLDEN_SPARSE_FLAGS, \
     GOLDEN_STRIDE, TRACKING_GOLDEN, WHOLEBODY_GOLDEN, WHOLEBODY_SEEDS, \
     assert_pose_gate, port_wholebody_metas, \
@@ -818,3 +821,62 @@ def test_cuda_cocokpst_train_step(cuda, tmp_path):
     assert len(heads) == 9 and np.all(np.isfinite(heads))
     assert any(not torch.equal(b, p.detach())
                for b, p in zip(before, trainer.model.parameters()))
+
+
+@pytest.mark.parametrize('scene', CIFDET_SCENES)
+@pytest.mark.parametrize('config', sorted(CIFDET_CONFIGS))
+def test_cuda_cifdet_decode_matches_golden(cuda, scene, config):
+    """The detection decode on CUDA fields stays on the card and gives the
+    JAX detections of ``golden/torch_cifdet_golden.npz`` on every seed
+    slot (the same keep mask and categories, scores within 2e-6, boxes
+    within 1e-3 px), and ``decoder.CifDet`` the kept ones."""
+    from openpifpaf_tpu_torch import headmeta
+    from openpifpaf_tpu_torch.decoder import CifDet
+    from openpifpaf_tpu_torch.ops.decode_cifdet import build_cifdet_decoder
+
+    golden = np.load(CIFDET_GOLDEN)
+    fields = torch.from_numpy(cifdet_golden_fields(golden)[scene][None]).to(
+        cuda)
+    meta = headmeta.CifDet('cifdet', 'cocodet',
+                           categories=[f'c{i}' for i in range(80)])
+    meta.head_index, meta.base_stride = 0, CIFDET_STRIDE
+    decoder = CifDet([meta])
+    decoder.config = dataclasses.replace(decoder.config,
+                                         **CIFDET_CONFIGS[config])
+    out = build_cifdet_decoder(stride=CIFDET_STRIDE,
+                               config=decoder.config)(fields)
+    assert all(v.device == fields.device for v in out.values())
+    ref = {k: golden[f'{scene}_{config}_{k}']
+           for k in ('category', 'score', 'box', 'keep')}
+    assert_det_gate({k: v[0].cpu().numpy() for k, v in out.items()}, ref)
+    annotations, = decoder.batch_decode([fields])
+    kept = np.flatnonzero(ref['keep'])
+    kept = kept[np.argsort(-ref['score'][kept], kind='stable')]
+    assert [a.category_id for a in annotations] == list(ref['category'][kept])
+
+
+@pytest.mark.parametrize('engine,counter', [('dwpallas', dw_cuda),
+                                            ('pallas', shuffle_cuda)])
+def test_cocodet_engines_equal_the_module_graph(cuda, engine, counter):
+    """A full-width shufflenetv2k16 with the cocodet head (random, seed 0)
+    served by each kernel engine gives the module graph's fields (float32,
+    TF32 off: atol 1e-4) of shape (80, 6, 33, 41), with 13 launches of
+    its kernel per forward."""
+    from openpifpaf_tpu_torch.datasets import factory as datasets_factory
+
+    metas = datasets_factory('cocodet').head_metas
+    module = Predictor(head_metas=metas, device=cuda, backbone_engine='flax')
+    served = Predictor(model=module.model, device=cuda, backbone_engine=engine)
+    image = np.random.RandomState(0).randn(1, 513, 641, 3).astype(np.float32)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = module.fields_batch(image)
+        before = counter.LAUNCHES
+        out = served.fields_batch(image)
+        after = counter.LAUNCHES
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert after - before == 13
+    assert [tuple(o.shape) for o in out] == [(1, 80, 6, 33, 41)]
+    torch.testing.assert_close(out[0], ref[0], rtol=1e-4, atol=1e-4)

@@ -100,7 +100,12 @@ def test_every_port_module_imports_without_jax():
                  'plugins.wholebody.metric', 'plugins.crowdpose',
                  'plugins.animalpose', 'plugins.animalpose.voc_to_coco',
                  'plugins.apollocar3d', 'plugins.apollocar3d.metrics',
-                 'plugins.apollocar3d.apollo_to_coco'):
+                 'plugins.apollocar3d.apollo_to_coco',
+                 'transforms.unclipped', 'transforms.minsize',
+                 'encoder.cifdet', 'ops.decode_cifdet', 'decoder.cifdet',
+                 'plugins.coco.cocodet', 'plugins.cifar10',
+                 'plugins.nuscenes', 'metric.classification',
+                 'datasets.wrapped'):
         assert f'openpifpaf_tpu_torch.{name}' in report['modules']
     assert report['loaded'] == []
 

@@ -1,5 +1,8 @@
 """The port's dataset registry, plugin discovery and keypoint plugins
-(wholebody, crowdpose, animal, apollo) against the JAX package's.
+(wholebody, crowdpose, animal, apollo) against the JAX package's; the
+registry and flags cover the detection plugins (cocodet, cifar10,
+nuscenes) too, whose pipelines ``test_torch_detection_plugins.py``
+holds.
 
 Everything here is host-side Python and numpy, so the comparisons are
 exact: the registry's names, every field of the head metas (with the
@@ -44,10 +47,11 @@ from torch_port_helpers import CROWD_INDICES, restored_statics, \
     write_synthetic_crowdpose
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: the JAX package's data modules that wait for ROADMAP A9
-NOT_PORTED = {'cocodet', 'cifar10', 'nuscenes'}
+#: the JAX package's data modules that the port lacks
+NOT_PORTED = set()
 PORTED = {'cocokp', 'cocokpst', 'posetrack2018', 'posetrack2017',
-          'wholebody', 'crowdpose', 'animal', 'apollo'}
+          'wholebody', 'crowdpose', 'animal', 'apollo', 'cocodet',
+          'cifar10', 'nuscenes'}
 
 
 def _jax_modules():
@@ -61,8 +65,8 @@ def test_registry_is_jax_minus_what_waits_for_a9():
     assert set(_jax_modules()) - NOT_PORTED == PORTED
     assert set(plugin.REGISTERED) == {
         f'openpifpaf_tpu_torch.plugins.{name}' for name in (
-            'animalpose', 'apollocar3d', 'coco', 'crowdpose', 'posetrack',
-            'wholebody')}
+            'animalpose', 'apollocar3d', 'cifar10', 'coco', 'crowdpose',
+            'nuscenes', 'posetrack', 'wholebody')}
 
 
 def test_port_package_defines_no_register():

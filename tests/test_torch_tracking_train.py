@@ -680,8 +680,9 @@ def test_posetrack2018_eval_loader_resets_between_sequences(posetrack):
 
 def test_posetrack_data_modules_registered():
     names = sorted(datasets.datamodules())
-    assert names == ['animal', 'apollo', 'cocokp', 'cocokpst', 'crowdpose',
-                     'posetrack2017', 'posetrack2018', 'wholebody']
+    assert names == ['animal', 'apollo', 'cifar10', 'cocodet', 'cocokp',
+                     'cocokpst', 'crowdpose', 'nuscenes', 'posetrack2017',
+                     'posetrack2018', 'wholebody']
     for name in ('posetrack2018', 'posetrack2017'):
         ours = datasets.factory(name).head_metas
         ref = openpifpaf_tpu.datasets.factory(name).head_metas

@@ -14,6 +14,7 @@ loaded from it must serve the fields of the model that wrote it, exactly,
 and the JAX model's fields on the JAX state within atol 1e-4.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -123,15 +124,19 @@ def _run_port(coco, variables, out, monkeypatch):
 
 
 def test_train_loop_checkpoint_predictor_match_jax(coco, tmp_path,
-                                                   monkeypatch):
+                                                   monkeypatch, request):
     import logging
     model = jax_narrow_shell(_datamodule(JaxCocoKp, coco).head_metas)
     variables = jax.tree_util.tree_map(np.asarray, randomize_variables(
         model.init(jax.random.PRNGKey(0), jnp.zeros((1, 65, 65, 3)),
                    train=True), seed=12))
 
+    # setLevel, not an attribute write: it also drops every logger's
+    # cached isEnabledFor, which an earlier test in this process may have
+    # filled under the default WARNING (the trainers then log nothing)
     root = logging.getLogger('')
-    monkeypatch.setattr(root, 'level', logging.INFO)
+    request.addfinalizer(functools.partial(root.setLevel, root.level))
+    root.setLevel(logging.INFO)
     logs = {}
     for name, run in (('jax', lambda out: _run_jax(coco, variables, out)),
                       ('port', lambda out: _run_port(coco, variables, out,

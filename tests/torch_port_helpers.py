@@ -28,6 +28,12 @@ And ``golden/torch_wholebody_golden.npz``: the two contested wholebody-133
 scenes of ``test_wholebody_parity.py`` (137x177, stride 8) with the JAX
 ``CifCaf._decode_adaptive`` poses on them. Write it anew with
 ``--wholebody``.
+
+And ``golden/torch_cifdet_golden.npz``: two 80-category CifDet scenes at
+stride 16 on a 33x41 grid (:func:`cifdet_sparse_scene`,
+:func:`cifdet_contested_scene`), stored as the cells that differ from an
+empty cell, with the JAX package's detections under each configuration
+of :data:`CIFDET_CONFIGS`. Write it anew with ``--cifdet``.
 """
 
 import argparse
@@ -734,6 +740,76 @@ def write_synthetic_crowdpose(directory, **kwargs):
     return ann_file, image_dir
 
 
+def write_synthetic_cocodet(directory, *, n_images=16, image_hw=(113, 129),
+                            seed=0, categories=None, keypoints=False):
+    """A COCO detection set made from ``np.random.RandomState(seed)``: JPEG
+    images of ``image_hw`` with 1-5 boxes each, of categories drawn from
+    ``categories`` (default COCO's 80; ids 1..n), each painted as a
+    rectangle of its category's colour on dark noise, one box in six a
+    crowd region (``iscrowd`` 1). The annotations have no ``keypoints``,
+    as COCO's instances files, unless ``keypoints``: then 17 absent ones
+    each, as in COCO's person keypoint files, which the JAX package's
+    transforms need. Returns (annotation file, image directory)."""
+    import json
+    import PIL.Image
+    from openpifpaf_tpu_torch.plugins.coco.constants import COCO_CATEGORIES
+
+    categories = list(categories or COCO_CATEGORIES)
+    rng = np.random.RandomState(seed)
+    image_dir = os.path.join(directory, 'images')
+    os.makedirs(image_dir, exist_ok=True)
+    h, w = image_hw
+    colors = rng.randint(96, 256, (len(categories), 3))
+    images, annotations = [], []
+    for image_id in range(1, n_images + 1):
+        image = rng.randint(0, 64, (h, w, 3)).astype(np.uint8)
+        for _ in range(rng.randint(1, 6)):
+            cat = int(rng.randint(len(categories)))
+            bw, bh = rng.uniform(0.1, 0.5) * w, rng.uniform(0.1, 0.5) * h
+            x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            image[int(y0):int(y0 + bh), int(x0):int(x0 + bw)] = colors[cat]
+            bbox = [round(float(c), 2) for c in (x0, y0, bw, bh)]
+            annotations.append({
+                'id': len(annotations) + 1, 'image_id': image_id,
+                'category_id': cat + 1, 'iscrowd': int(rng.rand() < 1 / 6),
+                'bbox': bbox, 'area': round(bbox[2] * bbox[3], 2),
+                **({'keypoints': [0.0] * 51} if keypoints else {}),
+            })
+        file_name = f'{image_id:012d}.jpg'
+        PIL.Image.fromarray(image).save(os.path.join(image_dir, file_name),
+                                        quality=95)
+        images.append({'id': image_id, 'file_name': file_name,
+                       'width': w, 'height': h})
+    ann_file = os.path.join(directory, 'instances.json')
+    with open(ann_file, 'w') as f:
+        json.dump({'images': images, 'annotations': annotations,
+                   'categories': [{'id': i + 1, 'name': name}
+                                  for i, name in enumerate(categories)]}, f)
+    return ann_file, image_dir
+
+
+def write_synthetic_cifar10(directory, *, n_train=16, n_test=8, seed=0):
+    """CIFAR-10 python batches made from ``np.random.RandomState(seed)``
+    under ``directory/cifar-10-batches-py``: ``data_batch_1`` with
+    ``n_train`` and ``test_batch`` with ``n_test`` 32x32 images, each a
+    square of its label's colour on noise. Returns ``directory``."""
+    import pickle
+
+    rng = np.random.RandomState(seed)
+    base = os.path.join(directory, 'cifar-10-batches-py')
+    os.makedirs(base, exist_ok=True)
+    colors = rng.randint(64, 256, (10, 3))
+    for name, n in (('data_batch_1', n_train), ('test_batch', n_test)):
+        labels = [int(label) for label in rng.randint(0, 10, n)]
+        images = rng.randint(0, 64, (n, 32, 32, 3)).astype(np.uint8)
+        for image, label in zip(images, labels):
+            image[5:26, 5:26] = colors[label]
+        with open(os.path.join(base, name), 'wb') as f:
+            pickle.dump({b'data': images.transpose(0, 3, 1, 2).reshape(n, -1),
+                         b'labels': labels}, f)
+    return directory
+
+
 def write_synthetic_posetrack2018(directory, *, n_sequences=2, n_frames=4,
                                   image_hw=(720, 1280), n_people=3, seed=0):
     """A PoseTrack 2018 set made from ``np.random.RandomState(seed)``, in
@@ -1266,6 +1342,169 @@ def write_wholebody_golden():
     np.savez_compressed(WHOLEBODY_GOLDEN, **jax_wholebody_golden())
 
 
+#: golden/torch_cifdet_golden.npz: CifDet scenes of 80 categories at
+#: stride 16 on the 33x41 grid of a 513x641 image
+CIFDET_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             'golden', 'torch_cifdet_golden.npz')
+CIFDET_HW = (513, 641)
+CIFDET_STRIDE = 16
+CIFDET_CATEGORIES = 80
+#: the golden file's decoder configurations: overrides of
+#: ``CifDetDecoderConfig``
+CIFDET_CONFIGS = {'default': {}, 'all_categories': {'nms_by_category': False}}
+CIFDET_SCENES = ('sparse', 'contested')
+
+
+def cifdet_scene(objects, *, seed, hw=CIFDET_HW, stride=CIFDET_STRIDE,
+                 n_categories=CIFDET_CATEGORIES, stamp=4, noise=0.3,
+                 clutter=0.04, confidence=None):
+    """Decoded CifDet fields (F, 6, H, W) [logb, c, x, y, w, h] of an image
+    of ``hw`` at ``stride``: an empty cell has c = 0 and its own index as
+    x, y; each of ``objects`` (category0, cx, cy, w, h in pixels) paints a
+    ``stamp`` x ``stamp`` block of cells around its centre with
+    confidence ``confidence`` (default uniform in [0.5, 1)) and the box
+    in field units, its centre and size with Gaussian regression noise
+    (std ``noise`` cells, 5% of the size per unit of ``noise``); a
+    ``clutter`` share of all cells gets a random low confidence (0.05 to
+    0.45) and a small box. Made from ``np.random.RandomState(seed)``."""
+    rng = np.random.RandomState(seed)
+    grid = ((hw[0] - 1) // stride + 1, (hw[1] - 1) // stride + 1)
+    field = _default_field((n_categories, 6) + grid)
+    cells = rng.rand(n_categories, *grid) < clutter
+    n = int(cells.sum())
+    for ch, values in ((1, rng.uniform(0.05, 0.45, n)),
+                       (2, field[:, 2][cells] + rng.normal(0, 0.5, n)),
+                       (3, field[:, 3][cells] + rng.normal(0, 0.5, n)),
+                       (4, rng.uniform(0.5, 6.0, n)),
+                       (5, rng.uniform(0.5, 6.0, n))):
+        field[:, ch][cells] = values
+    low = (stamp - 1) // 2
+    for cat, cx, cy, w, h in objects:
+        ci, cj = cx / stride, cy / stride
+        for dj in range(-low, stamp - low):
+            for di in range(-low, stamp - low):
+                j, i = int(cj) + dj, int(ci) + di
+                if not (0 <= j < grid[0] and 0 <= i < grid[1]):
+                    continue
+                field[cat, 1, j, i] = (rng.uniform(0.5, 1.0)
+                                       if confidence is None else confidence)
+                field[cat, 2, j, i] = ci + noise * rng.normal()
+                field[cat, 3, j, i] = cj + noise * rng.normal()
+                field[cat, 4, j, i] = w / stride * (
+                    1.0 + 0.05 * noise * rng.normal())
+                field[cat, 5, j, i] = h / stride * (
+                    1.0 + 0.05 * noise * rng.normal())
+    return field.astype(np.float32)
+
+
+def cifdet_sparse_scene(seed=0):
+    """Eight objects of distinct categories, apart from each other."""
+    rng = np.random.RandomState(100 + seed)
+    categories = rng.choice(CIFDET_CATEGORIES, 8, replace=False)
+    objects = [(int(cat), 80.0 + 160.0 * (k % 4) + rng.uniform(-20, 20),
+                120.0 + 240.0 * (k // 4) + rng.uniform(-20, 20),
+                rng.uniform(40, 120), rng.uniform(40, 150))
+               for k, cat in enumerate(categories)]
+    return cifdet_scene(objects, seed=seed)
+
+
+def cifdet_contested_scene(seed=1):
+    """Fifteen objects in three clusters: within a cluster, boxes of one
+    category overlap above the IoU threshold and their cells' seeds fall
+    into each other's occupancy windows, and other categories overlap
+    them; strong regression noise, so several seeds of one object
+    survive the occupancy and meet in the NMS."""
+    rng = np.random.RandomState(200 + seed)
+    objects = []
+    for k, (x, y) in enumerate(((160.0, 150.0), (420.0, 200.0),
+                                (300.0, 380.0))):
+        cat = (7, 15, 56)[k]
+        for _ in range(4):
+            objects.append((cat, x + rng.uniform(-24, 24),
+                            y + rng.uniform(-24, 24),
+                            rng.uniform(90, 160), rng.uniform(90, 160)))
+        objects.append(((cat + 1) % CIFDET_CATEGORIES, x + 8.0, y - 8.0,
+                        120.0, 120.0))
+    return cifdet_scene(objects, seed=seed, noise=0.6, clutter=0.06)
+
+
+def cifdet_tie_scene(seed=2, hw=CIFDET_HW, stride=CIFDET_STRIDE,
+                     n_categories=CIFDET_CATEGORIES):
+    """Exact score ties: six objects, each a 5x5 block of confidence 1.0
+    regressing to its centre exactly, so the lazy CifDetHr at every seed
+    clamps to 1.0 and every seed scores 0.9 * 1.0 + 0.1 * 1.0; two
+    pairs of different categories share a box, no clutter."""
+    rng = np.random.RandomState(300 + seed)
+    objects = []
+    for k in range(4):
+        x, y = 100.0 + 140.0 * k, 130.0 + 90.0 * (k % 2)
+        objects.append((int(rng.randint(n_categories)), x, y, 90.0, 110.0))
+    objects.append(((objects[0][0] + 1) % n_categories,) + objects[0][1:])
+    objects.append(((objects[2][0] + 3) % n_categories,) + objects[2][1:])
+    return cifdet_scene(objects, seed=seed, hw=hw, stride=stride,
+                        n_categories=n_categories, stamp=5, noise=0.0,
+                        clutter=0.0, confidence=1.0)
+
+
+def jax_cifdet_decode(fields, stride=CIFDET_STRIDE, overrides=None):
+    """The JAX package's ``decode_cifdet_single`` of one image's fields
+    under ``overrides`` of its config, as numpy arrays."""
+    from openpifpaf_tpu.ops.decode_cifdet import CifDetDecoderConfig, \
+        build_cifdet_decoder
+    decode = build_cifdet_decoder(
+        stride=stride, config=CifDetDecoderConfig(**(overrides or {})))
+    with jax_f32():
+        out = decode(fields[None])
+    return {k: np.asarray(v)[0] for k, v in out.items()}
+
+
+def assert_det_gate(ours, ref, label=''):
+    """The detection gate, on every seed slot: the same keep mask (so the
+    same count) and categories, scores within 2e-6, boxes within 1e-3
+    px."""
+    ours = {k: np.asarray(v) for k, v in ours.items()}
+    np.testing.assert_array_equal(ours['keep'], ref['keep'], err_msg=label)
+    np.testing.assert_array_equal(ours['category'], ref['category'],
+                                  err_msg=label)
+    np.testing.assert_allclose(ours['score'], ref['score'], rtol=0,
+                               atol=2e-6, err_msg=label)
+    np.testing.assert_allclose(ours['box'], ref['box'], rtol=0, atol=1e-3,
+                               err_msg=label)
+
+
+def cifdet_golden_scenes():
+    return {'sparse': cifdet_sparse_scene(),
+            'contested': cifdet_contested_scene()}
+
+
+def cifdet_golden_fields(golden):
+    """{scene: (F, 6, H, W) numpy fields} of the CifDet golden file."""
+    shape = tuple(golden['shape'])
+    return {scene: expand_field(shape, golden[f'{scene}_index'],
+                                golden[f'{scene}_values'])
+            for scene in CIFDET_SCENES}
+
+
+def jax_cifdet_golden():
+    """The CifDet golden file's dict: each scene of CIFDET_SCENES
+    compacted (``{scene}_index``/``_values``, ``shape``) and JAX's
+    ``category``, ``score``, ``box`` and ``keep`` under each of
+    CIFDET_CONFIGS (``{scene}_{config}_{key}``)."""
+    out = {}
+    for scene, fields in cifdet_golden_scenes().items():
+        out['shape'] = np.asarray(fields.shape, np.int64)
+        out[f'{scene}_index'], out[f'{scene}_values'] = compact_field(fields)
+        for config, overrides in CIFDET_CONFIGS.items():
+            for key, value in jax_cifdet_decode(
+                    fields, overrides=overrides).items():
+                out[f'{scene}_{config}_{key}'] = value
+    return out
+
+
+def write_cifdet_golden():
+    np.savez_compressed(CIFDET_GOLDEN, **jax_cifdet_golden())
+
+
 def jax_golden():
     """The golden file's dict: :func:`jax_golden_scenes` and
     :func:`jax_golden_config` of each of :func:`golden_configs`."""
@@ -1286,7 +1525,11 @@ if __name__ == '__main__':
     import jax
     jax.config.update('jax_platforms', 'cpu')
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    if '--wholebody' in sys.argv[1:]:
+    if '--cifdet' in sys.argv[1:]:
+        write_cifdet_golden()
+        print('wrote', CIFDET_GOLDEN, os.path.getsize(CIFDET_GOLDEN),
+              'bytes')
+    elif '--wholebody' in sys.argv[1:]:
         write_wholebody_golden()
         print('wrote', WHOLEBODY_GOLDEN, os.path.getsize(WHOLEBODY_GOLDEN),
               'bytes')
