@@ -187,6 +187,29 @@ Phases, each of which raises on failure (non-zero exit):
     with its field shapes, then ``train.main --dataset cifar10 --basenet
     cifar10net`` for 4 steps on synthetic CIFAR batches and ``eval_cli.main
     --dataset cifar10``: a finite ``Classification`` accuracy.
+17. multi-dataset training and the Predictor's test-time options: (a)
+    on a synthetic COCO keypoint set and a synthetic COCO detection set
+    (80 JPEGs each, seed 0) ``train.main --dataset cocokp-cocodet
+    --dataset-weights 2 1`` for 8 steps with k16 at full width (batch 8,
+    385 px, float32), as in 11b: the dataset of each step (read from the
+    None pattern of its logged head losses) in the ``MultiLoader`` order
+    computed on the host, and the checkpoint's three heads; (b) that
+    checkpoint through ``Predictor(checkpoint=...)``, ``Multi`` of
+    CifCaf and CifDet: its hflip TTA fields against the CPU's and each
+    engine's against the module graph's (TF32 off); the module graph and
+    ``'pallas'`` serving two 481x641 JPEGs plain, with ``hflip_tta``,
+    ``multi_scale`` (long edges 641, 481, 961) and both, ``'dwpallas'``
+    with ``hflip_tta``: NN and decode ms per image, the engine's kernel
+    launching 13 times per forward, every CifHr call held bit for bit
+    against its plain version; ``pil_images``, ``numpy_images`` and
+    prefetch depth 0 answering as ``images``; a batch of 16 forwarded in
+    chunks of 8 and whole, fields and NN ms per image; (c)
+    ``eval_cli.main --dataset cocokp --hflip-tta`` with that checkpoint
+    over 4 synthetic images at long edge 641: ten finite stats, nn and
+    decoder ms per image, every CifHr call bit-equal to its plain
+    version, the ground truth as predictions AP 1.0. The CifHr, depthwise
+    and fused-block launches of (b) and (c) are counted in the kernels
+    line.
 
 The second-to-last line is a JSON object describing the kernels (with each
 one's bound: the larger of its bytes over the card's memory rate and its
@@ -1557,14 +1580,31 @@ def save_checkpoint(path, model, base_name):
                        for m in model.head_metas]})
 
 
+def ground_truth_stats(metric, ann_file):
+    """The stats of the keypoint ``metric`` fed the ground truth of
+    ``ann_file`` as predictions (score 1)."""
+    from openpifpaf_tpu_torch.annotation import Annotation
+    from openpifpaf_tpu_torch.plugins.coco import constants
+
+    with open(ann_file) as f:
+        data = json.load(f)
+    for image in data['images']:
+        metric.accumulate([
+            Annotation(constants.COCO_KEYPOINTS,
+                       constants.COCO_PERSON_SKELETON).set(
+                np.asarray(a['keypoints'], np.float32).reshape(17, 3),
+                fixed_score=1.0, fixed_bbox=a['bbox'])
+            for a in data['annotations'] if a['image_id'] == image['id']],
+            {'image_id': image['id']})
+    return metric.stats()['stats']
+
+
 def phase_eval(model, card):
     """(c) ``python -m openpifpaf_tpu_torch.eval`` on the card over a
     synthetic COCO set with the resnet50 saved as a checkpoint of the port;
     the ground truth as predictions through ``metric.Coco`` (AP 1.0); one
     ``benchmark.py`` entry over the same checkpoint."""
     import tempfile
-    from openpifpaf_tpu_torch.annotation import Annotation
-    from openpifpaf_tpu_torch.plugins.coco import constants
     from openpifpaf_tpu_torch.plugins.coco.cocokp import CocoKp
     from torch_port_helpers import restored_statics, write_synthetic_coco
 
@@ -1605,17 +1645,7 @@ def phase_eval(model, card):
             f'stats {[round(v, 4) for v in stats["stats"]]} (random '
             f'weights); whole command {wall:.1f} s [{card}]')
 
-        with open(ann_file) as f:
-            data = json.load(f)
-        for image in data['images']:
-            metric.accumulate([
-                Annotation(constants.COCO_KEYPOINTS,
-                           constants.COCO_PERSON_SKELETON).set(
-                    np.asarray(a['keypoints'], np.float32).reshape(17, 3),
-                    fixed_score=1.0, fixed_bbox=a['bbox'])
-                for a in data['annotations'] if a['image_id'] == image['id']],
-                {'image_id': image['id']})
-        gt_stats = metric.stats()['stats']
+        gt_stats = ground_truth_stats(metric, ann_file)
         if gt_stats[0] != 1.0:
             raise AssertionError(f'ground truth as predictions: {gt_stats}')
         log(f'eval (c): the ground truth as predictions gives AP '
@@ -2954,6 +2984,530 @@ def phase_detection(port, device, card):
     return launches
 
 
+#: phase 17: the mix cocokp-cocodet and its --dataset-weights
+MIX_WEIGHTS = (2.0, 1.0)
+#: 17b: the heads of the mix's checkpoint
+MIX_HEADS = ((17, 5), (19, 8), (80, 6))
+#: 17b: the ways each request is served, as Predictor settings
+TTA_WAYS = {'plain': {}, 'hflip_tta': {'hflip_tta': True},
+            'multi_scale': {'multi_scale': True},
+            'both': {'hflip_tta': True, 'multi_scale': True}}
+#: 17b: the engines served four ways (their kernel, or None), and the one
+#: served with hflip TTA only
+TTA_ENGINES = {'flax': None, 'pallas': 'shuffle_block'}
+TTA_ONLY_ENGINES = {'dwpallas': 'depthwise_conv'}
+#: 17b: requests of one image each (IMAGE_HW JPEGs)
+TTA_REQUESTS = 2
+#: 17b: the batch forwarded whole and in chunks of CHUNK_SIZE (JAX's
+#: nn_chunk_size; the port's default is 0, whole)
+CHUNK_BATCH = 16
+CHUNK_SIZE = 8
+#: 17b-c: decoder thresholds 0, so that the 8 steps' weights give poses
+#: and boxes at every scale and the answer comparisons meet them (as
+#: 16c); pose budgets of 16, which both tiers fill, so that the merges'
+#: pairwise OKS stays cheap
+MIX_DECODER_FLAGS = ('--cif-th', '0', '--seed-threshold', '0',
+                     '--instance-threshold', '0', '--decoder-poses', '16',
+                     '--decoder-crowd-poses', '16')
+#: 17b: the scene drawn into the fields for the multi-scale merges at the
+#: default thresholds: two people (x, height) and two boxes (category
+#: index, x, y, width, height), as shares of the image's valid area, the
+#: people at mid height
+DRAWN_PEOPLE = ((0.3, 0.8), (0.75, 0.6))
+DRAWN_BOXES = ((0, 0.3, 0.5, 0.3, 0.8), (2, 0.75, 0.5, 0.25, 0.6))
+#: 17c: the eval's synthetic COCO images
+MIX_EVAL_IMAGES = 4
+
+
+def mix_train_flags(kp_data, det_data, out):
+    """``train.main``'s flags for the cocokp-cocodet run at the JAX
+    defaults (TRAIN_BATCH, TRAIN_EDGE for both datasets, SGD, float32)."""
+    det_ann, det_dir = det_data
+    return train_flags(
+        kp_data, out, '--dataset', 'cocokp-cocodet', '--dataset-weights',
+        *(str(w) for w in MIX_WEIGHTS),
+        '--cocodet-train-annotations', det_ann,
+        '--cocodet-val-annotations', det_ann,
+        '--cocodet-train-image-dir', det_dir,
+        '--cocodet-val-image-dir', det_dir,
+        '--cocodet-square-edge', str(TRAIN_EDGE))
+
+
+def phase_mix_train(kp_data, det_data, directory, card):
+    """17a: ``train.main --dataset cocokp-cocodet --dataset-weights 2 1``
+    with k16 at full width (:func:`train_run`): the dataset of each logged
+    step, read from the None pattern of its head losses, in the
+    ``MultiLoader`` order computed on the host; three heads in the
+    checkpoint. Returns the checkpoint."""
+    from openpifpaf_tpu_torch import datasets, decoder
+    from torch_port_helpers import restored_statics
+
+    out = os.path.join(directory, 'mix', 'model')
+    with restored_statics(*decoder.DECODERS, datasets.MultiDataModule,
+                          *datasets.datamodules().values()):
+        train_run(mix_train_flags(kp_data, det_data, out), out,
+                  'cocokp-cocodet train run (17a) float32, '
+                  f'{TRAIN_EDGE} px, weights {MIX_WEIGHTS}', card)
+        datamodule = datasets.factory('cocokp-cocodet')
+        datamodule.batch_size = TRAIN_BATCH
+        order = datamodule.train_loader().order()[:TRAIN_STEPS]
+    train_lines, val_lines = read_train_log(out + '.log')
+    patterns = [[h is None for h in line['head_losses']]
+                for line in train_lines]
+    want = {0: [False] * 6 + [True] * 2, 1: [True] * 6 + [False] * 2}
+    if patterns != [want[i] for i in order]:
+        raise AssertionError(f'17a: head-loss None patterns {patterns}, '
+                             f'want those of the host order {order}')
+    with open(out + '.json') as f:
+        metas = json.load(f)['head_metas']
+    heads = [(m['dataset'], m['name'], m['head_index']) for m in metas]
+    if heads != [('cocokp', 'cif', 0), ('cocokp', 'caf', 1),
+                 ('cocodet', 'cifdet', 2)]:
+        raise AssertionError(f'17a: checkpoint heads {heads}')
+    log(f'cocokp-cocodet (17a): batches from datasets {order} '
+        f'(0 cocokp, 1 cocodet; the host MultiLoader order), head-loss None '
+        f'pattern per step {["".join("N" if n else "x" for n in p) for p in patterns]}, '
+        f'validation head losses {val_lines[0]["head_losses"]}; checkpoint '
+        f'heads {heads} [{card}]')
+    return out
+
+
+def tta_fields_check(predictors, cpu_predictor, label):
+    """hflip TTA fields on the card: the module graph's against the same
+    checkpoint's on the CPU (atol/rtol 1e-4), each engine's against the
+    module graph's (ENGINE_TOL), TF32 off, on a small image whose width
+    the bucket pad widens."""
+    rng = np.random.RandomState(1)
+    image = rng.randn(1, 129, 145, 3).astype(np.float32)
+    cpu_predictor.hflip_tta = True
+    cpu = cpu_predictor.fields_batch(image)
+    with no_tf32():
+        out = {}
+        for engine, p in predictors.items():
+            p.hflip_tta = True
+            out[engine] = p.fields_batch(image)
+            p.hflip_tta = False
+    errs = compare_fields([o.cpu() for o in out['flax']], cpu,
+                          f'{label} TTA vs CPU', rtol=1e-4, atol=1e-4)
+    log(f'{label}: hflip TTA fields of the module graph vs the CPU, max abs '
+        f'err per head {errs} (TF32 off, rtol/atol 1e-4)')
+    for engine in predictors:
+        if engine == 'flax':
+            continue
+        errs = compare_fields(out[engine], out['flax'],
+                              f'{label} TTA {engine}', **ENGINE_TOL)
+        log(f'{label}: hflip TTA fields of {engine} vs the module graph, '
+            f'max abs err per head {errs} (TF32 off, rtol/atol '
+            f'{ENGINE_TOL["rtol"]})')
+
+
+def serve_ways(port, predictor, engine, kernel, files, ways, card, label):
+    """``predictor.images`` of each request file under each of ``ways``,
+    after one warm-up request: fields of MIX_HEADS for every forward, the
+    engine's kernel launching FORWARD_LAUNCHES times per forward and no
+    other backbone kernel; poses and boxes in every answer, under
+    multi-scale the merges' output; NN and decode ms per image. Returns
+    {kernel: launches} of the timed requests, the answers per way and the
+    (H, W) of every forward."""
+    forwards = []
+    shapes = set()
+    fields_batch = predictor.fields_batch
+    forward = predictor._forward
+
+    def counted_forward(images):
+        forwards.append(tuple(images.shape[1:3]))
+        shapes.add(forwards[-1])
+        return forward(images)
+
+    def recording_fields_batch(image_batch):
+        fields = fields_batch(image_batch)
+        for f, (n_fields, n_components) in zip(fields, MIX_HEADS):
+            if tuple(f.shape[1:3]) != (n_fields, n_components) \
+                    or not bool(torch.isfinite(f).all()):
+                raise AssertionError(f'{label}: field {tuple(f.shape)}')
+        return fields
+
+    predictor._forward = counted_forward
+    predictor.fields_batch = recording_fields_batch
+    merges = counted_merges(predictor)
+    launches = {}
+    answers = {}
+    try:
+        for way in ways:
+            for k, v in TTA_WAYS[way].items():
+                setattr(predictor, k, v)
+            # warm-up: cuDNN's algorithm picks at each scale's shape
+            list(predictor.images(files[:1]))
+            reset_launches(port)
+            del forwards[:]
+            for kind in merges:
+                del merges[kind][:]
+            nn0, dec0 = predictor.total_nn_time, predictor.total_decoder_time
+            start = time.perf_counter()
+            answers[way] = [[ann.json_data() for ann in pred]
+                            for pred, _, _ in predictor.images(files)]
+            wall = time.perf_counter() - start
+            counts = read_launches(port)
+            for name in ('depthwise_conv', 'shuffle_block',
+                         'shuffle_branch2'):
+                want = FORWARD_LAUNCHES * len(forwards) \
+                    if name == kernel else 0
+                if counts[name] != want:
+                    raise AssertionError(
+                        f'{label} {engine} {way}: {counts[name]} {name} '
+                        f'launches in {len(forwards)} forwards, want {want}')
+            if counts['cifhr_accumulate'] == 0:
+                raise AssertionError(f'{label} {engine} {way}: no CifHr '
+                                     'launch')
+            for name in ('cifhr_accumulate', 'depthwise_conv',
+                         'shuffle_block'):
+                launches[name] = launches.get(name, 0) + counts[name]
+            poses = [sum('keypoints' in a for a in anns)
+                     for anns in answers[way]]
+            boxes = [len(anns) - n for anns, n in zip(answers[way], poses)]
+            if not (all(poses) and all(boxes)):
+                raise AssertionError(f'{label} {engine} {way}: poses {poses}, '
+                                     f'boxes {boxes} per request')
+            merged = ''
+            if TTA_WAYS[way].get('multi_scale'):
+                kept = sum(k for kind in merges for _, k in merges[kind])
+                if not (len(merges['poses']) == len(files)
+                        and kept == sum(len(a) for a in answers[way])):
+                    raise AssertionError(
+                        f'{label} {engine} {way}: merges (given, kept) '
+                        f'{merges}, answers {[len(a) for a in answers[way]]}')
+                merged = (f', merged (given, kept) per request poses '
+                          f'{merges["poses"]} boxes {merges["boxes"]}')
+            n = len(files)
+            log(f'{label} {engine} {way}: per image NN '
+                f'{(predictor.total_nn_time - nn0) / n * 1e3:.2f} ms, decode '
+                f'{(predictor.total_decoder_time - dec0) / n * 1e3:.2f} ms, '
+                f'wall {wall / n * 1e3:.2f} ms over {n} requests; '
+                f'{len(forwards)} forwards at {sorted(set(forwards))}, '
+                f'launches {counts}, poses {poses} boxes {boxes} per '
+                f'request{merged} [{card}]')
+            for k in TTA_WAYS[way]:
+                setattr(predictor, k, False)
+    finally:
+        del predictor._forward
+        del predictor.fields_batch
+        del predictor._merge_annotations
+        del predictor._merge_detections
+    return launches, answers, shapes
+
+
+def counted_merges(predictor):
+    """Wraps ``predictor``'s two merges to record (given, kept) of each
+    call in the {'poses': [...], 'boxes': [...]} this returns; deleting
+    the instance attributes puts the merges back."""
+    merges = {'poses': [], 'boxes': []}
+    for kind, name in (('poses', '_merge_annotations'),
+                       ('boxes', '_merge_detections')):
+        def counted(anns, kind=kind, merge=getattr(predictor, name)):
+            kept = merge(anns)
+            merges[kind].append((len(anns), len(kept)))
+            return kept
+        setattr(predictor, name, counted)
+    return merges
+
+
+def drawn_fields(device, metas):
+    """A ``fields_batch`` that draws DRAWN_PEOPLE and DRAWN_BOXES at
+    stride 16 into the valid area of each (1, H, W, 3) batch (its padding
+    is 0 after normalisation), on ``device``."""
+    from torch_port_helpers import cifdet_scene, port_person, \
+        port_pose_fields
+
+    def fields_batch(image_batch):
+        image = np.asarray(image_batch)[0]
+        rows, = np.nonzero(np.abs(image).sum(axis=(1, 2)))
+        cols, = np.nonzero(np.abs(image).sum(axis=(0, 2)))
+        y0, h = rows[0], rows[-1] + 1 - rows[0]
+        x0, w = cols[0], cols[-1] + 1 - cols[0]
+        people = [port_person(x0 + fx * w, y0 + 0.5 * h, fh * h,
+                              np.random.RandomState(i))
+                  for i, (fx, fh) in enumerate(DRAWN_PEOPLE)]
+        cif, caf = port_pose_fields(people, image.shape[:2], *metas[:2])
+        det = cifdet_scene(
+            [(c, x0 + fx * w, y0 + fy * h, fw * w, fh * h)
+             for c, fx, fy, fw, fh in DRAWN_BOXES],
+            seed=0, hw=image.shape[:2], stride=16, noise=0.0, clutter=0.0,
+            confidence=0.9)
+        return [torch.from_numpy(f[None]).to(device) for f in (cif, caf, det)]
+    return fields_batch
+
+
+def drawn_multi_scale(port, predictor, files, card):
+    """``multi_scale`` on the card with :func:`drawn_fields` for the
+    forward, decoders at their defaults: every scale decodes the drawn
+    people and boxes, and the merges keep each once and fewer than the
+    scales gave; every CifHr call bit-equal to its plain version. Returns
+    the CifHr launches."""
+    merges = counted_merges(predictor)
+    predictor.fields_batch = drawn_fields(predictor.device,
+                                          predictor.head_metas)
+    predictor.multi_scale = True
+    try:
+        with kept_cifhr_calls(port.cifhr_cuda) as calls:
+            reset_launches(port)
+            answers = [pred for pred, _, _ in predictor.images(files)]
+            launches = read_launches(port)['cifhr_accumulate']
+    finally:
+        del predictor._merge_annotations, predictor._merge_detections
+        del predictor.fields_batch
+        predictor.multi_scale = False
+    want = {'poses': len(DRAWN_PEOPLE), 'boxes': len(DRAWN_BOXES)}
+    for kind, counts in merges.items():
+        if len(counts) != len(files) or not all(
+                given > kept >= want[kind] for given, kept in counts):
+            raise AssertionError(f'mix (17b) drawn multi-scale: {kind} '
+                                 f'(given, kept) per request {counts}')
+    if [len(a) for a in answers] != [p[1] + b[1] for p, b in zip(
+            merges['poses'], merges['boxes'])] or launches == 0:
+        raise AssertionError(f'mix (17b) drawn multi-scale: answers '
+                             f'{[len(a) for a in answers]}, merges {merges}, '
+                             f'{launches} CifHr launches')
+    check_kept_calls(port, calls, 'mix (17b) drawn multi-scale')
+    log(f'mix (17b) drawn multi-scale: {len(DRAWN_PEOPLE)} people and '
+        f'{len(DRAWN_BOXES)} boxes drawn at each of the '
+        f'{len(predictor.multi_scale_factors)} scales; (given, kept) per '
+        f'request poses {merges["poses"]}, boxes {merges["boxes"]}; '
+        f'{launches} CifHr launches [{card}]')
+    return launches
+
+
+def engines_at_shapes(predictors, shapes, label):
+    """Each engine's forward against the module graph's on the same card
+    input, direct and mirrored (as hflip TTA forwards it), at every
+    (H, W) that engine served ({engine: shapes}); TF32 off, ENGINE_TOL.
+    These launches are not counted."""
+    module = predictors['flax']
+    rng = np.random.RandomState(4)
+    for engine, served in shapes.items():
+        errs = {}
+        for hw in sorted(served):
+            x = torch.from_numpy(rng.randn(1, *hw, 3).astype(
+                np.float32)).to(module.device)
+            for how, image in (('direct', x), ('mirrored', x.flip(2))):
+                with no_tf32(), torch.inference_mode():
+                    ref = module._forward(image)
+                    errs[hw, how] = max(compare_fields(
+                        predictors[engine]._forward(image), ref,
+                        f'{label} {engine} at {hw} {how}', **ENGINE_TOL))
+        log(f'{label}: {engine} vs the module graph at every served shape, '
+            f'direct and mirrored, max abs err {errs} (TF32 off, rtol/atol '
+            f'{ENGINE_TOL["rtol"]})')
+
+
+def phase_mix_serve(port, ckpt, directory, device, card):
+    """17b: the mix's checkpoint through ``Predictor(checkpoint=...)``:
+    ``Multi`` of CifCaf and CifDet; hflip TTA fields against the CPU and
+    between engines; the module graph and ``pallas`` serving plain, hflip
+    TTA, multi-scale and both, ``dwpallas`` with hflip TTA (every CifHr
+    call held bit for bit against its plain version, each engine against
+    the module graph at every shape it served); ``pil_images`` and
+    ``numpy_images`` against ``images``; prefetch at depth 2 against 0; a
+    batch of CHUNK_BATCH chunked and whole. The decoders run with
+    MIX_DECODER_FLAGS; then :func:`drawn_multi_scale`. Returns {kernel:
+    launches}."""
+    from openpifpaf_tpu_torch import decoder, predict
+    from openpifpaf_tpu_torch.predictor import Predictor
+    from torch_port_helpers import restored_statics
+
+    with restored_statics(*decoder.DECODERS):
+        predict.cli(['request.jpg', *MIX_DECODER_FLAGS])
+        launches, files = mix_serve(port, ckpt, directory, device, card)
+    launches['cifhr_accumulate'] += drawn_multi_scale(
+        port, Predictor(checkpoint=ckpt, device=device), files, card)
+    return launches
+
+
+def mix_serve(port, ckpt, directory, device, card):
+    import PIL.Image
+    from openpifpaf_tpu_torch.predictor import Predictor
+
+    predictors = {engine: Predictor(checkpoint=ckpt, device=device,
+                                    backbone_engine=engine)
+                  for engine in (*TTA_ENGINES, *TTA_ONLY_ENGINES)}
+    module = predictors['flax']
+    kinds = [type(d).__name__ for d in module.processor.decoders]
+    if kinds != ['CifCaf', 'CifDet']:
+        raise AssertionError(f'17b: decoders {kinds}')
+    tta_fields_check(predictors, Predictor(checkpoint=ckpt, device='cpu'),
+                     'mix (17b)')
+
+    files = []
+    for i, (image,) in enumerate(make_requests()[:TTA_REQUESTS]):
+        path = os.path.join(directory, f'mix-request{i}.jpg')
+        PIL.Image.fromarray(image).save(path, quality=95)
+        files.append(path)
+    launches = {}
+    served = {}
+    with kept_cifhr_calls(port.cifhr_cuda) as calls:
+        reset_launches(port)
+        for engine, kernel in TTA_ENGINES.items():
+            counts, answers, served[engine] = serve_ways(
+                port, predictors[engine], engine, kernel, files, TTA_WAYS,
+                card, 'mix (17b)')
+            if engine == 'flax':
+                plain = answers['plain']
+            for name, count in counts.items():
+                launches[name] = launches.get(name, 0) + count
+        for engine, kernel in TTA_ONLY_ENGINES.items():
+            counts, _, served[engine] = serve_ways(
+                port, predictors[engine], engine, kernel, files,
+                ('hflip_tta',), card, 'mix (17b)')
+            for name, count in counts.items():
+                launches[name] = launches.get(name, 0) + count
+        del served['flax']
+        engines_at_shapes(predictors, served, 'mix (17b)')
+
+        reset_launches(port)
+        pil = [[a.json_data() for a in pred] for pred, _, _ in
+               module.pil_images([PIL.Image.open(f).convert('RGB')
+                                  for f in files])]
+        arrays = [[a.json_data() for a in pred] for pred, _, _ in
+                  module.numpy_images([np.asarray(PIL.Image.open(f)
+                                                  .convert('RGB'))
+                                       for f in files])]
+        module.prefetch_depth = 0
+        strict = [[a.json_data() for a in pred]
+                  for pred, _, _ in module.images(files)]
+        module.prefetch_depth = Predictor.prefetch_depth
+        if not (plain == pil == arrays == strict and all(plain)):
+            raise AssertionError(f'17b: images {plain}, pil_images {pil}, '
+                                 f'numpy_images {arrays}, prefetch 0 '
+                                 f'{strict}')
+        launches['cifhr_accumulate'] += read_launches(port)[
+            'cifhr_accumulate']
+    log(f'mix (17b): pil_images, numpy_images and images without prefetch '
+        f'answer as images with prefetch depth {Predictor.prefetch_depth} '
+        f'({[len(a) for a in plain]} annotations)')
+    shapes = check_kept_calls(port, calls, 'mix (17b)')
+    log(f'mix (17b): CifHr maps (F, hr_h, hr_w, K) {sorted(shapes)}')
+
+    rng = np.random.RandomState(3)
+    batch = rng.randn(CHUNK_BATCH, *IMAGE_HW, 3).astype(np.float32)
+    timed = {}
+    with no_tf32():
+        for chunk in (CHUNK_SIZE, 0):
+            module.nn_chunk_size = chunk
+            fields = module.fields_batch(batch)
+            timed[chunk] = (fields, cuda_ms(
+                lambda: module.fields_batch(batch), 3) / CHUNK_BATCH)
+        module.nn_chunk_size = Predictor.nn_chunk_size
+    errs = compare_fields(timed[0][0], timed[CHUNK_SIZE][0],
+                          'mix (17b) chunked', **ENGINE_TOL)
+    log(f'mix (17b): batch of {CHUNK_BATCH} at {IMAGE_HW}, chunks of '
+        f'{CHUNK_SIZE} vs whole (TF32 off): max abs err per head {errs}; '
+        f'NN {timed[CHUNK_SIZE][1]:.3f} ms per image chunked, '
+        f'{timed[0][1]:.3f} ms whole (CUDA events, fields_batch) [{card}]')
+    return launches, files
+
+
+def phase_mix_eval(port, ckpt, directory, card):
+    """17c: ``eval_cli.main --dataset cocokp --hflip-tta`` with the mix's
+    checkpoint (``filter_and_extend`` keeps the cocokp heads) over
+    MIX_EVAL_IMAGES synthetic images at long edge 641, decoders with
+    MIX_DECODER_FLAGS: poses for every image, ten finite stats, nn and
+    decoder ms per image, every CifHr call bit-equal to its plain version;
+    the ground truth as predictions gives AP 1.0. Returns the CifHr
+    launches."""
+    from openpifpaf_tpu_torch import datasets, decoder, eval_cli
+    from openpifpaf_tpu_torch.plugins.coco.cocokp import CocoKp
+    from openpifpaf_tpu_torch.predictor import Predictor
+    from torch_port_helpers import restored_statics, write_synthetic_coco
+
+    ann_file, image_dir = write_synthetic_coco(
+        os.path.join(directory, 'mix-eval'), n_images=MIX_EVAL_IMAGES,
+        image_hw=TRAIN_IMAGE_HW, seed=1)
+    out = os.path.join(directory, 'mix-eval', 'eval')
+    tta_calls = []
+    poses = []
+    hflip = Predictor._hflip_tta_fields
+    run_batch = Predictor._run_batch
+
+    def counted(self, images):
+        tta_calls.append(images.shape[0])
+        return hflip(self, images)
+
+    def counted_run(self, batch):
+        for pred, gt_anns, meta in run_batch(self, batch):
+            poses.append(len(pred))
+            yield pred, gt_anns, meta
+
+    Predictor._hflip_tta_fields = counted
+    Predictor._run_batch = counted_run
+    t0 = time.perf_counter()
+    try:
+        with kept_cifhr_calls(port.cifhr_cuda) as calls, restored_statics(
+                *decoder.DECODERS, eval_cli.Evaluator,
+                *datasets.datamodules().values()):
+            reset_launches(port)
+            eval_cli.main(['--dataset', 'cocokp', '--checkpoint', ckpt,
+                           '--cocokp-val-annotations', ann_file,
+                           '--cocokp-val-image-dir', image_dir,
+                           '--eval-loader-warmup', '0', '--hflip-tta',
+                           *MIX_DECODER_FLAGS, '--output', out])
+            launches = read_launches(port)['cifhr_accumulate']
+    finally:
+        Predictor._hflip_tta_fields = hflip
+        Predictor._run_batch = run_batch
+    wall = time.perf_counter() - t0
+    with open(out + '.stats.json') as f:
+        stats = json.load(f)
+    n_images = stats['n_images']
+    if not (len(stats['stats']) == 10 and np.all(np.isfinite(stats['stats']))
+            and n_images > 0 and len(tta_calls) == n_images
+            and len(poses) == n_images and all(poses) and launches > 0):
+        raise AssertionError(f'17c: stats {stats}, {len(tta_calls)} TTA '
+                             f'forwards, poses per image {poses}, '
+                             f'{launches} CifHr launches')
+    per_image = {k: stats[k] / n_images * 1e3
+                 for k in ('total_time', 'nn_time', 'decoder_time')}
+    log(f'mix eval (17c): --hflip-tta over {n_images} images at long edge '
+        f'641, per image total {per_image["total_time"]:.2f} ms, nn '
+        f'{per_image["nn_time"]:.2f} ms, decoder '
+        f'{per_image["decoder_time"]:.2f} ms (the first image included); '
+        f'{launches} CifHr launches; poses per image {poses}; stats '
+        f'{[round(v, 4) for v in stats["stats"]]}; whole command '
+        f'{wall:.1f} s [{card}]')
+    check_kept_calls(port, calls, 'mix eval (17c)')
+
+    with restored_statics(CocoKp):
+        CocoKp.eval_annotations = ann_file
+        metric, = CocoKp().metrics()
+    gt_stats = ground_truth_stats(metric, ann_file)
+    if gt_stats[0] != 1.0:
+        raise AssertionError(f'17c: ground truth as predictions {gt_stats}')
+    log(f'mix eval (17c): the ground truth as predictions gives AP '
+        f'{gt_stats[0]}, AR {gt_stats[5]}')
+    return launches
+
+
+def phase_mix(port, device, card):
+    """Phase 17: (a)-(c); returns {kernel: launches} of (b) and (c)."""
+    import tempfile
+    from torch_port_helpers import write_synthetic_coco, \
+        write_synthetic_cocodet
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as directory:
+        kp_data = write_synthetic_coco(
+            os.path.join(directory, 'coco'), n_images=TRAIN_IMAGES,
+            image_hw=TRAIN_IMAGE_HW, seed=TRAIN_SEED)
+        det_data = write_synthetic_cocodet(
+            os.path.join(directory, 'cocodet'), n_images=TRAIN_IMAGES,
+            image_hw=TRAIN_IMAGE_HW, seed=TRAIN_SEED)
+        ckpt = phase_mix_train(kp_data, det_data, directory, card)
+        launches = phase_mix_serve(port, ckpt, directory, device, card)
+        launches['cifhr_accumulate'] += phase_mix_eval(port, ckpt,
+                                                       directory, card)
+    log(f'phase 17: launches {launches}; {time.perf_counter() - t0:.1f} s '
+        f'[{card}]')
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, rows, row):
     """One kernel's entry of the JSON line: times and bound of ``row``,
     the largest error of all ``rows``."""
@@ -3006,6 +3560,8 @@ def main():
                                                             card)
     launches['cifhr_accumulate'] += phase_plugins_path(port, device, card)
     for name, count in phase_detection(port, device, card).items():
+        launches[name] += count
+    for name, count in phase_mix(port, device, card).items():
         launches[name] += count
 
     # no single PyTorch call computes the CifHr map; times at F=17 K=256

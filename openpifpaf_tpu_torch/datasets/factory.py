@@ -1,8 +1,8 @@
 """Dataset registry and factory (counterpart of
 ``openpifpaf_tpu/datasets/factory.py``). ``DATAMODULES`` is filled by
 plugin discovery (``openpifpaf_tpu_torch/plugin.py``) on first use, not at
-import. Multi-dataset training, the ``cocokp-cocodet`` names, is not ported
-yet (ROADMAP A11)."""
+import. ``a-b`` names a :class:`MultiDataModule` of the datasets ``a`` and
+``b``, in that order."""
 
 DATAMODULES = {}
 
@@ -16,9 +16,9 @@ def datamodules():
 
 def factory(dataset_name: str):
     if '-' in dataset_name:
-        raise NotImplementedError(
-            f'multi-dataset training ({dataset_name!r}) is not yet ported '
-            'to PyTorch (ROADMAP A11)')
+        from .multimodule import MultiDataModule
+        return MultiDataModule([factory(n) for n in dataset_name.split('-')])
+
     modules = datamodules()
     if dataset_name not in modules:
         raise ValueError(f'dataset {dataset_name!r} unknown; '

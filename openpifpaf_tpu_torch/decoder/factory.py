@@ -33,7 +33,7 @@ def cli(parser: argparse.ArgumentParser):
                        help='profile the decoder and write a pstats file')
     group.add_argument('--decode-device', default=None, type=int,
                        help='decode on this device index (not yet ported: '
-                            'it raises, ROADMAP A5)')
+                            'it raises, ROADMAP A5(b))')
     group.add_argument('--cif-th', default=CifCaf.cifhr_threshold,
                        type=float, help='cif threshold')
     group.add_argument('--caf-th', default=CifCaf.caf_score_th,
@@ -47,7 +47,7 @@ def configure(args: argparse.Namespace):
     if getattr(args, 'decode_device', None) is not None:
         raise NotImplementedError(
             '--decode-device (the decode on a second device, overlapping '
-            'the next forward) is not yet ported to PyTorch (ROADMAP A5)')
+            'the next forward) is not yet ported to PyTorch (ROADMAP A5(b))')
     profile_decoder = args.profile_decoder
     if args.decoder_workers:
         LOG.info('decoder workers requested (%d): decoding is one '

@@ -1,7 +1,7 @@
 """Multi decoder: concatenates the annotations of several decoders per
 image (port of ``openpifpaf_tpu/decoder/multi.py``; the decoders run one
 after the other, the deferred API waits for the pipelined loop, ROADMAP
-A5)."""
+A5(b))."""
 
 from .base import Decoder
 

@@ -29,6 +29,7 @@ class Evaluator:
     loader_warmup = 3.0
     bf16 = False
     backbone_engine = 'auto'
+    hflip_tta = False
     device = 'cuda'
 
     def __init__(self, dataset_name: str):
@@ -64,6 +65,7 @@ class Evaluator:
             checkpoint=checkpoint, model=model,
             head_metas=self.datamodule.head_metas, device=self.device,
             backbone_engine=self.backbone_engine, bf16=self.bf16)
+        predictor.hflip_tta = self.hflip_tta
         metrics = self.datamodule.metrics()
 
         total_time = self.accumulate(predictor, metrics)
@@ -107,8 +109,7 @@ class Evaluator:
 #: that ports them
 NOT_PORTED = {
     'pipeline_decode': ('--pipeline-decode', 'the pipelined serving loop, '
-                        'ROADMAP A5'),
-    'hflip_tta': ('--hflip-tta', 'test-time augmentation, ROADMAP A5'),
+                        'ROADMAP A5(b)'),
     'eval_show_final_image': ('--eval-show-final-image',
                               'the show module, ROADMAP A13'),
     'eval_show_final_ground_truth': ('--eval-show-final-ground-truth',
@@ -158,9 +159,10 @@ def cli(argv=None):
                         help='serving backbone engine (see predict)')
     parser.add_argument('--pipeline-decode', default=False,
                         action='store_true',
-                        help='not yet ported (ROADMAP A5)')
+                        help='not yet ported (ROADMAP A5(b))')
     parser.add_argument('--hflip-tta', default=False, action='store_true',
-                        help='not yet ported (ROADMAP A5)')
+                        help='average fields with the mirrored-image '
+                             'forward pass (test-time augmentation)')
     parser.add_argument('--write-predictions', '--eval-write-predictions',
                         dest='write_predictions', default=False,
                         action='store_true')
@@ -190,6 +192,7 @@ def _evaluator(args):
     evaluator.n_images = args.n_images
     evaluator.bf16 = args.bf16
     evaluator.backbone_engine = args.backbone_engine
+    evaluator.hflip_tta = args.hflip_tta
     evaluator.device = args.device
     return evaluator
 

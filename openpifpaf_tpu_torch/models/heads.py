@@ -1,5 +1,6 @@
 """Composite-field heads (port of ``openpifpaf_tpu/models/heads.py``:
-``CompositeField4``, ``pixel_shuffle`` and ``index_field``).
+``CompositeField4``, ``pixel_shuffle``, ``index_field`` and the
+test-time flips ``pif_hflip`` and ``paf_hflip``).
 
 Optional dropout on the features (``dropout_p``, in train mode only);
 one 1x1 convolution produces ``n_fields * n_components * u^2`` channels,
@@ -84,3 +85,40 @@ class CompositeField4(nn.Module):
             parts.append(F.softplus(
                 x[:, :, 1 + nc + 2 * nv:1 + nc + 2 * nv + ns]))
         return torch.cat(parts, dim=2)
+
+
+def pif_hflip(fields, keypoints, hflip):
+    """Horizontal test-time flip of CIF fields (B, F, C, H, W) with the
+    channel layout [logb, conf, x, y, scale]: left/right keypoint fields
+    swapped, the W axis reversed, the x regression negated."""
+    flip_indices = [keypoints.index(hflip[kp]) if kp in hflip else i
+                    for i, kp in enumerate(keypoints)]
+    out = fields[:, flip_indices].flip(-1)
+    out[:, :, 2] *= -1.0
+    return out
+
+
+def paf_hflip(fields, keypoints, skeleton, hflip):
+    """Horizontal test-time flip of CAF fields (B, F, C, H, W) with the
+    layout [logb, conf, x1, y1, x2, y2, s1, s2]: each edge takes its
+    mirror edge's field, the W axis reversed, both x regressions negated;
+    an edge whose mirror runs the other way swaps (x1, y1, s1) with
+    (x2, y2, s2)."""
+    names = [(keypoints[a - 1], keypoints[b - 1]) for a, b in skeleton]
+    flipped = [(hflip.get(a, a), hflip.get(b, b)) for a, b in names]
+    flip_indices = list(range(len(skeleton)))
+    reverse = []
+    for i, (a, b) in enumerate(names):
+        if (a, b) in flipped:
+            flip_indices[i] = flipped.index((a, b))
+        if (b, a) in flipped:
+            flip_indices[i] = flipped.index((b, a))
+            reverse.append(i)
+    out = fields[:, flip_indices].flip(-1)
+    out[:, :, 2] *= -1.0
+    out[:, :, 4] *= -1.0
+    if reverse:
+        swap = list(range(out.shape[2]))
+        swap[2:8] = [4, 5, 2, 3, 7, 6]
+        out[:, reverse] = out[:, reverse][:, :, swap]
+    return out

@@ -49,8 +49,18 @@ def cli(args=None):
                              'kernel; auto = halves when every stage\'s '
                              'channel halves are 128-multiples, flax '
                              'otherwise')
+    parser.add_argument('--hflip-tta', default=False, action='store_true',
+                        help='average fields with the mirrored-image '
+                             'forward pass (test-time augmentation)')
+    parser.add_argument('--multi-scale', default=False, action='store_true',
+                        help='decode at multiple scales and merge with '
+                             'OKS suppression (test-time augmentation)')
     parser.add_argument('--json-output', default=None, nargs='?',
                         const=True, help='json output file or directory')
+    parser.add_argument('--precise-rescaling', dest='fast_rescaling',
+                        default=True, action='store_false',
+                        help='accepted and ignored: a no-op, as in the '
+                             'JAX package, whose rescale never reads it')
     parser.add_argument('--debug', default=False, action='store_true')
     decoder.cli(parser)
 
@@ -81,6 +91,8 @@ def main(args=None):
                           backbone_engine=args.backbone_engine,
                           bf16=args.bf16)
     predictor.batch_size = args.batch_size
+    predictor.hflip_tta = args.hflip_tta
+    predictor.multi_scale = args.multi_scale
     predictor.long_edge = args.long_edge
     predictor.preprocess = predictor._build_preprocess()
 

@@ -1,52 +1,38 @@
 """High-level Predictor API (port of ``openpifpaf_tpu/predictor.py``).
 
 Model -> forward -> decode (the decoder factory's ``Multi``), with
-generators over image files, numpy arrays and datasets; a tracking model's
-forward caches the previous frame's features. The serving loop is strict:
-each batch is forwarded, decoded and yielded before the next one starts.
+generators over image files, PIL images, numpy arrays, datasets and data
+loaders; a tracking model's forward caches the previous frame's features.
+A worker thread produces the batches ahead (load, preprocess, collate:
+host work only); the forward and the decode run on the caller's thread,
+each batch forwarded, decoded and yielded before the next one starts.
+Test-time options: the horizontal flip (``hflip_tta``), several scales
+merged (``multi_scale``), and large batches forwarded in chunks
+(``nn_chunk_size``, off by default).
 """
 
 import copy
 import logging
+import queue
+import threading
 import time
 
 import numpy as np
 import torch
 
-from . import decoder, transforms
+from . import datasets, decoder, headmeta, transforms
 from .datasets.collate import collate_images_anns_meta
+from .datasets.loader_with_reset import LoaderWithReset
 from .models import factory as models_factory
 from .models import fused_inference
 from .models.basenetworks import ShuffleNetV2K
+from .models.heads import paf_hflip, pif_hflip
 from .models.tracking import TrackingShell
 from .plugins.coco.constants import cocokp_head_metas
 from .signal_ import Signal
 from .training import checkpoint as ckpt_mod
 
 LOG = logging.getLogger(__name__)
-
-
-class _Images:
-    """Sequence of preprocessed samples from loaded images."""
-
-    def __init__(self, sources, load, preprocess, meta):
-        self.sources = sources
-        self.load = load
-        self.preprocess = preprocess
-        self.meta = meta
-
-    def __len__(self):
-        return len(self.sources)
-
-    def __getitem__(self, index):
-        image = self.load(self.sources[index])
-        return self.preprocess(image, [], self.meta(index))
-
-
-def _load_rgb(file_name):
-    import PIL.Image
-    with open(file_name, 'rb') as f:
-        return PIL.Image.open(f).convert('RGB')
 
 
 def _pil_image(image):
@@ -65,9 +51,32 @@ BACKBONE_ENGINES = ('auto', 'flax', 'folded', 'halves', 'pallas', 'stencil',
 class Predictor:
     batch_size = 1
     long_edge = None
+    #: a batch of at least ``nn_chunk_threshold`` images whose size
+    #: divides by ``nn_chunk_size`` runs its forward in chunks of that
+    #: size (0 disables); not for tracking models. JAX chunks by 8; here
+    #: it is off, because on an H100 chunks of 8 made a batch of 16 slower
+    #: per image (``chip_smoke.py`` phase 17b, PERF.md)
+    nn_chunk_size = 0
+    nn_chunk_threshold = 16
     #: pad images up to the next multiple of this many pixels plus one,
     #: as the JAX Predictor does (it bounds the number of shapes)
     size_bucket = 128
+    #: horizontal-flip test-time augmentation: forward the mirrored batch
+    #: too, map its fields back (``pif_hflip``/``paf_hflip``) and average
+    #: them with the direct fields before the one decode
+    hflip_tta = False
+    #: keypoint left/right mapping for ``hflip_tta`` (e.g. a plugin's
+    #: HFLIP dict); None: derived from the keypoint names
+    hflip_mapping = None
+    #: multi-scale test-time augmentation of :meth:`images`: decode at
+    #: these factors of the long edge and merge the annotations (OKS) and
+    #: detections (IoU) greedily
+    multi_scale = False
+    multi_scale_factors = (1.0, 0.75, 1.5)
+    multi_scale_oks_threshold = 0.8
+    #: batches produced ahead by the worker thread; 0: produced on the
+    #: caller's thread when the loop asks for them
+    prefetch_depth = 2
 
     def __init__(self, checkpoint=None, head_metas=None, *, model=None,
                  device=None, json_data=False, backbone_engine='auto',
@@ -133,6 +142,7 @@ class Predictor:
             self._backbone = self._resolve_backbone_engine()
         self.processor = decoder.factory(self.head_metas)
         self.json_data = json_data
+        self._warned_no_hflip = set()
 
         self.preprocess = self._build_preprocess()
         self.last_decoder_time = 0.0
@@ -187,6 +197,80 @@ class Predictor:
         features = self._backbone(x).float()
         return tuple(hn(features) for hn in self.model.head_nets)
 
+    def _nn(self, images):
+        """The forward of a batch; from ``nn_chunk_threshold`` images up,
+        a batch whose size divides by ``nn_chunk_size`` runs in chunks of
+        that size and their fields are concatenated."""
+        b = images.shape[0]
+        chunk = self.nn_chunk_size
+        if not chunk or b < self.nn_chunk_threshold or b % chunk:
+            return self._forward(images)
+        parts = [self._forward(images[i:i + chunk])
+                 for i in range(0, b, chunk)]
+        return tuple(torch.cat(fields) for fields in zip(*parts))
+
+    @staticmethod
+    def _hflip_mapping(keypoints):
+        """Left/right name swap by convention (left_/right_ and L_/R_
+        prefixes, _left/_right and _l/_r suffixes). Plugins with other
+        conventions set ``Predictor.hflip_mapping`` to their HFLIP dict."""
+        pairs = (('left_', 'right_', 'prefix'), ('L_', 'R_', 'prefix'),
+                 ('_left', '_right', 'suffix'), ('_l', '_r', 'suffix'))
+        mapping = {}
+        for name in keypoints:
+            for a, b, kind in pairs:
+                for src, dst in ((a, b), (b, a)):
+                    if kind == 'prefix' and name.startswith(src):
+                        other = dst + name[len(src):]
+                    elif kind == 'suffix' and name.endswith(src):
+                        other = name[:-len(src)] + dst
+                    else:
+                        continue
+                    if other in keypoints:
+                        mapping[name] = other
+                if name in mapping:
+                    break
+        return mapping
+
+    def _hflip_tta_fields(self, images):
+        """The direct fields averaged with the mirrored batch's fields
+        mapped back. The whole padded batch is mirrored, so its padding
+        moves to the left, and in cell units ``x_back = (W - 1) - x``. A
+        head without keypoints (CifDet) or without a left/right mapping
+        keeps its direct fields."""
+        fields = self._nn(images)
+        mirrored = self._nn(images.flip(2))
+        out = []
+        for field, flipped, meta in zip(fields, mirrored, self.head_metas):
+            if getattr(meta, 'keypoints', None) is None:
+                out.append(field)
+                continue
+            hflip = self.hflip_mapping or \
+                self._hflip_mapping(list(meta.keypoints))
+            if not hflip:
+                if meta.name not in self._warned_no_hflip:
+                    self._warned_no_hflip.add(meta.name)
+                    LOG.warning(
+                        'no left/right mapping derivable for head %s: '
+                        'skipping hflip TTA for it (set '
+                        'Predictor.hflip_mapping explicitly)', meta.name)
+                out.append(field)
+                continue
+            w_cells = field.shape[-1]
+            if isinstance(meta, headmeta.Caf):
+                back = paf_hflip(flipped, list(meta.keypoints),
+                                 list(meta.skeleton), hflip)
+                back[:, :, 2] += w_cells - 1.0
+                back[:, :, 4] += w_cells - 1.0
+            elif isinstance(meta, headmeta.Cif):
+                back = pif_hflip(flipped, list(meta.keypoints), hflip)
+                back[:, :, 2] += w_cells - 1.0
+            else:
+                out.append(field)
+                continue
+            out.append(0.5 * (field + back))
+        return tuple(out)
+
     def _tracking_fields(self, images):
         """The tracking model's fields of one frame: the backbone on the
         frame, the heads on [its features, the previous frame's]."""
@@ -238,8 +322,12 @@ class Predictor:
                                                   dtype=np.float32))
         images = torch.from_numpy(image_batch).to(self.device)
         with torch.inference_mode():
-            fields = self._tracking_fields(images) if self._tracking \
-                else self._forward(images)
+            if self._tracking:
+                fields = self._tracking_fields(images)
+            elif self.hflip_tta:
+                fields = self._hflip_tta_fields(images)
+            else:
+                fields = self._nn(images)
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
         self.last_nn_time = time.perf_counter() - start
@@ -268,46 +356,199 @@ class Predictor:
             yield pred, gt_anns, meta
 
     def _run_batches(self, batches):
-        """The strict serving loop: each batch is forwarded, decoded and
-        yielded before the next one is read."""
+        """The serving loop: each batch is forwarded, decoded and yielded
+        before the next one is taken."""
         for batch in batches:
             yield from self._run_batch(batch)
+
+    def _prefetched(self, batches):
+        """The items of ``batches``, produced up to ``prefetch_depth``
+        ahead by a worker thread (host work only). A worker exception is
+        raised here after the items before it. A
+        ``LoaderWithReset.RESET`` marker emits ``eval_reset`` here, when
+        the loop asks for the batch after it, so the reset comes after
+        the previous batch was decoded and yielded."""
+        if not self.prefetch_depth:
+            items = batches
+        else:
+            items = self._worker_items(batches)
+        for item in items:
+            if item is LoaderWithReset.RESET:
+                Signal.emit('eval_reset')
+                continue
+            yield item
+
+    def _worker_items(self, batches):
+        fifo = queue.Queue(maxsize=self.prefetch_depth)
+        done = object()
+        stop = threading.Event()
+
+        def put(item):
+            while not stop.is_set():
+                try:
+                    fifo.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                for batch in batches:
+                    if not put(batch):
+                        return
+                put(done)
+            except BaseException as exc:  # raised on the caller's thread
+                put(exc)
+
+        worker = threading.Thread(target=produce, daemon=True)
+        worker.start()
+        try:
+            while True:
+                item = fifo.get()
+                if item is done:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            # the caller stopped early: let the worker end
+            stop.set()
+            worker.join()
 
     def dataset(self, data):
         """Iterate a dataset of (image, anns, meta) samples in batches of
         ``batch_size``; yields (predictions, gt_anns, meta) per image."""
-        yield from self._run_batches(
-            collate_images_anns_meta(
-                [data[i] for i in range(start, min(start + self.batch_size,
-                                                   len(data)))])
-            for start in range(0, len(data), self.batch_size))
+        def batches():
+            for start in range(0, len(data), self.batch_size):
+                yield collate_images_anns_meta(
+                    [data[i] for i in range(
+                        start, min(start + self.batch_size, len(data)))])
+
+        yield from self._run_batches(self._prefetched(batches()))
 
     def dataloader(self, dataloader):
         """Iterate the collated batches of ``dataloader`` (e.g. a data
-        module's ``eval_loader()``)."""
-        yield from self._run_batches(iter(dataloader))
+        module's ``eval_loader()``); a ``LoaderWithReset`` resets between
+        sequences after the last frame of one was decoded."""
+        if isinstance(dataloader, LoaderWithReset):
+            batches = dataloader.marked()
+        else:
+            batches = iter(dataloader)
+        yield from self._run_batches(self._prefetched(batches))
 
     def enumerated_dataloader(self, enumerated_dataloader):
-        """As :meth:`dataloader`, for (index, batch) pairs."""
+        """As :meth:`dataloader`, for (index, batch) pairs, pulled on the
+        caller's thread after the previous batch was yielded: behind an
+        ``enumerate`` a ``LoaderWithReset`` cannot be seen, and pulled
+        ahead it would emit ``eval_reset`` before the last frame of a
+        sequence was decoded."""
         yield from self._run_batches(
-            batch for _, batch in iter(enumerated_dataloader))
+            batch for _, batch in enumerated_dataloader)
+
+    @staticmethod
+    def _pose_oks(ann_a, ann_b, sigmas):
+        """Object keypoint similarity between two annotations in the same
+        (original image) coordinate frame."""
+        a, b = ann_a.data, ann_b.data
+        vis = (a[:, 2] > 0) & (b[:, 2] > 0)
+        if not np.any(vis):
+            return 0.0
+        ref = b[b[:, 2] > 0]
+        area = ((ref[:, 0].max() - ref[:, 0].min())
+                * (ref[:, 1].max() - ref[:, 1].min()))
+        scale2 = max(float(area), 1.0)
+        k = 2.0 * np.asarray(sigmas, dtype=np.float32)[vis]
+        d2 = np.sum((a[vis, :2] - b[vis, :2]) ** 2, axis=1)
+        return float(np.mean(np.exp(-d2 / (2.0 * scale2 * k ** 2))))
+
+    def _merge_annotations(self, annotations):
+        """Greedy OKS suppression across the scales: the highest scores
+        are kept, their near-duplicates dropped (Python's stable sort, in
+        the scales' order)."""
+        if not annotations:
+            return []
+        sigmas = getattr(self.head_metas[0], 'sigmas', None)
+        if sigmas is None:
+            sigmas = [0.05] * annotations[0].data.shape[0]
+        kept = []
+        for ann in sorted(annotations, key=lambda a: a.score, reverse=True):
+            if all(self._pose_oks(ann, k, sigmas)
+                   < self.multi_scale_oks_threshold for k in kept):
+                kept.append(ann)
+        return kept
+
+    @staticmethod
+    def _merge_detections(dets, iou_threshold=0.7):
+        """Greedy IoU suppression of the scales' duplicate detections of
+        one category."""
+        def iou(a, b):
+            ax, ay, aw, ah = a.bbox
+            bx, by, bw, bh = b.bbox
+            ix = max(0.0, min(ax + aw, bx + bw) - max(ax, bx))
+            iy = max(0.0, min(ay + ah, by + bh) - max(ay, by))
+            inter = ix * iy
+            union = aw * ah + bw * bh - inter
+            return inter / union if union > 0 else 0.0
+
+        kept = []
+        for det in sorted(dets, key=lambda d: d.score or 0.0, reverse=True):
+            if all(det.category_id != k.category_id
+                   or iou(det, k) < iou_threshold for k in kept):
+                kept.append(det)
+        return kept
+
+    def _images_multiscale(self, file_names):
+        """Each image decoded at every factor of ``multi_scale_factors``
+        of the long edge (default 641), the annotations merged."""
+        base_long_edge = self.long_edge or 641
+        json_data, self.json_data = self.json_data, False
+        try:
+            for file_name in file_names:
+                merged_input = []
+                last_meta = None
+                for factor in self.multi_scale_factors:
+                    long_edge = max(
+                        33, int(round(base_long_edge * factor / 16)) * 16 + 1)
+                    data = datasets.ImageList(
+                        [file_name],
+                        preprocess=self._build_preprocess(long_edge))
+                    for pred, _, meta in self.dataset(data):
+                        # already in the original image's coordinates
+                        merged_input.extend(pred)
+                        last_meta = meta
+                keypointed = [a for a in merged_input if hasattr(a, 'data')]
+                others = [a for a in merged_input if not hasattr(a, 'data')]
+                merged = (self._merge_annotations(keypointed)
+                          + self._merge_detections(others))
+                if json_data:
+                    merged = [ann.json_data() for ann in merged]
+                yield merged, [], last_meta
+        finally:
+            self.json_data = json_data
 
     def images(self, file_names):
         file_names = list(file_names)
-        data = _Images(
-            file_names, _load_rgb, self.preprocess,
-            lambda i: {'dataset_index': i, 'file_name': file_names[i]})
-        yield from self.dataset(data)
+        if self.multi_scale:
+            yield from self._images_multiscale(file_names)
+            return
+        yield from self.dataset(datasets.ImageList(
+            file_names, preprocess=self.preprocess))
+
+    def pil_images(self, pil_images):
+        yield from self.dataset(datasets.PilImageList(
+            list(pil_images), preprocess=self.preprocess))
 
     def numpy_images(self, numpy_images):
         """Images as (H, W, 3) uint8 arrays."""
-        numpy_images = list(numpy_images)
-        data = _Images(numpy_images, _pil_image, self.preprocess,
-                       lambda i: {'dataset_index': i})
-        yield from self.dataset(data)
+        yield from self.dataset(datasets.NumpyImageList(
+            list(numpy_images), preprocess=self.preprocess))
 
     def image(self, file_name):
         return next(iter(self.images([file_name])))
+
+    def pil_image(self, image):
+        return next(iter(self.pil_images([image])))
 
     def numpy_image(self, image):
         return next(iter(self.numpy_images([image])))

@@ -46,8 +46,8 @@ def cli(argv=None):
     parser.add_argument('--dataset', default='cocokp')
     parser.add_argument('--dataset-weights', default=None, nargs='+',
                         type=float,
-                        help='not yet ported: multi-dataset training '
-                             '(ROADMAP A11)')
+                        help='round-robin sampling weights of the '
+                             'datasets of a multi-dataset --dataset a-b')
     parser.add_argument('--basenet', default='shufflenetv2k16')
     parser.add_argument('--checkpoint', default=None,
                         help='resume from a checkpoint of the port')
@@ -86,10 +86,6 @@ def cli(argv=None):
     if args.profile:
         raise NotImplementedError(
             '--profile is not yet ported to PyTorch (ROADMAP A13)')
-    if args.dataset_weights:
-        raise NotImplementedError(
-            '--dataset-weights (multi-dataset training) is not yet ported '
-            'to PyTorch (ROADMAP A11)')
 
     if args.output is None:
         args.output = default_output_file(args)
@@ -112,6 +108,7 @@ def main(argv=None):
         raise RuntimeError('train: no CUDA device found; pass --device cpu '
                            'to train on the CPU')
 
+    datasets.MultiDataModule.weights = args.dataset_weights
     datamodule = datasets.factory(args.dataset)
     datamodule.batch_size = args.batch_size
     datamodule.loader_workers = args.loader_workers

@@ -12,8 +12,8 @@ A checkpoint ``path`` is two files:
 
 The JAX package's orbax directories (``path.arrays``) are not read: the
 machine the port runs on has no orbax, and the port may not import it.
-The tests convert one with ``tests/torch_port_helpers.py::
-orbax_to_port_checkpoint`` (a user-facing converter is ROADMAP A11).
+``tools/convert_jax_checkpoint.py SRC DST`` converts one where the JAX
+package is installed.
 """
 
 import dataclasses
@@ -87,8 +87,9 @@ def load(path):
     if not os.path.exists(path + '.pt') \
             and os.path.isdir(path + '.arrays'):
         raise NotImplementedError(
-            f'{path}: an orbax checkpoint of the JAX package; reading it '
-            'is not yet ported to PyTorch (ROADMAP A11)')
+            f'{path}: an orbax checkpoint of the JAX package; convert it '
+            'with tools/convert_jax_checkpoint.py where the JAX package is '
+            'installed')
     state_dict = torch.load(path + '.pt', map_location='cpu',
                             weights_only=True)
     return state_dict, meta

@@ -69,7 +69,8 @@ def cli(args=None):
                         help='serving backbone engine (see predict)')
     parser.add_argument('--precise-rescaling', dest='fast_rescaling',
                         default=True, action='store_false',
-                        help='(compat) the rescale is the same either way')
+                        help='accepted and ignored: a no-op, as in the '
+                             'JAX package, whose rescale never reads it')
     parser.add_argument('--debug', default=False, action='store_true')
     logger.cli(parser)
     decoder.cli(parser)

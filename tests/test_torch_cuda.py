@@ -880,3 +880,111 @@ def test_cocodet_engines_equal_the_module_graph(cuda, engine, counter):
     assert after - before == 13
     assert [tuple(o.shape) for o in out] == [(1, 80, 6, 33, 41)]
     torch.testing.assert_close(out[0], ref[0], rtol=1e-4, atol=1e-4)
+
+
+def _narrow_predictor(metas, device):
+    model = port_narrow_shell(metas)
+    return Predictor(model=model, device=device)
+
+
+def test_cuda_hflip_tta_fields_match_cpu(cuda):
+    """hflip TTA of a narrow k16 with the cocokp and cocodet heads on the
+    card against the same model on the CPU (TF32 off: atol 1e-4), on a
+    width the bucket pad widens; the CifDet head keeps its direct
+    field."""
+    from openpifpaf_tpu_torch.datasets import factory as datasets_factory
+
+    metas = datasets_factory('cocokp-cocodet').head_metas
+    gpu = _narrow_predictor(metas, cuda)
+    cpu = Predictor(model=port_narrow_shell(metas), device='cpu')
+    cpu.model.load_state_dict(gpu.model.state_dict())
+    image = np.random.RandomState(0).randn(2, 97, 113, 3).astype(np.float32)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        plain = gpu.fields_batch(image)
+        gpu.hflip_tta = cpu.hflip_tta = True
+        out = gpu.fields_batch(image)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    ref = cpu.fields_batch(image)
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o.cpu(), r, rtol=1e-4, atol=1e-4)
+    assert torch.equal(out[2], plain[2])
+
+
+def test_cuda_chunked_forward_matches_unchunked(cuda):
+    """A batch of 16 on the card runs as two forwards of 8; the fields
+    agree with the unchunked forward within the engine tolerance."""
+    predictor = _narrow_predictor(cocokp_head_metas(), cuda)
+    image = np.random.RandomState(1).randn(16, 97, 129, 3).astype(np.float32)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        predictor.nn_chunk_size = 8
+        chunked = predictor.fields_batch(image)
+        predictor.nn_chunk_size = 0
+        whole = predictor.fields_batch(image)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    for c, w in zip(chunked, whole):
+        torch.testing.assert_close(c, w, rtol=1e-4, atol=1e-4)
+
+
+def test_cuda_prefetch_and_image_lists_answer_alike(cuda):
+    """Prefetch at depth 2 and 0, and ``numpy_images`` against
+    ``pil_images``, give the same predictions on the card."""
+    import PIL.Image
+
+    predictor = _narrow_predictor(cocokp_head_metas(), cuda)
+    images = [np.random.RandomState(i).randint(0, 256, (97, 129, 3),
+                                               dtype=np.uint8)
+              for i in range(3)]
+    answers = []
+    for depth in (2, 0):
+        predictor.prefetch_depth = depth
+        answers.append([[a.json_data() for a in pred]
+                        for pred, _, _ in predictor.numpy_images(images)])
+    answers.append([[a.json_data() for a in pred]
+                    for pred, _, _ in predictor.pil_images(
+                        [PIL.Image.fromarray(im) for im in images])])
+    assert answers[0] == answers[1] == answers[2]
+
+
+def test_cuda_cocokp_cocodet_steps(cuda, tmp_path):
+    """Three steps of a narrow k16 with the cocokp and cocodet heads on
+    the mix's batches (cocokp, cocodet, cocokp at weights 2 1) on the
+    card: finite losses, None for the absent heads, every head moved."""
+    from openpifpaf_tpu_torch.datasets import MultiDataModule
+    from openpifpaf_tpu_torch.datasets import factory as datasets_factory
+    from openpifpaf_tpu_torch.plugins.coco.cocodet import CocoDet
+    from openpifpaf_tpu_torch.plugins.coco.cocokp import CocoKp
+    from torch_port_helpers import restored_statics, write_synthetic_cocodet
+
+    kp = write_synthetic_coco(str(tmp_path / 'kp'), n_images=4,
+                              image_hw=(97, 129), seed=0)
+    det = write_synthetic_cocodet(str(tmp_path / 'det'), n_images=2,
+                                  image_hw=(97, 129), seed=1)
+    with restored_statics(CocoKp, CocoDet, MultiDataModule):
+        CocoKp.train_annotations, CocoKp.train_image_dir = kp
+        CocoDet.train_annotations, CocoDet.train_image_dir = det
+        CocoKp.square_edge = CocoDet.square_edge = 97
+        MultiDataModule.weights = [2.0, 1.0]
+        datamodule = datasets_factory('cocokp-cocodet')
+        datamodule.batch_size = 2
+        assign_strides(datamodule.head_metas, 16)
+        np.random.seed(0)
+        batches = list(datamodule.train_loader())
+    trainer = _trainer(datamodule.head_metas, cuda)
+    before = [p.detach().clone() for p in trainer.model.head_nets.parameters()]
+    pattern = []
+    for images, targets, metas in batches:
+        targets = trainer._prepare_targets(targets, metas)
+        loss, heads = trainer.train_step(
+            torch.from_numpy(images).to(cuda), targets)
+        assert np.isfinite(float(loss))
+        pattern.append([h is None for h in heads])
+    assert pattern == [[False] * 6 + [True] * 2, [True] * 6 + [False] * 2,
+                       [False] * 6 + [True] * 2]
+    assert all(not torch.equal(b, p.detach()) for b, p in zip(
+        before, trainer.model.head_nets.parameters()))

@@ -207,17 +207,37 @@ def test_eval_loader_batches_equal_jax(coco_set, options):
                     np.testing.assert_array_equal(x.bbox, y.bbox)
 
 
-def _decoder_of(module_decoders, cli, configure, build):
+def _decoder_of(module_decoders, cli, configure, build, flags=FLAGS):
     parser = argparse.ArgumentParser()
     with restored_statics(*module_decoders):
         cli(parser)
-        configure(parser.parse_args(list(FLAGS)))
+        configure(parser.parse_args(list(flags)))
         return build()
 
 
 def test_evaluator_seams_equal_jax(coco_set, converted_fixture):
     """(a) the fields of each side's eval loader and Predictor; (b) JAX's
     fields through each side's decoder, inverse transform and metric."""
+    _evaluator_seams(coco_set, converted_fixture, hflip_tta=False,
+                     flags=FLAGS)
+
+
+#: the overfit fixture does not answer the mirrored image, so the TTA
+#: halves its confidences and averages its regressions with the mirror's;
+#: lower thresholds keep its poses
+TTA_FLAGS = FLAGS + ('--seed-threshold', '0.1', '--instance-threshold',
+                     '0.01', '--keypoint-threshold', '0.01')
+
+
+def test_evaluator_seams_equal_jax_under_hflip_tta(coco_set,
+                                                   converted_fixture):
+    """As :func:`test_evaluator_seams_equal_jax` with ``--hflip-tta``:
+    the averaged fields of each side, then identical stats."""
+    _evaluator_seams(coco_set, converted_fixture, hflip_tta=True,
+                     flags=TTA_FLAGS)
+
+
+def _evaluator_seams(coco_set, converted_fixture, hflip_tta, flags):
     ann_file, image_dir = coco_set
     with restored_statics(CocoKp, JaxCocoKp):
         ours_dm = _configured(CocoKp, ann_file, image_dir, {})
@@ -225,12 +245,14 @@ def test_evaluator_seams_equal_jax(coco_set, converted_fixture):
         port_predictor = _decoder_of(
             (port_decoder_module.CifCaf, port_decoder_module.CifCafDense),
             port_decoder_module.cli, port_decoder_module.configure,
-            lambda: Predictor(checkpoint=converted_fixture, device='cpu'))
+            lambda: Predictor(checkpoint=converted_fixture, device='cpu'),
+            flags)
         jax_predictor = _decoder_of(
             jax_decoder_module.factory.DECODERS,
             jax_decoder_module.factory.cli,
             jax_decoder_module.factory.configure,
-            lambda: JaxPredictor(checkpoint=FIXTURE))
+            lambda: JaxPredictor(checkpoint=FIXTURE), flags)
+        port_predictor.hflip_tta = jax_predictor.hflip_tta = hflip_tta
         metric, ref_metric = ours_dm.metrics()[0], ref_dm.metrics()[0]
         n_poses = 0
         for batch, ref_batch in zip(ours_dm.eval_loader(),
@@ -299,12 +321,27 @@ def test_eval_cli_writes_stats(coco_set, converted_fixture, tmp_path):
     assert stats['checkpoint'] == converted_fixture
 
 
-@pytest.mark.parametrize('flag', ['--pipeline-decode', '--hflip-tta',
+@pytest.mark.parametrize('flag', ['--pipeline-decode',
                                   '--eval-show-final-image',
                                   '--eval-show-final-ground-truth'])
 def test_eval_cli_refuses_what_is_not_ported(flag):
     with pytest.raises(NotImplementedError, match='ROADMAP A'):
         eval_cli.cli(['--device', 'cpu', flag])
+
+
+def test_eval_cli_takes_hflip_tta(coco_set):
+    """``--hflip-tta`` reaches the Evaluator, as in JAX
+    (``test_evaluator_seams_equal_jax_under_hflip_tta`` holds the
+    stats)."""
+    from openpifpaf_tpu_torch import datasets
+    ann_file, image_dir = coco_set
+    with restored_statics(*port_decoder_module.DECODERS,
+                          *datasets.datamodules().values()):
+        args = eval_cli.cli(['--device', 'cpu', '--hflip-tta',
+                             '--cocokp-val-annotations', ann_file,
+                             '--cocokp-val-image-dir', image_dir])
+        evaluator = eval_cli._evaluator(args)
+    assert args.hflip_tta and evaluator.hflip_tta
 
 
 def test_benchmark_runs_two_suite_entries(coco_set, converted_fixture,

@@ -105,7 +105,9 @@ def test_every_port_module_imports_without_jax():
                  'encoder.cifdet', 'ops.decode_cifdet', 'decoder.cifdet',
                  'plugins.coco.cocodet', 'plugins.cifar10',
                  'plugins.nuscenes', 'metric.classification',
-                 'datasets.wrapped'):
+                 'datasets.wrapped', 'datasets.multiloader',
+                 'datasets.multimodule', 'datasets.image_list',
+                 'models.heads', 'predictor'):
         assert f'openpifpaf_tpu_torch.{name}' in report['modules']
     assert report['loaded'] == []
 

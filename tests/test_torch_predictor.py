@@ -275,12 +275,14 @@ def test_predictor_without_cuda_raises(monkeypatch):
 
 def test_checkpoint_is_not_yet_ported(tmp_path):
     """The port reads its own checkpoints (``.json`` + ``.pt``); a JAX
-    orbax checkpoint (``.json`` + ``.arrays/``) raises at once."""
+    orbax checkpoint (``.json`` + ``.arrays/``) raises at once, naming the
+    converter that runs where the JAX package is installed."""
     from openpifpaf_tpu_torch import predict
 
     base = str(tmp_path / 'model')
     with open(base + '.json', 'w') as f:
         json.dump({'base_name': 'shufflenetv2k16', 'head_metas': []}, f)
     os.makedirs(base + '.arrays')
-    with pytest.raises(NotImplementedError, match='ROADMAP A11'):
+    with pytest.raises(NotImplementedError,
+                       match='tools/convert_jax_checkpoint.py'):
         predict.main(['image.jpg', '--checkpoint', base])

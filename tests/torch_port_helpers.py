@@ -904,20 +904,18 @@ FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 def orbax_to_port_checkpoint(src, dst):
     """The JAX package's checkpoint ``src`` (``src.json`` and the orbax
-    directory ``src.arrays``) as a checkpoint of the port at ``dst``
-    (``dst.json`` with the same meta, ``dst.pt`` from
-    ``convert_jax.state_dict_from_jax``); returns ``dst``. It needs the JAX
-    package and orbax, so it runs where the tests run, not on the card's
-    machine."""
-    from openpifpaf_tpu.training import checkpoint as jax_checkpoint
-    from openpifpaf_tpu_torch.models import convert_jax
-    from openpifpaf_tpu_torch.training import checkpoint as port_checkpoint
-
-    arrays, meta = jax_checkpoint.load(src)
-    state_dict = convert_jax.state_dict_from_jax(
-        {'params': arrays['params'], 'batch_stats': arrays['batch_stats']})
-    port_checkpoint.save(dst, state_dict=state_dict, meta=meta)
-    return dst
+    directory ``src.arrays``) as a checkpoint of the port at ``dst``,
+    through ``tools/convert_jax_checkpoint.py``; returns ``dst``. It needs
+    the JAX package and orbax, so it runs where the tests run, not on the
+    card's machine."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'tools', 'convert_jax_checkpoint.py')
+    spec = importlib.util.spec_from_file_location('convert_jax_checkpoint',
+                                                  path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool.convert(src, dst)
 
 
 def numpy_variables(shapes, seed):
@@ -1395,6 +1393,56 @@ def cifdet_scene(objects, *, seed, hw=CIFDET_HW, stride=CIFDET_STRIDE,
                 field[cat, 5, j, i] = h / stride * (
                     1.0 + 0.05 * noise * rng.normal())
     return field.astype(np.float32)
+
+
+def port_person(cx, cy, height, rng):
+    """(17, 3) keypoints of an upright COCO person centred at (cx, cy),
+    each moved by up to a pixel: ``field_fixtures.synthetic_person``
+    without the JAX package (``chip_smoke.py`` draws with it)."""
+    from openpifpaf_tpu_torch.plugins.coco.constants import \
+        COCO_UPRIGHT_POSE
+
+    scale = height / 9.7
+    kps = np.zeros((17, 3), dtype=np.float32)
+    kps[:, 0] = cx + COCO_UPRIGHT_POSE[:, 0] * scale
+    kps[:, 1] = cy + (9.7 / 2 - COCO_UPRIGHT_POSE[:, 1]) * scale
+    kps[:, 2] = 2.0
+    kps[:, :2] += rng.uniform(-1.0, 1.0, size=(17, 2))
+    return kps
+
+
+def port_pose_fields(people, image_hw, cif_meta, caf_meta):
+    """Decoded (F, 5, H, W) CIF and (E, 8, H, W) CAF fields of ``people``
+    ((K, 3) keypoints each) in an image of ``image_hw``, painted by the
+    port's target encoders: ``field_fixtures.fields_from_annotations``
+    without the JAX package."""
+    from openpifpaf_tpu_torch import encoder
+
+    anns = []
+    for kps in people:
+        xs, ys = kps[kps[:, 2] > 0, 0], kps[kps[:, 2] > 0, 1]
+        anns.append({'keypoints': kps.copy(), 'iscrowd': False,
+                     'bbox': np.array([xs.min(), ys.min(), xs.max() - xs.min(),
+                                       ys.max() - ys.min()], np.float32)})
+    image = np.zeros((image_hw[0], image_hw[1], 3), dtype=np.float32)
+    cif_t = encoder.Cif(cif_meta)(image, anns, {})
+    caf_t = encoder.Caf(caf_meta)(image, anns, {})
+    h, w = cif_t.shape[2:]
+    ix = np.arange(w, dtype=np.float32)[None, None, :]
+    iy = np.arange(h, dtype=np.float32)[None, :, None]
+    cif = np.zeros((cif_t.shape[0], 5, h, w), dtype=np.float32)
+    cif[:, 1] = np.nan_to_num(cif_t[:, 0], nan=0.0)
+    cif[:, 2] = np.nan_to_num(cif_t[:, 1]) + ix
+    cif[:, 3] = np.nan_to_num(cif_t[:, 2]) + iy
+    cif[:, 4] = np.nan_to_num(cif_t[:, 4], nan=0.0)
+    caf = np.zeros((caf_t.shape[0], 8, h, w), dtype=np.float32)
+    caf[:, 1] = np.nan_to_num(caf_t[:, 0], nan=0.0)
+    for ch, (src, offset) in enumerate(((1, ix), (2, iy), (3, ix), (4, iy)),
+                                       start=2):
+        caf[:, ch] = np.nan_to_num(caf_t[:, src]) + offset
+    caf[:, 6] = np.nan_to_num(caf_t[:, 7], nan=0.0)
+    caf[:, 7] = np.nan_to_num(caf_t[:, 8], nan=0.0)
+    return cif, caf
 
 
 def cifdet_sparse_scene(seed=0):
