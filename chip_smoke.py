@@ -211,6 +211,29 @@ Phases, each of which raises on failure (non-zero exit):
     and fused-block launches of (b) and (c) are counted in the kernels
     line.
 
+18. reference checkpoints: a full-width shufflenetv2k16 in the reference's
+    module layout (``tests/torch_ref.py``, random from seed 0, BatchNorm
+    running statistics drawn from seed 1, confidences raised by 2), saved
+    as the reference saves checkpoints (``ref.pkl``, epoch 3): (a) its raw
+    head outputs through ``Predictor(checkpoint='ref.pkl')`` on the module
+    graph within 1e-5 of each head's largest value of the ``torch_ref``
+    forward on the card, on ``'pallas'``, ``'dwpallas'`` and ``'folded'``
+    within ``ENGINE_TOL`` (TF32 off); ``predict.main --checkpoint
+    ref.pkl`` over the main path's requests as 481x641 JPEGs on each of
+    the four engines (lowered thresholds, pose budgets of 16): NN and
+    decode ms per image, one CifHr launch per image per tier, the
+    engine's kernel 13 times per forward, every CifHr call bit-equal to
+    its plain version; ``migrate`` of the pickle serves the same poses;
+    (b) ``predict --checkpoint shufflenetv2k16-apollo-66`` from a cache
+    directory (``OPENPIFPAF_TPU_CACHE``) holding a 66-keypoint
+    reference-layout pickle under the registered URL's file name, with
+    downloads refused, then a hash-suffixed name whose cached file fails
+    its check raises; (c) ``train.main --checkpoint ref.pkl`` for 2 steps
+    on a synthetic cocokp set (batch 8, 385 px) from the pickle's epoch;
+    (d) ``count_ops.main --checkpoint ref.pkl``: GFLOPs and parameters.
+    The CifHr, depthwise and fused-block launches of (a) and (b) are
+    counted in the kernels line.
+
 The second-to-last line is a JSON object describing the kernels (with each
 one's bound: the larger of its bytes over the card's memory rate and its
 operations over the peak rate of its type), the last
@@ -2385,42 +2408,91 @@ def check_records(records, label, heads, card, at_field_hw=True):
             f'[{card}]')
 
 
-def phase_wholebody_predict(port, ckpt, directory, device, card):
-    """15c: ``predict.main --checkpoint`` of 15b's checkpoint over 481x641
-    JPEGs (padded to 513x641): three single-image requests, then one batch
-    of two, in-process; fields, launches and times per forward
-    (:func:`recorded_runs`); the kernel on every F=133 call's cells
-    against its plain version; then one warm request of a ``Predictor``
-    of the checkpoint profiled: device ops, stream syncs and the device's
-    busy share of the request's wall time. Returns the runs' CifHr
-    launches."""
+def write_requests(directory):
+    """The main path's requests (:func:`make_requests`) as JPEGs in
+    ``directory``; returns one list of paths per request."""
     import PIL.Image
-    from openpifpaf_tpu_torch import decoder, predict
-    from openpifpaf_tpu_torch.predictor import Predictor
-    from torch_port_helpers import restored_statics
 
-    requests = make_requests()
     files = []
-    for i, images in enumerate(requests):
+    for i, images in enumerate(make_requests()):
         files.append([])
         for j, image in enumerate(images):
             path = os.path.join(directory, f'request{i}-{j}.jpg')
             PIL.Image.fromarray(image).save(path, quality=95)
             files[-1].append(path)
-    out = os.path.join(directory, 'predictions')
-    os.makedirs(out)
+    return files
+
+
+def read_predictions(directory):
+    """{file name: its JSON predictions} of a ``--json-output`` directory."""
+    out = {}
+    for name in sorted(os.listdir(directory)):
+        with open(os.path.join(directory, name)) as f:
+            out[name] = json.load(f)
+    return out
+
+
+def served_predict(port, files, argv, label, heads, card, kernel=None):
+    """``predict.main`` over ``files`` (three single-image requests, then a
+    batch of two) with ``argv``, in-process, the launch counts set to 0
+    just before and read just after: the fields of ``heads``, one CifHr
+    launch per image per tier, ``kernel`` (or no backbone kernel)
+    launching FORWARD_LAUNCHES times per forward, the kernel on every
+    CifHr call's cells bit-equal to its plain version. Returns ({kernel:
+    launches}, the records of :func:`recorded_runs`)."""
+    from openpifpaf_tpu_torch import decoder, predict
+    from torch_port_helpers import restored_statics
+
     reset_launches(port)
     with recorded_runs([]) as records, \
             kept_cifhr_calls(port.cifhr_cuda) as calls, \
             restored_statics(*decoder.DECODERS):
-        predict.main([*files[0], *files[1], *files[2], '--checkpoint', ckpt,
-                      '--json-output', out])
-        predict.main([*files[3], '--checkpoint', ckpt, '--batch-size', '2',
-                      '--json-output', out])
-    launches = read_launches(port)['cifhr_accumulate']
+        predict.main([*files[0], *files[1], *files[2], *argv])
+        predict.main([*files[3], '--batch-size', '2', *argv])
+    counts = read_launches(port)
     if [r['images'] for r in records] != [1, 1, 1, 2]:
-        raise AssertionError(f'wholebody predict: forwards {records}')
-    check_records(records, 'wholebody predict (15c)', WHOLEBODY_HEADS, card)
+        raise AssertionError(f'{label}: forwards {records}')
+    check_records(records, label, heads, card)
+    forwards = len(records)
+    for name in ('depthwise_conv', 'shuffle_block', 'shuffle_branch2'):
+        want = FORWARD_LAUNCHES * forwards if name == kernel else 0
+        if counts[name] != want:
+            raise AssertionError(f'{label}: {counts[name]} {name} launches '
+                                 f'in {forwards} forwards, want {want}')
+    if counts['cifhr_accumulate'] != len(calls) or \
+            counts['cifhr_accumulate'] != sum(r['launches'] for r in records):
+        raise AssertionError(f'{label}: {counts["cifhr_accumulate"]} CifHr '
+                             f'launches, {len(calls)} calls')
+    check_kept_calls(port, calls, label)
+    # the first call at each batch size picks cuDNN's algorithms
+    warm = records[1:3]
+    log(f'{label}: NN {np.mean([r["nn_ms"] for r in warm]):.3f} ms/image '
+        f'(CUDA events), decode '
+        f'{np.mean([r["decode_ms"] for r in warm]):.2f} ms/image, the mean '
+        f'of the 2 warm batch-1 forwards; launches {counts} [{card}]')
+    launches = {'cifhr_accumulate': counts['cifhr_accumulate']}
+    if kernel is not None:
+        launches[kernel] = counts[kernel]
+    return launches, records
+
+
+def phase_wholebody_predict(port, ckpt, directory, device, card):
+    """15c: ``predict.main --checkpoint`` of 15b's checkpoint over 481x641
+    JPEGs (padded to 513x641): three single-image requests, then one batch
+    of two, in-process (:func:`served_predict`: fields, launches and times
+    per forward, the kernel on every F=133 call's cells against its plain
+    version); then one warm request of a ``Predictor`` of the checkpoint
+    profiled: device ops, stream syncs and the device's busy share of the
+    request's wall time. Returns the runs' CifHr launches."""
+    from openpifpaf_tpu_torch.predictor import Predictor
+
+    files = write_requests(directory)
+    out = os.path.join(directory, 'predictions')
+    os.makedirs(out)
+    launches = served_predict(
+        port, files, ['--checkpoint', ckpt, '--json-output', out],
+        'wholebody predict (15c)', WHOLEBODY_HEADS, card)[0][
+            'cifhr_accumulate']
     written = sorted(os.listdir(out))
     if len(written) != 5:
         raise AssertionError(f'wholebody predict wrote {written}')
@@ -2428,14 +2500,9 @@ def phase_wholebody_predict(port, ckpt, directory, device, card):
         with open(os.path.join(out, name)) as f:
             if any(len(a['keypoints']) != 133 * 3 for a in json.load(f)):
                 raise AssertionError(f'{name}: not 133 keypoints')
-    if launches != len(calls) or launches != sum(r['launches']
-                                                 for r in records):
-        raise AssertionError(f'wholebody predict: {launches} CifHr launches, '
-                             f'{len(calls)} calls')
-    check_kept_calls(port, calls, 'wholebody predict (15c)')
 
     predictor = Predictor(checkpoint=ckpt, device=device)
-    image = requests[0]
+    image = make_requests()[0]
     list(predictor.numpy_images(image))
     start = time.perf_counter()
     list(predictor.numpy_images(image))
@@ -3508,6 +3575,258 @@ def phase_mix(port, device, card):
     return launches
 
 
+#: phase 18: the reference-layout k16 (``torch_ref``, torch only) at full
+#: width, random from REF_SEED with BatchNorm running statistics from
+#: REF_BN_SEED and its confidence channels raised by REF_CONFIDENCE (so
+#: that the decode keeps poses), saved as the reference saves checkpoints
+REF_SEED = 0
+REF_BN_SEED = 1
+REF_CONFIDENCE = 2.0
+REF_EPOCH = 3
+#: 18a's engines and the backbone kernel each launches
+REF_ENGINES = {'flax': None, 'pallas': 'shuffle_block',
+               'dwpallas': 'depthwise_conv', 'folded': None}
+#: the port's raw head outputs on the module graph against the
+#: ``torch_ref`` forward on the card, float32 with TF32 off: max abs error
+#: within this share of each head's largest value (engines: ENGINE_TOL)
+REF_RTOL = 1e-5
+#: 18a's decoder thresholds, lowered (as in
+#: ``tests/test_torch_convert_torch.py``) so that the random weights keep
+#: poses to compare; pose budgets of 16 bound the decode
+REF_DECODER_FLAGS = ('--seed-threshold', '0.05', '--keypoint-threshold',
+                     '0.05', '--instance-threshold', '0.001',
+                     '--decoder-poses', '16', '--decoder-crowd-poses', '16')
+APOLLO66_NAME = 'shufflenetv2k16-apollo-66'
+APOLLO66_HEADS = ((66, 5), (108, 8))
+#: 18c: fine-tuning steps from the pickle
+REF_TRAIN_STEPS = 2
+
+
+def reference_raw_outputs(ckpt, shell, device, card):
+    """18a: the port's raw head outputs on each engine of REF_ENGINES,
+    from ``Predictor(checkpoint=ckpt)``, against the reference-layout
+    ``shell``'s own forward on the card (TF32 off)."""
+    from openpifpaf_tpu_torch.predictor import Predictor
+
+    x = test_image(device).permute(0, 3, 1, 2)
+    with no_tf32(), torch.inference_mode():
+        ref = list(shell.to(device)(x.contiguous()))
+        shell.cpu()
+        for engine in REF_ENGINES:
+            p = Predictor(checkpoint=ckpt, device=device,
+                          backbone_engine=engine)
+            xc = x.contiguous(memory_format=torch.channels_last)
+            features = p.model.base_net(xc) if p._backbone is None \
+                else p._backbone(xc).float()
+            raw = p.model.heads(features, train=True)
+            label = f'reference raw outputs (18a) {engine}'
+            if engine == 'flax':
+                errs = [float((o - r).abs().max()) for o, r in zip(raw, ref)]
+                shares = [e / float(r.abs().max()) for e, r in zip(errs, ref)]
+                if not max(shares) <= REF_RTOL:
+                    raise AssertionError(f'{label}: max abs err {errs}, '
+                                         f'{shares} of the largest value, '
+                                         f'want <= {REF_RTOL}')
+                tol = f'{REF_RTOL} of the largest value; shares {shares}'
+            else:
+                errs = compare_fields(raw, ref, label, **ENGINE_TOL)
+                tol = f'rtol/atol {ENGINE_TOL["rtol"]}'
+            log(f'{label}: vs the torch_ref forward on the card, max abs '
+                f'err per head {errs} (float32, TF32 off, tol {tol}) '
+                f'[{card}]')
+            del p
+
+
+def phase_reference_serve(port, ckpt, files, directory, device, card):
+    """18a: ``predict.main --checkpoint ref.pkl`` on each engine of
+    REF_ENGINES (:func:`served_predict`); the poses of the module graph
+    equal to those of the checkpoint ``migrate`` writes from the same
+    pickle. Returns {kernel: launches}."""
+    from openpifpaf_tpu_torch import migrate
+
+    launches = {'cifhr_accumulate': 0}
+    poses = {}
+    for engine, kernel in REF_ENGINES.items():
+        out = os.path.join(directory, f'predictions-{engine}')
+        os.makedirs(out)
+        counts, _ = served_predict(
+            port, files, ['--checkpoint', ckpt, '--backbone-engine', engine,
+                          '--json-output', out, *REF_DECODER_FLAGS],
+            f'reference serve (18a) {engine}', ((17, 5), (19, 8)), card,
+            kernel)
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
+        poses[engine] = read_predictions(out)
+        log(f'reference serve (18a) {engine}: poses per image '
+            f'{[len(p) for p in poses[engine].values()]}')
+
+    migrated = os.path.join(directory, 'migrated')
+    migrate.main(['--checkpoint', ckpt, '--output', migrated])
+    out = os.path.join(directory, 'predictions-migrated')
+    os.makedirs(out)
+    counts, _ = served_predict(
+        port, files, ['--checkpoint', migrated, '--backbone-engine', 'flax',
+                      '--json-output', out, *REF_DECODER_FLAGS],
+        'migrated serve (18a)', ((17, 5), (19, 8)), card)
+    launches['cifhr_accumulate'] += counts['cifhr_accumulate']
+    if read_predictions(out) != poses['flax']:
+        raise AssertionError('18a: the migrated checkpoint\'s poses differ '
+                             'from the pickle\'s')
+    n_poses = sum(len(p) for p in poses['flax'].values())
+    if n_poses == 0:
+        raise AssertionError('18a: the module graph kept no pose')
+    log(f'migrated serve (18a): the {n_poses} poses of the 5 images equal '
+        'the pickle\'s')
+    return launches
+
+
+def phase_reference_name(port, files, directory, card):
+    """18b: ``predict --checkpoint shufflenetv2k16-apollo-66`` from a
+    cache directory that holds the 66-keypoint pickle under the
+    registered URL's file name (no hash suffix), with downloads refused;
+    then a hash-suffixed name whose cached file fails its check raises.
+    Returns the CifHr launches."""
+    import urllib.request
+    from openpifpaf_tpu_torch.models import factory
+    from torch_port_helpers import reference_apollo66, \
+        save_reference_checkpoint
+
+    def refuse(url, filename):
+        raise AssertionError(f'18b tried to download {url}')
+
+    cache = os.path.join(directory, 'cache')
+    os.makedirs(cache)
+    saved = (os.environ.get('OPENPIFPAF_TPU_CACHE'),
+             urllib.request.urlretrieve)
+    os.environ['OPENPIFPAF_TPU_CACHE'] = cache
+    urllib.request.urlretrieve = refuse
+    try:
+        url = factory.local_checkpoint_path(APOLLO66_NAME)
+        local = os.path.join(cache, os.path.basename(url))
+        save_reference_checkpoint(
+            local, reference_apollo66(REF_SEED, REF_BN_SEED),
+            epoch=REF_EPOCH)
+        out = os.path.join(directory, 'predictions-apollo')
+        os.makedirs(out)
+        counts, _ = served_predict(
+            port, files, ['--checkpoint', APOLLO66_NAME,
+                          '--json-output', out],
+            f'published name (18b) {APOLLO66_NAME}', APOLLO66_HEADS, card)
+        for name, anns in read_predictions(out).items():
+            if any(len(a['keypoints']) != 66 * 3 for a in anns):
+                raise AssertionError(f'18b {name}: not 66 keypoints')
+
+        hashed = factory.local_checkpoint_path('shufflenetv2k16')
+        with open(local, 'rb') as src, \
+                open(os.path.join(cache, os.path.basename(hashed)),
+                     'wb') as dst:
+            dst.write(src.read())
+        try:
+            factory.resolve_checkpoint('shufflenetv2k16')
+        except ValueError as e:
+            if 'hash mismatch' not in str(e):
+                raise
+            log(f'published name (18b) shufflenetv2k16: a cached file that '
+                f'fails its hash raises: {e}')
+        else:
+            raise AssertionError('18b: a file that fails its hash check '
+                                 'resolved')
+    finally:
+        urllib.request.urlretrieve = saved[1]
+        if saved[0] is None:
+            del os.environ['OPENPIFPAF_TPU_CACHE']
+        else:
+            os.environ['OPENPIFPAF_TPU_CACHE'] = saved[0]
+    return counts['cifhr_accumulate']
+
+
+def phase_reference_train(ckpt, directory, card):
+    """18c: ``train.main --checkpoint ref.pkl`` for REF_TRAIN_STEPS steps
+    on phase 11's synthetic cocokp set (batch 8, 385 px, float32): the
+    run starts at the pickle's epoch, every loss is finite, the step
+    times (CUDA events)."""
+    from openpifpaf_tpu_torch import train
+    from openpifpaf_tpu_torch.training.trainer import Trainer
+    from torch_port_helpers import write_synthetic_coco
+
+    data = write_synthetic_coco(
+        os.path.join(directory, 'coco'), n_images=TRAIN_BATCH * 2,
+        image_hw=TRAIN_IMAGE_HW, seed=TRAIN_SEED)
+    out = os.path.join(directory, 'finetuned', 'model')
+    os.makedirs(os.path.dirname(out))
+    argv = train_flags(data, out, '--checkpoint', ckpt)
+    for flag, value in (('--epochs', REF_EPOCH + 1),
+                        ('--train-batches', REF_TRAIN_STEPS),
+                        ('--val-batches', 1)):
+        argv[argv.index(flag) + 1] = str(value)
+    events = []
+    original = timed_train_steps(Trainer, events)
+    t0 = time.perf_counter()
+    try:
+        train.main(argv)
+    finally:
+        Trainer.train_step = original
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_lines, val_lines = read_train_log(out + '.log')
+    losses = [line['loss'] for line in train_lines + val_lines]
+    if [line['epoch'] for line in train_lines] != [REF_EPOCH] * \
+            REF_TRAIN_STEPS or len(val_lines) != 1 \
+            or not np.all(np.isfinite(losses)):
+        raise AssertionError(f'18c: train lines {train_lines}, val lines '
+                             f'{val_lines}')
+    with open(out + '.json') as f:
+        meta = json.load(f)
+    if meta['epoch'] != REF_EPOCH + 1 or meta['base_name'] != \
+            'shufflenetv2k16':
+        raise AssertionError(f'18c: checkpoint meta {meta}')
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    log(f'fine-tune (18c): {len(step_ms)} steps from the pickle\'s epoch '
+        f'{REF_EPOCH} (written as epoch {meta["epoch"]}), step '
+        f'{[round(ms, 2) for ms in step_ms]} ms (CUDA events; the first '
+        f'picks cuDNN\'s algorithms), losses {[round(x, 1) for x in losses]}'
+        f', whole run {wall:.1f} s [{card}]')
+
+
+def phase_reference_count_ops(ckpt, card):
+    """18d: ``count_ops.main --checkpoint ref.pkl`` on the card."""
+    from openpifpaf_tpu_torch import count_ops
+
+    t0 = time.perf_counter()
+    gflops, mparams = count_ops.main(['--checkpoint', ckpt])
+    if not (gflops > 0 and mparams > 0):
+        raise AssertionError(f'18d: {gflops} GFLOPs, {mparams} M parameters')
+    log(f'count_ops (18d): shufflenetv2k16 with the cocokp heads, 641x641: '
+        f'{gflops:.4f} GFLOPs, {mparams:.6f} million parameters, '
+        f'{time.perf_counter() - t0:.1f} s [{card}]')
+
+
+def phase_reference(port, device, card):
+    """Phase 18: (a)-(d); returns {kernel: launches} of (a) and (b)."""
+    import tempfile
+    from torch_port_helpers import raise_confidences, reference_k16, \
+        save_reference_checkpoint
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as directory:
+        shell = raise_confidences(reference_k16(REF_SEED, REF_BN_SEED),
+                                  REF_CONFIDENCE)
+        ckpt = save_reference_checkpoint(
+            os.path.join(directory, 'ref.pkl'), shell, epoch=REF_EPOCH,
+            basenet='shufflenetv2k16')
+        files = write_requests(directory)
+        reference_raw_outputs(ckpt, shell, device, card)
+        launches = phase_reference_serve(port, ckpt, files, directory,
+                                         device, card)
+        launches['cifhr_accumulate'] += phase_reference_name(
+            port, files, directory, card)
+        phase_reference_train(ckpt, directory, card)
+        phase_reference_count_ops(ckpt, card)
+    log(f'phase 18: launches {launches}; {time.perf_counter() - t0:.1f} s '
+        f'[{card}]')
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, rows, row):
     """One kernel's entry of the JSON line: times and bound of ``row``,
     the largest error of all ``rows``."""
@@ -3562,6 +3881,8 @@ def main():
     for name, count in phase_detection(port, device, card).items():
         launches[name] += count
     for name, count in phase_mix(port, device, card).items():
+        launches[name] += count
+    for name, count in phase_reference(port, device, card).items():
         launches[name] += count
 
     # no single PyTorch call computes the CifHr map; times at F=17 K=256

@@ -70,7 +70,8 @@ class Evaluator:
 
         total_time = self.accumulate(predictor, metrics)
 
-        # model stats; counting operations is ROADMAP A13
+        # model stats: JAX's eval writes no operation count either
+        # (openpifpaf_tpu/eval_cli.py); count_ops.py counts them
         counted_ops = None
         file_size = -1
         if checkpoint and os.path.exists(checkpoint + '.pt'):
@@ -127,9 +128,10 @@ def cli(argv=None):
     parser.add_argument('--output', default=None)
     parser.add_argument('--dataset', default='cocokp')
     parser.add_argument('--checkpoint', default=None,
-                        help='checkpoint of the port\'s trainer (path '
-                             'without .json/.pt); default: random-init '
-                             'shufflenetv2k16')
+                        help='checkpoint of the port (path without '
+                             '.json/.pt), a reference .pkl or a published '
+                             'name (e.g. shufflenetv2k16); default: '
+                             'random-init shufflenetv2k16')
     parser.add_argument('--batch-size', default=1, type=int)
     parser.add_argument('--loader-workers', default=0, type=int)
     parser.add_argument('--device', default='cuda',

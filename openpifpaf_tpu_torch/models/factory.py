@@ -1,6 +1,7 @@
 """Network factory (port of ``openpifpaf_tpu/models/factory.py``:
 ``BASE_FACTORIES`` with every backbone of the JAX registry, the backbone
-flags and ``Factory``).
+flags, ``Factory`` and the registry of published checkpoint names,
+``CHECKPOINT_URLS``, with ``resolve_checkpoint``).
 
 Random initialisation follows flax's defaults, drawn from an explicit
 ``torch.Generator``: truncated-normal (LeCun) convolution kernels, zero
@@ -8,7 +9,10 @@ biases, BatchNorm and GroupNorm scale 1, bias 0, running mean 0 and
 variance 1.
 """
 
+import hashlib
+import logging
 import math
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -17,6 +21,8 @@ from torch import nn
 from .. import headmeta
 from . import basenetworks, heads, tracking
 from .shell import Shell, assign_strides
+
+LOG = logging.getLogger(__name__)
 
 #: family-level backbone options, set by ``cli``/``configure`` and written
 #: into checkpoints, as in the JAX package
@@ -77,6 +83,13 @@ BASE_FACTORIES.update({
     'tshufflenetv2k30': BASE_FACTORIES['shufflenetv2k30'],
     'tresnet50': BASE_FACTORIES['resnet50'],
 })
+
+#: published checkpoint name -> url or path (filled by the plugins)
+CHECKPOINT_URLS = {}
+
+#: the value of a checkpoint name whose pretrained weights are not
+#: published
+PRETRAINED_UNAVAILABLE = object()
 
 #: --head-consolidation default
 HEAD_CONSOLIDATION = 'filter_and_extend'
@@ -260,3 +273,78 @@ def build_shell(base_net, head_metas, *, generator=None):
         generator = torch.Generator().manual_seed(0)
     init_like_flax(model, generator)
     return model.to(memory_format=torch.channels_last)
+
+
+def _registered_urls():
+    """``CHECKPOINT_URLS`` after the plugins have registered their names."""
+    from .. import plugin
+    plugin.register()
+    return CHECKPOINT_URLS
+
+
+def local_checkpoint_path(checkpoint: str):
+    if os.path.exists(checkpoint):
+        return checkpoint
+    urls = _registered_urls()
+    if checkpoint in urls:
+        return urls[checkpoint]
+    return None
+
+
+def checkpoint_cache_dir():
+    """The download cache, shared with the JAX package: a reference
+    ``.pkl`` that one package fetched serves the other."""
+    return os.environ.get(
+        'OPENPIFPAF_TPU_CACHE',
+        os.path.join(os.path.expanduser('~'), '.cache', 'openpifpaf_tpu'))
+
+
+def resolve_checkpoint(checkpoint: str) -> str:
+    """A checkpoint argument as a local path.
+
+    Accepts a checkpoint of the port (the path without ``.json``/``.pt``),
+    a reference ``.pkl`` file, or a published checkpoint name of
+    ``CHECKPOINT_URLS``: its file is downloaded once into
+    :func:`checkpoint_cache_dir` (as ``.partial``, then renamed), and a
+    file name that ends in ``-<8 hex digits>`` must prefix the sha256 of
+    the file's contents, as torch.hub checks it. The ``.pkl`` converts on
+    load (``training/checkpoint.py::load_shell``).
+    """
+    if os.path.exists(checkpoint) or os.path.exists(checkpoint + '.json'):
+        return checkpoint
+
+    urls = _registered_urls()
+    url = urls.get(checkpoint)
+    if url is None:
+        return checkpoint  # the loader raises with context
+    if url is PRETRAINED_UNAVAILABLE:
+        available = sorted(k for k, v in urls.items()
+                           if v is not PRETRAINED_UNAVAILABLE)
+        raise ValueError(
+            f'no pretrained weights published for {checkpoint!r}; '
+            f'available: {available}')
+    if os.path.exists(url):
+        return url
+
+    file_name = os.path.basename(url)
+    cache_dir = checkpoint_cache_dir()
+    local = os.path.join(cache_dir, file_name)
+    if not os.path.exists(local):
+        import urllib.request
+        os.makedirs(cache_dir, exist_ok=True)
+        LOG.info('downloading %s -> %s', url, local)
+        tmp = local + '.partial'
+        urllib.request.urlretrieve(url, tmp)
+        os.replace(tmp, local)
+
+    stem = file_name.rsplit('.', 1)[0]
+    suffix = stem.rsplit('-', 1)[-1]
+    if len(suffix) == 8 and all(c in '0123456789abcdef' for c in suffix):
+        sha = hashlib.sha256()
+        with open(local, 'rb') as f:
+            for chunk in iter(lambda: f.read(1 << 20), b''):
+                sha.update(chunk)
+        if not sha.hexdigest().startswith(suffix):
+            raise ValueError(f'hash mismatch for {local}: expected prefix '
+                             f'{suffix}, got {sha.hexdigest()[:8]}')
+    return local

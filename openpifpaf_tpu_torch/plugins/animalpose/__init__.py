@@ -1,6 +1,6 @@
 """AnimalPose plugin: 20-keypoint animal pose over 5 species (copy of
-``openpifpaf_tpu/plugins/animalpose`` without the published checkpoint
-names, ROADMAP A13)."""
+``openpifpaf_tpu/plugins/animalpose`` with its published checkpoint
+name)."""
 
 import json
 import os
@@ -44,3 +44,11 @@ class AnimalKp(KpDataModule):
 
 def register():
     DATAMODULES['animal'] = AnimalKp
+    _register_checkpoints()
+
+
+def _register_checkpoints():
+    from ...models import factory as models_factory
+    models_factory.CHECKPOINT_URLS['shufflenetv2k30-animalpose'] = (
+        'http://github.com/vita-epfl/openpifpaf-torchhub/releases/'
+        'download/v0.12.9/shufflenetv2k30-210511-120906-animal.pkl.epoch400')

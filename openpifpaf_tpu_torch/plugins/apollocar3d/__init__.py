@@ -1,6 +1,6 @@
 """ApolloCar3D plugin: 24- or 66-keypoint car pose estimation (copy of
-``openpifpaf_tpu/plugins/apollocar3d`` without the published checkpoint
-names, ROADMAP A13)."""
+``openpifpaf_tpu/plugins/apollocar3d`` with its published checkpoint
+names)."""
 
 import json
 import os
@@ -101,3 +101,17 @@ class ApolloKp(KpDataModule):
 
 def register():
     DATAMODULES['apollo'] = ApolloKp
+    _register_checkpoints()
+
+
+def _register_checkpoints():
+    from ...models import factory as models_factory
+    models_factory.CHECKPOINT_URLS['shufflenetv2k16-apollo-24'] = (
+        'http://github.com/DuncanZauss/openpifpaf_assets/releases/'
+        'download/v0.1.0/shufflenetv2k16-201113-135121-apollo.pkl.epoch290')
+    models_factory.CHECKPOINT_URLS['shufflenetv2k16-apollo-66'] = (
+        'http://github.com/DuncanZauss/openpifpaf_assets/releases/'
+        'download/v0.1.0/sk16_apollo_66kp.pkl')
+    models_factory.CHECKPOINT_URLS['shufflenetv2k30-apollo-66'] = (
+        'http://github.com/DuncanZauss/openpifpaf_assets/releases/'
+        'download/v0.1.0/sk30_apollo_66kp.pkl')

@@ -1,6 +1,6 @@
 """CrowdPose plugin: 14-keypoint crowded-scene pose estimation (copy of
-``openpifpaf_tpu/plugins/crowdpose`` without the published checkpoint
-names, ROADMAP A13)."""
+``openpifpaf_tpu/plugins/crowdpose`` with its published checkpoint
+name)."""
 
 import numpy as np
 
@@ -123,3 +123,11 @@ class CrowdPose(KpDataModule):
 
 def register():
     DATAMODULES['crowdpose'] = CrowdPose
+    _register_checkpoints()
+
+
+def _register_checkpoints():
+    from ...models import factory as models_factory
+    models_factory.CHECKPOINT_URLS['resnet50-crowdpose'] = (
+        'http://github.com/vita-epfl/openpifpaf-torchhub/releases/'
+        'download/v0.12a7/resnet50-201005-100758-crowdpose-d978a89f.pkl')

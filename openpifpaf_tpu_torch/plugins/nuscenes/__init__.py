@@ -1,7 +1,6 @@
 """NuScenes plugin (copy of ``openpifpaf_tpu/plugins/nuscenes``): 2D
-object detection with CifDet over 23 categories, COCO-format annotations.
-The published checkpoint name ``shufflenetv2k16-nuscenes`` is not
-registered: the port has no checkpoint registry yet (ROADMAP A13)."""
+object detection with CifDet over 23 categories, COCO-format annotations,
+and the published checkpoint name ``shufflenetv2k16-nuscenes``."""
 
 import argparse
 
@@ -182,3 +181,11 @@ class NuScenes(DataModule):
 
 def register():
     DATAMODULES['nuscenes'] = NuScenes
+    _register_checkpoints()
+
+
+def _register_checkpoints():
+    from ...models import factory as models_factory
+    models_factory.CHECKPOINT_URLS['shufflenetv2k16-nuscenes'] = (
+        'http://github.com/DuncanZauss/openpifpaf_assets/releases/'
+        'download/v0.1.0/nuscenes_sk16.pkl.epoch150')

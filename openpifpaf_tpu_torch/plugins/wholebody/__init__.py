@@ -1,6 +1,6 @@
 """WholeBody plugin: COCO WholeBody 133-keypoint pose estimation
 (body + feet + face + hands); copy of ``openpifpaf_tpu/plugins/wholebody``
-without the published checkpoint names (ROADMAP A13).
+with its published checkpoint names.
 
 Dataset constants (keypoint names, skeleton, sigmas, canonical pose) are
 stored in ``constants.json`` (public COCO-WholeBody dataset definitions).
@@ -75,3 +75,14 @@ class Wholebody(KpDataModule):
 
 def register():
     DATAMODULES['wholebody'] = Wholebody
+    _register_checkpoints()
+
+
+def _register_checkpoints():
+    from ...models import factory as models_factory
+    models_factory.CHECKPOINT_URLS['shufflenetv2k16-wholebody'] = (
+        'http://github.com/DuncanZauss/openpifpaf_assets/releases/'
+        'download/v0.1.0/sk16_wholebody.pkl')
+    models_factory.CHECKPOINT_URLS['shufflenetv2k30-wholebody'] = (
+        'http://github.com/DuncanZauss/openpifpaf_assets/releases/'
+        'download/v0.1.0/sk30_wholebody.pkl')

@@ -26,9 +26,10 @@ def cli(args=None):
     parser.add_argument('images', nargs='*', help='input images')
     parser.add_argument('--glob', help='glob expression for input images')
     parser.add_argument('--checkpoint', default=None,
-                        help='checkpoint of the port\'s trainer (path '
-                             'without .json/.pt); default: random-init '
-                             'shufflenetv2k16')
+                        help='checkpoint of the port (path without '
+                             '.json/.pt), a reference .pkl or a published '
+                             'name (e.g. shufflenetv2k16); default: '
+                             'random-init shufflenetv2k16')
     parser.add_argument('--long-edge', default=None, type=int,
                         help='rescale the long side of the image')
     parser.add_argument('--batch-size', default=1, type=int)

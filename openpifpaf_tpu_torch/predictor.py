@@ -81,11 +81,12 @@ class Predictor:
     def __init__(self, checkpoint=None, head_metas=None, *, model=None,
                  device=None, json_data=False, backbone_engine='auto',
                  bf16=False):
-        """Without ``model``: the checkpoint of the port's trainer at
-        ``checkpoint`` (with ``head_metas``, consolidated as
-        ``--head-consolidation`` says), else a ``shufflenetv2k16`` with
-        ``head_metas`` (default: the cocokp heads), randomly initialised
-        from seed 0.
+        """Without ``model``: the checkpoint at ``checkpoint`` (the port's,
+        a reference ``.pkl`` or a published name of
+        ``models.factory.CHECKPOINT_URLS``), with ``head_metas``
+        consolidated as ``--head-consolidation`` says, else a
+        ``shufflenetv2k16`` with ``head_metas`` (default: the cocokp
+        heads), randomly initialised from seed 0.
         ``device`` defaults to the first CUDA device; without one it
         raises, and the CPU is run only when asked for (``device='cpu'``).
 
@@ -111,7 +112,8 @@ class Predictor:
                              f'one of {BACKBONE_ENGINES}')
         if model is None and checkpoint is not None:
             model, _ = ckpt_mod.load_shell(
-                checkpoint, head_metas=head_metas,
+                models_factory.resolve_checkpoint(checkpoint),
+                head_metas=head_metas,
                 head_consolidation=models_factory.HEAD_CONSOLIDATION)
         if model is None:
             LOG.warning('no checkpoint given: using randomly initialized '

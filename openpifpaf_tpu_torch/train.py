@@ -50,7 +50,9 @@ def cli(argv=None):
                              'datasets of a multi-dataset --dataset a-b')
     parser.add_argument('--basenet', default='shufflenetv2k16')
     parser.add_argument('--checkpoint', default=None,
-                        help='resume from a checkpoint of the port')
+                        help='resume or fine-tune from a checkpoint of '
+                             'the port, a reference .pkl or a published '
+                             'name')
     parser.add_argument('--upsample', default=1, type=int,
                         help='head upsample stride')
     parser.add_argument('--batch-size', default=8, type=int)
@@ -114,6 +116,7 @@ def main(argv=None):
     datamodule.loader_workers = args.loader_workers
 
     if args.checkpoint:
+        args.checkpoint = models_factory.resolve_checkpoint(args.checkpoint)
         model, loaded_meta = ckpt_mod.load_shell(
             args.checkpoint, head_metas=datamodule.head_metas,
             head_consolidation=models_factory.HEAD_CONSOLIDATION)

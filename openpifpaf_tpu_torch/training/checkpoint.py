@@ -10,6 +10,10 @@ A checkpoint ``path`` is two files:
   parameters and the current BatchNorm buffers), read with
   ``torch.load(weights_only=True)``.
 
+A single file with no ``path.json`` beside it is a reference (PyTorch
+OpenPifPaf) checkpoint, a ``.pkl``: :func:`load_shell` converts it in
+memory (``models/convert_torch.py``), as the JAX package does.
+
 The JAX package's orbax directories (``path.arrays``) are not read: the
 machine the port runs on has no orbax, and the port may not import it.
 ``tools/convert_jax_checkpoint.py SRC DST`` converts one where the JAX
@@ -100,6 +104,12 @@ def load_shell(path, *, head_metas=None,
     """(Shell with the checkpoint's weights, meta), on the CPU; a
     TrackingShell for tracking metas.
 
+    ``path`` is a checkpoint of the port or a reference ``.pkl`` (a file
+    with no ``path.json``), converted in memory; its meta then holds the
+    ``base_name``, ``epoch`` and ``head_metas`` of the conversion, and
+    its own head metas win over ``head_metas`` (which serve a bare state
+    dict).
+
     head_consolidation:
       'keep' — ignore the requested head_metas, use the checkpoint's heads;
       'create' — all requested heads freshly initialized;
@@ -110,8 +120,15 @@ def load_shell(path, *, head_metas=None,
     from ..models import factory as models_factory
     from ..models.shell import assign_strides
 
-    state_dict, meta = load(path)
-    ckpt_metas = [headmeta_from_dict(d) for d in meta['head_metas']]
+    if os.path.isfile(path) and not os.path.exists(path + '.json'):
+        from ..models import convert_torch
+        base_name, ckpt_metas, state_dict, epoch = \
+            convert_torch.convert_checkpoint(path, head_metas=head_metas)
+        meta = {'base_name': base_name, 'epoch': epoch,
+                'head_metas': [headmeta_to_dict(m) for m in ckpt_metas]}
+    else:
+        state_dict, meta = load(path)
+        ckpt_metas = [headmeta_from_dict(d) for d in meta['head_metas']]
 
     # models trained with backbone flags (--shufflenetv2k-*, --resnet-*)
     # record the options; apply them only while building the backbone

@@ -38,8 +38,9 @@ def cli(args=None):
                              'comma-separated list of still images')
     parser.add_argument('--checkpoint', default=None,
                         help='checkpoint of the port (path without '
-                             '.json/.pt); default: random-init '
-                             'shufflenetv2k16 with the cocokp heads')
+                             '.json/.pt), a reference .pkl or a published '
+                             'name; default: random-init shufflenetv2k16 '
+                             'with the cocokp heads')
     parser.add_argument('--long-edge', default=None, type=int)
     parser.add_argument('--video-output', default=None, nargs='?', const=True,
                         help='not yet ported (ROADMAP A13): raises')

@@ -7,8 +7,9 @@ step against the CPU, BatchNorm's running-statistics rule and the bf16
 step, the other backbones (resnet50, a group-norm k16) against the CPU,
 the engine choice on a group-norm k20, the eval CLI, tracking (the
 k16 tracking forward against the CPU, the tracking golden sequence, a
-cocokpst train step), the wholebody-133 golden decode, and detection (the
-CifDet golden decode, the engines under the cocodet head).
+cocokpst train step), the wholebody-133 golden decode, detection (the
+CifDet golden decode, the engines under the cocodet head), and a
+reference-layout k16 pickle served through the fused-block engine.
 
 Every test here needs a GPU (marker ``gpu``) and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a machine that
@@ -988,3 +989,41 @@ def test_cuda_cocokp_cocodet_steps(cuda, tmp_path):
                        [False] * 6 + [True] * 2]
     assert all(not torch.equal(b, p.detach()) for b, p in zip(
         before, trainer.model.head_nets.parameters()))
+
+
+def test_cuda_reference_pickle_served_through_pallas(cuda, tmp_path):
+    """A full-width reference-layout k16 pickle (``torch_ref``, BatchNorm
+    running statistics as a reference checkpoint holds them) served
+    through ``Predictor(checkpoint=..., backbone_engine='pallas')``: the
+    raw head outputs on the fold of the converted weights within rtol and
+    atol 1e-4 (``chip_smoke.ENGINE_TOL``) of the ``torch_ref`` forward on
+    the card (TF32 off), the fused-block kernel launching 13 times per
+    forward."""
+    from torch_port_helpers import reference_k16, save_reference_checkpoint
+
+    shell = reference_k16(seed=0, bn_seed=1)
+    path = save_reference_checkpoint(str(tmp_path / 'ref.pkl'), shell,
+                                     basenet='shufflenetv2k16')
+    predictor = Predictor(checkpoint=path, device=cuda,
+                          backbone_engine='pallas')
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(1, 3, 513, 641).astype(np.float32)).to(
+        cuda)
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            ref = shell.to(cuda)(x)
+            before = shuffle_cuda.LAUNCHES
+            features = predictor._backbone(
+                x.contiguous(memory_format=torch.channels_last)).float()
+            launches = shuffle_cuda.LAUNCHES - before
+            raw = predictor.model.heads(features, train=True)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    assert launches == 13
+    for o, r in zip(raw, ref):
+        torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4)

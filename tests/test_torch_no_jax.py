@@ -107,7 +107,8 @@ def test_every_port_module_imports_without_jax():
                  'plugins.nuscenes', 'metric.classification',
                  'datasets.wrapped', 'datasets.multiloader',
                  'datasets.multimodule', 'datasets.image_list',
-                 'models.heads', 'predictor'):
+                 'models.heads', 'predictor', 'models.convert_torch',
+                 'migrate', 'count_ops'):
         assert f'openpifpaf_tpu_torch.{name}' in report['modules']
     assert report['loaded'] == []
 

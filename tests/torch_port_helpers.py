@@ -918,6 +918,68 @@ def orbax_to_port_checkpoint(src, dst):
     return tool.convert(src, dst)
 
 
+def reference_k16(seed=0, bn_seed=0):
+    """A full-width shufflenetv2k16 with the cocokp heads in the reference's
+    module layout (``torch_ref``, torch only), its BatchNorm running
+    statistics drawn from ``bn_seed``, as a reference checkpoint holds
+    them."""
+    import torch_ref
+    torch.manual_seed(seed)
+    shell = torch_ref.build_shell('shufflenetv2k16')
+    torch_ref.randomize_batch_norm_stats(shell, seed=bn_seed)
+    return shell.eval()
+
+
+def reference_apollo66(seed=0, bn_seed=0):
+    """A full-width shufflenetv2k16 with the 66-keypoint ApolloCar3D heads
+    in the reference's module layout, as the published
+    ``sk16_apollo_66kp.pkl`` holds it: ``torch_ref``'s backbone, its
+    ``Cif``/``Caf`` metas (with the upright pose as a numpy array) and
+    ``CompositeField4`` heads; BatchNorm as :func:`reference_k16`."""
+    import torch_ref
+    from openpifpaf_tpu_torch.plugins import apollocar3d
+
+    torch.manual_seed(seed)
+    base = torch_ref.build_shell('shufflenetv2k16').base_net
+    cif = torch_ref.Cif('cif', 'apollo', list(apollocar3d.CAR_KEYPOINTS_66),
+                        list(apollocar3d.CAR_SIGMAS_66))
+    caf = torch_ref.Caf('caf', 'apollo', list(apollocar3d.CAR_KEYPOINTS_66),
+                        list(apollocar3d.CAR_SIGMAS_66),
+                        list(apollocar3d.CAR_SKELETON_66))
+    cif.pose = caf.pose = np.asarray(apollocar3d.CAR_POSE_66)
+    shell = torch_ref.Shell(base, [
+        torch_ref.CompositeField4(cif, base.out_features),
+        torch_ref.CompositeField4(caf, base.out_features)])
+    for m in shell.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.eps = 1e-3
+            m.momentum = 0.01
+    torch_ref.randomize_batch_norm_stats(shell, seed=bn_seed)
+    return shell.eval()
+
+
+def raise_confidences(shell, by=2.0):
+    """Add ``by`` to the confidence channel of every field of a
+    reference-layout shell's CompositeField4 heads, so that random
+    weights keep poses; returns ``shell``."""
+    with torch.no_grad():
+        for hn in shell.head_nets:
+            meta = hn.meta
+            n_components = 1 + meta.n_confidences + 2 * meta.n_vectors \
+                + meta.n_scales
+            hn.conv.bias.view(meta.n_fields, n_components)[:, 1] += by
+    return shell
+
+
+def save_reference_checkpoint(path, shell, *, epoch=3, basenet=None):
+    """``shell`` saved as the reference saves checkpoints: the whole
+    module, ``{'model', 'epoch', 'meta'}``, the meta's ``args`` naming the
+    backbone when ``basenet`` is given."""
+    meta = {'args': argparse.Namespace(basenet=basenet)} if basenet else {}
+    torch.save({'model': shell, 'epoch': epoch, 'meta': meta}, path)
+    return path
+
+
 def numpy_variables(shapes, seed):
     """Flax variables of the ``jax.eval_shape`` tree ``shapes`` drawn with
     numpy (no flax init to compile): kernels ~ N(0, 1 / fan-in), the rest
