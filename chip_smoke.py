@@ -233,6 +233,32 @@ Phases, each of which raises on failure (non-zero exit):
     (d) ``count_ops.main --checkpoint ref.pkl``: GFLOPs and parameters.
     The CifHr, depthwise and fused-block launches of (a) and (b) are
     counted in the kernels line.
+19. drawing: a full-width shufflenetv2k16 with the cocokp heads, random
+    from seed 0, its heads made to decode to whole people
+    (``torch_port_helpers.posed_model``), saved as a checkpoint of the
+    port: (a) ``predict.main`` over the main path's requests as 481x641
+    JPEGs on ``--backbone-engine pallas`` and ``dwpallas`` with 18a's
+    lowered thresholds and pose budgets of 16, ``--show-decoding-order
+    --show-frontier-order --show-joint-scales`` and, where matplotlib is
+    installed, ``-o``, ``--debug-indices cif:0 caf:0`` and ``--save-all``:
+    every annotation's decoding order a growth from one seed, one CifHr
+    launch per image per tier with each call bit-equal to its plain
+    version, the engine's kernel 13 times per forward, NN and decode ms
+    per image; with matplotlib also every ``-o`` image of the input's
+    size, 4 ``--save-all`` figures per decode and the draw ms per image
+    (host clock, painter to ``savefig``); (b) the golden 3-person scene
+    decoded on the card by a decoder that ``show.configure`` of
+    ``--show-decoding-order --show-frontier-order`` switched to export
+    its orders: JAX's poses, decoding and frontier orders (and, with
+    matplotlib, drawn); with matplotlib, (c) ``video.main --video-output``
+    over phase 13's 8 JPEGs (an mp4 where matplotlib has ``ffmpeg``, one
+    JPEG per frame otherwise) and (d) ``eval_cli.main
+    --eval-show-final-image --eval-show-final-ground-truth`` over 4
+    synthetic images; then every show and visualizer flag parsed by the
+    predict CLI into the state it configures, and video's and eval's
+    drawing flags. Without matplotlib a line says so and nothing is
+    drawn. The CifHr, depthwise and fused-block launches of (a), (c) and
+    (d) are counted in the kernels line.
 
 The second-to-last line is a JSON object describing the kernels (with each
 one's bound: the larger of its bytes over the card's memory rate and its
@@ -1839,6 +1865,20 @@ def phase_tracking_golden(cifhr_cuda, device, card):
             f'(profiled pass) [{card}]')
 
 
+def write_video_frames(directory):
+    """VIDEO_FRAMES random JPEGs of IMAGE_HW (seed 5) in ``directory``;
+    returns their paths in order."""
+    import PIL.Image
+
+    rng = np.random.RandomState(5)
+    names = []
+    for i in range(VIDEO_FRAMES):
+        names.append(os.path.join(directory, f'f{i}.jpg'))
+        PIL.Image.fromarray(rng.randint(
+            0, 256, IMAGE_HW + (3,), dtype=np.uint8)).save(names[-1])
+    return names
+
+
 def phase_video(port, device, card):
     """13c: ``openpifpaf_tpu_torch.video.main`` (the CLI's entry point) on
     the card with a random tshufflenetv2k16 tracking checkpoint saved by
@@ -1848,14 +1888,12 @@ def phase_video(port, device, card):
     run; then a second run with each decode profiled for its device busy
     time. Returns the first run's CifHr launches."""
     import tempfile
-    import PIL.Image
     from openpifpaf_tpu_torch import __version__, decoder, video
     from openpifpaf_tpu_torch.predictor import Predictor
     from openpifpaf_tpu_torch.training import checkpoint
     from torch_port_helpers import restored_statics
 
     model = tracking_model()
-    rng = np.random.RandomState(5)
     with tempfile.TemporaryDirectory() as directory:
         ckpt = os.path.join(directory, 'tshufflenetv2k16')
         checkpoint.save(ckpt, state_dict=model.state_dict(), meta={
@@ -1863,11 +1901,7 @@ def phase_video(port, device, card):
             'version': __version__,
             'head_metas': [checkpoint.headmeta_to_dict(m)
                            for m in model.head_metas]})
-        names = []
-        for i in range(VIDEO_FRAMES):
-            names.append(os.path.join(directory, f'f{i}.jpg'))
-            PIL.Image.fromarray(rng.randint(
-                0, 256, IMAGE_HW + (3,), dtype=np.uint8)).save(names[-1])
+        names = write_video_frames(directory)
 
         def run(label, profile):
             out = os.path.join(directory, label + '.jsonl')
@@ -3827,6 +3861,433 @@ def phase_reference(port, device, card):
     return launches
 
 
+#: phase 19: drawing. (a) serves the main path's requests through
+#: ``predict.main`` on these engines (and the backbone kernel each
+#: launches), with REF_DECODER_FLAGS, the show flags of DRAW_FLAGS and,
+#: where matplotlib is installed, ``-o``, ``--save-all`` and the debug
+#: plots of DRAW_DEBUG_INDICES
+DRAW_ENGINES = {'pallas': 'shuffle_block', 'dwpallas': 'depthwise_conv'}
+DRAW_FLAGS = ('--show-decoding-order', '--show-frontier-order',
+              '--show-joint-scales')
+#: kept small: ``Caf.predicted`` draws one quiver per requested field
+DRAW_DEBUG_INDICES = ('cif:0', 'caf:0')
+#: figures that each decode saves under ``--save-all`` with
+#: DRAW_DEBUG_INDICES: the confidence and the regression plot of cif:0 and
+#: of caf:0 (``Cif.predicted`` and ``Caf.predicted`` of batch element 0)
+DRAW_FIGURES_PER_DECODE = 4
+DRAW_EVAL_IMAGES = 4
+#: the state that the predict CLI's ``configure`` must give for
+#: ``torch_port_helpers.SHOW_FLAGS`` and ``DEBUG_INDICES_FLAGS``
+DRAW_PARSED = {
+    'KeypointPainter': {
+        'textbox_alpha': 0.25, 'text_color': 'black', 'font_size': 11,
+        'monocolor_connections': True, 'line_width': 4,
+        'solid_threshold': 0.7, 'show_frontier_order': True,
+        'show_box': True, 'show_joint_scales': True,
+        'show_joint_confidences': True, 'show_decoding_order': True,
+        'show_only_decoded_connections': True},
+    'AnimationFrame': {'video_fps': 25.0, 'video_dpi': 120.0},
+    'SAVE_ALL': {'dir': 'all/'},
+    'CONFIG': {'out_file_extension': 'png', 'image_min_dpi': 80.0,
+               'white_overlay': 0.5},
+    'all_indices': [('cif', 0, 'all'), ('caf', 1, 'confidence')],
+}
+
+
+def has_matplotlib():
+    import importlib.util
+    return importlib.util.find_spec('matplotlib') is not None
+
+
+def posed_k16_checkpoint(directory):
+    """The full-width shufflenetv2k16 with the cocokp heads, random from
+    seed 0, its heads made to decode to whole people
+    (``torch_port_helpers.posed_model``), saved as a checkpoint of the
+    port."""
+    from openpifpaf_tpu_torch.models import factory
+    from openpifpaf_tpu_torch.plugins.coco.constants import cocokp_head_metas
+    from torch_port_helpers import posed_model
+
+    model = posed_model(factory.Factory().from_scratch(
+        cocokp_head_metas(), generator=torch.Generator().manual_seed(0)))
+    path = os.path.join(directory, 'posed-k16')
+    save_checkpoint(path, model, 'shufflenetv2k16')
+    return path
+
+
+@contextlib.contextmanager
+def decoded_annotations():
+    """Within: the annotations that ``CifCaf.batch_decode`` gives, of
+    every image, are appended to the list this yields."""
+    from openpifpaf_tpu_torch.decoder import CifCaf
+
+    decoded = []
+    batch_decode = CifCaf.batch_decode
+
+    def kept(self, *args, **kwargs):
+        out = batch_decode(self, *args, **kwargs)
+        decoded.extend(ann for anns in out for ann in anns)
+        return out
+
+    CifCaf.batch_decode = kept
+    try:
+        yield decoded
+    finally:
+        CifCaf.batch_decode = batch_decode
+
+
+@contextlib.contextmanager
+def timed_drawings():
+    """Within: each ``show.AnnotationPainter.annotations`` call appends
+    its annotations and, when it drew into a ``show.image_canvas``, the
+    host ms from the painter's start to the end of the canvas (its
+    ``savefig`` and close) to the list this yields."""
+    from openpifpaf_tpu_torch import show
+
+    drawings = []
+    annotations = show.AnnotationPainter.annotations
+    image_canvas = show.image_canvas
+
+    def painted(self, ax, anns, **kwargs):
+        drawings.append({'anns': list(anns), 'start': time.perf_counter()})
+        return annotations(self, ax, anns, **kwargs)
+
+    @contextlib.contextmanager
+    def timed_canvas(*args, **kwargs):
+        with image_canvas(*args, **kwargs) as ax:
+            yield ax
+        if drawings and 'ms' not in drawings[-1]:
+            drawings[-1]['ms'] = (time.perf_counter()
+                                  - drawings[-1]['start']) * 1e3
+
+    show.AnnotationPainter.annotations = painted
+    show.image_canvas = timed_canvas
+    try:
+        yield drawings
+    finally:
+        show.AnnotationPainter.annotations = annotations
+        show.image_canvas = image_canvas
+
+
+def check_decoding_orders(annotations, label):
+    """Every annotation has its decoding order
+    (``torch_port_helpers.assert_decoding_order``: a growth from one seed
+    that reaches every visible joint). Returns (annotations, those with at
+    least one edge)."""
+    from torch_port_helpers import assert_decoding_order
+
+    with_edges = 0
+    for i, ann in enumerate(annotations):
+        try:
+            with_edges += assert_decoding_order(ann) > 0
+        except AssertionError as e:
+            raise AssertionError(f'{label} annotation {i}: decoding order '
+                                 f'{e}') from e
+    if not annotations or not with_edges:
+        raise AssertionError(f'{label}: {len(annotations)} annotations, '
+                             f'{with_edges} with a decoding order')
+    return len(annotations), with_edges
+
+
+def phase_draw_serve(port, ckpt, files, directory, card, drawing):
+    """19a: ``predict.main`` over the main path's requests as 481x641
+    JPEGs (:func:`served_predict`: fields, one CifHr launch per image per
+    tier, each call bit-equal to its plain version, the engine's kernel
+    FORWARD_LAUNCHES times per forward) on each engine of DRAW_ENGINES
+    with DRAW_FLAGS; every annotation's decoding order. With ``drawing``
+    (matplotlib installed): ``-o``, ``--save-all`` and ``--debug-indices``
+    too, every ``-o`` image of the input's size, DRAW_FIGURES_PER_DECODE
+    figures per decode, and the draw ms per image (host clock, from the
+    painter to the end of the ``savefig``). Returns {kernel: launches}."""
+    from torch_port_helpers import drawing_statics
+
+    launches = {'cifhr_accumulate': 0}
+    for engine, kernel in DRAW_ENGINES.items():
+        label = f'drawing (19a) {engine}'
+        out = os.path.join(directory, f'drawn-{engine}')
+        figures = os.path.join(directory, f'figures-{engine}')
+        os.makedirs(out)
+        argv = ['--checkpoint', ckpt, '--backbone-engine', engine,
+                *DRAW_FLAGS, *REF_DECODER_FLAGS]
+        if drawing:
+            argv += ['-o', out, '--save-all', figures,
+                     '--debug-indices', *DRAW_DEBUG_INDICES]
+        else:
+            argv += ['--json-output', out]
+        with drawing_statics('openpifpaf_tpu_torch'), \
+                decoded_annotations() as decoded, \
+                (timed_drawings() if drawing
+                 else contextlib.nullcontext([])) as drawings:
+            counts, records = served_predict(
+                port, files, argv, label, ((17, 5), (19, 8)), card, kernel)
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
+        n_anns, with_edges = check_decoding_orders(decoded, label)
+        images = [f for request in files for f in request]
+        warm = records[1:3]
+        line = (f'{label}: {n_anns} annotations, each with its decoding '
+                f'order ({with_edges} with edges; the rest are a seed '
+                'alone); NN '
+                f'{np.mean([r["nn_ms"] for r in warm]):.3f} ms/image, '
+                f'decode {np.mean([r["decode_ms"] for r in warm]):.2f} '
+                'ms/image (the 2 warm batch-1 requests)')
+        if drawing:
+            import PIL.Image
+            sizes = [PIL.Image.open(os.path.join(
+                out, os.path.basename(f) + '.predictions.jpg')).size
+                for f in images]
+            if sizes != [IMAGE_HW[::-1]] * len(images):
+                raise AssertionError(f'{label}: -o image sizes {sizes}, '
+                                     f'want {IMAGE_HW[::-1]}')
+            saved = sorted(os.listdir(figures))
+            want = DRAW_FIGURES_PER_DECODE * len(records)
+            if len(saved) != want:
+                raise AssertionError(f'{label}: {len(saved)} figures under '
+                                     f'--save-all for {len(records)} '
+                                     f'decodes, want {want}')
+            draw_ms = [d['ms'] for d in drawings]
+            if len(draw_ms) != len(images):
+                raise AssertionError(f'{label}: {len(draw_ms)} drawings '
+                                     f'for {len(images)} images')
+            line += (f', draw {np.mean(draw_ms[1:]):.2f} ms/image (host '
+                     f'clock, painter to savefig, images 2-{len(images)}; '
+                     f'all {[round(ms, 2) for ms in draw_ms]}); '
+                     f'{len(images)} -o images of {IMAGE_HW[1]}x'
+                     f'{IMAGE_HW[0]}, {len(saved)} --save-all figures for '
+                     f'{len(records)} decodes')
+        log(f'{line} [{card}]')
+    return launches
+
+
+def phase_draw_golden(port, directory, device, card, drawing):
+    """19b: the golden 3-person scene (its decoding-order entry: weakened
+    CAF, ``--decoder-seeds 1024``) decoded on the card by a decoder built
+    after ``show.configure`` of ``--show-decoding-order
+    --show-frontier-order``: the JAX poses within the gate, its
+    ``decoding_order`` and ``frontier_order`` equal to JAX's, every CifHr
+    call bit-equal to its plain version; with ``drawing``, drawn with
+    both overlays."""
+    import argparse
+    from openpifpaf_tpu_torch import show
+    from torch_port_helpers import GOLDEN_SPARSE_FLAGS, GOLDEN_STRIDE, \
+        assert_pose_gate, drawing_statics, golden_inputs, order_rows, \
+        port_decoder, pose_rows
+
+    golden = np.load(GOLDEN)
+    key = 'sparse_decoding_order'
+    with drawing_statics('openpifpaf_tpu_torch'):
+        parser = argparse.ArgumentParser()
+        show.cli(parser)
+        show.configure(parser.parse_args(['--show-decoding-order',
+                                          '--show-frontier-order']))
+        decoder = port_decoder(GOLDEN_STRIDE, GOLDEN_SPARSE_FLAGS)
+        if not decoder.config.export_decoding_order:
+            raise AssertionError('19b: the show flags did not switch on the '
+                                 'decoding-order export')
+        fields, _ = golden_inputs(golden, 'sparse', 'decoding_order', key,
+                                  device)
+        with kept_cifhr_calls(port.cifhr_cuda) as calls:
+            anns = decoder.batch_decode(fields)[0]
+        assert_pose_gate(list(pose_rows(anns)), list(golden[f'{key}_poses']))
+        np.testing.assert_array_equal(order_rows(anns),
+                                      golden[f'{key}_order'])
+        check_kept_calls(port, calls, 'golden order (19b)')
+        line = (f'golden order (19b): {len(anns)} poses match the JAX decode,'
+                ' decoding and frontier orders equal to JAX\'s '
+                f'({sum(len(a.decoding_order) for a in anns)} edges, '
+                f'{sum(len(a.frontier_order) for a in anns)} frontier edges)')
+        if drawing:
+            import PIL.Image
+            path = os.path.join(directory, 'golden-order.png')
+            start = time.perf_counter()
+            with show.image_canvas(np.full(HR_SHAPE + (3,), 128,
+                                           np.uint8), path,
+                                   show=False) as ax:
+                show.AnnotationPainter().annotations(ax, anns)
+            draw_ms = (time.perf_counter() - start) * 1e3
+            if PIL.Image.open(path).size != HR_SHAPE[::-1]:
+                raise AssertionError(f'19b: {path} of size '
+                                     f'{PIL.Image.open(path).size}')
+            line += f'; drawn in {draw_ms:.2f} ms (host clock)'
+    log(f'{line} [{card}]')
+
+
+def phase_draw_video(port, ckpt, directory, card):
+    """19c: ``video.main --video-output`` over phase 13's VIDEO_FRAMES
+    JPEGs with the posed k16: an mp4 where matplotlib has ``ffmpeg``,
+    else one JPEG per frame under JAX's names, each of the input's size;
+    every CifHr call bit-equal to its plain version. Returns the CifHr
+    launches."""
+    import matplotlib.animation
+    import PIL.Image
+    from openpifpaf_tpu_torch import decoder, video
+    from torch_port_helpers import drawing_statics, restored_statics
+
+    frames = os.path.join(directory, 'frames')
+    os.makedirs(frames)
+    names = write_video_frames(frames)
+    out = os.path.join(directory, 'video', 'drawn.mp4')
+    os.makedirs(os.path.dirname(out))
+    ffmpeg = 'ffmpeg' in matplotlib.animation.writers.list()
+    start = time.perf_counter()
+    reset_launches(port)
+    with drawing_statics('openpifpaf_tpu_torch'), \
+            restored_statics(*decoder.DECODERS, decoder.TrackBase), \
+            kept_cifhr_calls(port.cifhr_cuda) as calls:
+        video.main(['--source', ','.join(names), '--checkpoint', ckpt,
+                    '--video-output', out, '--quiet', *REF_DECODER_FLAGS])
+    launches = read_launches(port)['cifhr_accumulate']
+    wall = time.perf_counter() - start
+    if ffmpeg:
+        if not os.path.getsize(out) > 0:
+            raise AssertionError(f'19c: {out} is empty')
+        wrote = f'an mp4 through matplotlib\'s ffmpeg writer ({out})'
+    else:
+        written = sorted(os.listdir(os.path.dirname(out)))
+        want = [f'drawn.mp4.{i:06d}.jpg' for i in range(1, VIDEO_FRAMES + 1)]
+        sizes = {PIL.Image.open(os.path.join(os.path.dirname(out), n)).size
+                 for n in written}
+        if written != want or sizes != {IMAGE_HW[::-1]}:
+            raise AssertionError(f'19c: wrote {written} of sizes {sizes}')
+        wrote = (f'no ffmpeg among matplotlib\'s writers: {len(written)} '
+                 f'per-frame JPEGs {written[0]} ... {written[-1]}')
+    if launches == 0 or launches != len(calls):
+        raise AssertionError(f'19c: {launches} CifHr launches, {len(calls)} '
+                             'calls')
+    check_kept_calls(port, calls, 'video (19c)')
+    log(f'video (19c): {VIDEO_FRAMES} frames drawn, {wrote}; {launches} '
+        f'CifHr launches; whole run {wall:.1f} s [{card}]')
+    return launches
+
+
+def phase_draw_eval(port, ckpt, directory, card):
+    """19d: ``eval_cli.main --eval-show-final-image
+    --eval-show-final-ground-truth`` with the posed k16 over
+    DRAW_EVAL_IMAGES synthetic images: ``cocokp-eval-final-image.png`` in
+    the working directory, the predictions and then the ground truth (in
+    grey) drawn into it; every CifHr call bit-equal to its plain version.
+    Returns the CifHr launches."""
+    import PIL.Image
+    from openpifpaf_tpu_torch import datasets, decoder, eval_cli
+    from torch_port_helpers import drawing_statics, restored_statics, \
+        write_synthetic_coco
+
+    ann_file, image_dir = write_synthetic_coco(
+        os.path.join(directory, 'draw-eval'), n_images=DRAW_EVAL_IMAGES,
+        image_hw=TRAIN_IMAGE_HW, seed=TRAIN_SEED)
+    cwd = os.getcwd()
+    os.chdir(directory)
+    start = time.perf_counter()
+    try:
+        with drawing_statics('openpifpaf_tpu_torch'), \
+                timed_drawings() as drawings, \
+                kept_cifhr_calls(port.cifhr_cuda) as calls, \
+                restored_statics(*decoder.DECODERS, eval_cli.Evaluator,
+                                 *datasets.datamodules().values()):
+            reset_launches(port)
+            eval_cli.main(['--dataset', 'cocokp', '--checkpoint', ckpt,
+                           '--cocokp-val-annotations', ann_file,
+                           '--cocokp-val-image-dir', image_dir,
+                           '--eval-loader-warmup', '0',
+                           '--eval-show-final-image',
+                           '--eval-show-final-ground-truth',
+                           *REF_DECODER_FLAGS, '--output',
+                           os.path.join(directory, 'draw-eval', 'eval')])
+            launches = read_launches(port)['cifhr_accumulate']
+    finally:
+        os.chdir(cwd)
+    wall = time.perf_counter() - start
+    path = os.path.join(directory, 'cocokp-eval-final-image.png')
+    size = PIL.Image.open(path).size
+    n = [len(d['anns']) for d in drawings]
+    if len(n) != 2 or not n[1] or launches == 0:
+        raise AssertionError(f'19d: drawings of {n} annotations, {launches} '
+                             'CifHr launches')
+    check_kept_calls(port, calls, 'eval (19d)')
+    log(f'eval (19d): {os.path.basename(path)} of {size[0]}x{size[1]} with '
+        f'{n[0]} predictions and {n[1]} ground-truth annotations in grey; '
+        f'{launches} CifHr launches; whole run {wall:.1f} s [{card}]')
+    return launches
+
+
+def phase_draw_parse(card):
+    """19: every flag of show/cli.py and
+    visualizer/cli.py parsed by the predict CLI configures the state that
+    DRAW_PARSED says; video's and eval's drawing flags parse."""
+    import importlib
+    from openpifpaf_tpu_torch import datasets, decoder, eval_cli, predict, \
+        show, video, visualizer
+    from torch_port_helpers import DEBUG_INDICES_FLAGS, SHOW_FLAGS, \
+        drawing_statics, restored_statics
+
+    canvas = importlib.import_module('openpifpaf_tpu_torch.show.canvas')
+    with drawing_statics('openpifpaf_tpu_torch'), \
+            restored_statics(*decoder.DECODERS, decoder.TrackBase,
+                             *datasets.datamodules().values()):
+        args = predict.cli(['request.jpg', '-o', 'out/', *SHOW_FLAGS,
+                            *DEBUG_INDICES_FLAGS])
+        got = {
+            'KeypointPainter': {k: getattr(show.KeypointPainter, k)
+                                for k in DRAW_PARSED['KeypointPainter']},
+            'AnimationFrame': {k: getattr(show.AnimationFrame, k)
+                               for k in DRAW_PARSED['AnimationFrame']},
+            'SAVE_ALL': {'dir': canvas.SAVE_ALL['dir']},
+            'CONFIG': {k: canvas.CONFIG[k] for k in DRAW_PARSED['CONFIG']},
+            'all_indices': visualizer.Base.all_indices,
+        }
+        if got != DRAW_PARSED or args.image_output != 'out/' \
+                or not args.show or not decoder.CifCaf.export_decoding_order:
+            raise AssertionError(f'19: the predict CLI configured {got}')
+        v = video.cli(['--source', 'a.jpg', '--video-output',
+                       '--separate-debug-ax', '--device', 'cpu'])
+        s = video.cli(['--source', 'a.jpg', '--show', '--device', 'cpu'])
+        e = eval_cli.cli(['--eval-show-final-image',
+                          '--eval-show-final-ground-truth'])
+    if v.video_output != 'a.jpg.pifpaf.mp4' or not v.separate_debug_ax \
+            or not s.show or not (e.eval_show_final_image
+                                  and e.eval_show_final_ground_truth):
+        raise AssertionError(f'19: video {v}, {s}, eval {e}')
+    log('drawing flags (19): the predict CLI parsed -o and every show and '
+        'visualizer flag into the painters\', '
+        'canvases\', visualizers\' and decoder\'s state; video '
+        '--video-output/--separate-debug-ax/--show and eval '
+        '--eval-show-final-image/--eval-show-final-ground-truth parse '
+        f'[{card}]')
+
+
+def phase_drawing(port, device, card):
+    """Phase 19: (a)-(d) where matplotlib is installed, without it (a)'s
+    decode and its checks and (b)'s orders; then the CLIs' parse of every
+    drawing flag. Returns {kernel: launches} of (a), (c) and (d)."""
+    import tempfile
+
+    drawing = has_matplotlib()
+    if drawing:
+        import matplotlib
+        matplotlib.use('Agg')
+    else:
+        log('drawing (19): matplotlib is absent on this machine: nothing is '
+            'drawn here; phase 19 runs the decode of (a), the orders of (b) '
+            'and the parse of every drawing flag, and the drawing is held '
+            'only by the CPU tests')
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as directory:
+        ckpt = posed_k16_checkpoint(directory)
+        files = write_requests(directory)
+        launches = phase_draw_serve(port, ckpt, files, directory, card,
+                                    drawing)
+        phase_draw_golden(port, directory, device, card, drawing)
+        if drawing:
+            launches['cifhr_accumulate'] += phase_draw_video(
+                port, ckpt, directory, card)
+            launches['cifhr_accumulate'] += phase_draw_eval(
+                port, ckpt, directory, card)
+        phase_draw_parse(card)
+    log(f'phase 19: launches {launches}; {time.perf_counter() - t0:.1f} s '
+        f'[{card}]')
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, rows, row):
     """One kernel's entry of the JSON line: times and bound of ``row``,
     the largest error of all ``rows``."""
@@ -3883,6 +4344,8 @@ def main():
     for name, count in phase_mix(port, device, card).items():
         launches[name] += count
     for name, count in phase_reference(port, device, card).items():
+        launches[name] += count
+    for name, count in phase_drawing(port, device, card).items():
         launches[name] += count
 
     # no single PyTorch call computes the CifHr map; times at F=17 K=256

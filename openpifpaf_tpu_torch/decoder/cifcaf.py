@@ -18,6 +18,7 @@ import torch
 from .. import headmeta
 from ..annotation import Annotation
 from ..ops.decode_cifcaf import CifCafDecoderConfig, decode_cifcaf
+from ..visualizer.base import Base as VisualizerBase
 from .base import Decoder
 
 LOG = logging.getLogger(__name__)
@@ -273,6 +274,13 @@ class CifCaf(Decoder):
                     for f in (cif, caf))
         stride = self.cif_meta.stride
         assert stride == self.caf_meta.stride
+
+        if VisualizerBase.all_indices:
+            # --debug-indices: batch element 0, the image the visualizer
+            # base keeps as the backdrop, drawn on the host
+            from .. import visualizer
+            visualizer.Cif(self.cif_meta).predicted(cif[0].cpu().numpy())
+            visualizer.Caf(self.caf_meta).predicted(caf[0].cpu().numpy())
 
         start = time.perf_counter()
         args = (cif, caf)

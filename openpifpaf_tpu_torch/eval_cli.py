@@ -25,6 +25,8 @@ LOG = logging.getLogger(__name__)
 class Evaluator:
     skip_epoch0 = True
     skip_existing = True
+    show_final_image = False
+    show_final_ground_truth = False
     n_images = None
     loader_warmup = 3.0
     bf16 = False
@@ -45,6 +47,7 @@ class Evaluator:
         total_start = time.perf_counter()
         loop_start = time.perf_counter()
 
+        last = None
         for image_i, (pred, gt_anns, image_meta) in enumerate(
                 prediction_loader):
             LOG.info('image %d / %d, last loop: %.3fs, images per second=%.1f',
@@ -54,10 +57,32 @@ class Evaluator:
             loop_start = time.perf_counter()
             for metric in metrics:
                 metric.accumulate(pred, image_meta, ground_truth=gt_anns)
+            last = (pred, gt_anns, image_meta)
             if self.n_images is not None and image_i >= self.n_images - 1:
                 break
 
-        return time.perf_counter() - total_start
+        total_time = time.perf_counter() - total_start
+        if self.show_final_image and last is not None:
+            self._show_final(*last)
+        return total_time
+
+    def _show_final(self, pred, gt_anns, image_meta):
+        """--eval-show-final-image [--eval-show-final-ground-truth]: the
+        last image with its predictions (and its ground truth in grey) as
+        ``{dataset}-eval-final-image.png``."""
+        import PIL.Image
+        from . import show
+
+        with PIL.Image.open(image_meta['local_file_path']) as f:
+            image = f.convert('RGB')
+        annotation_painter = show.AnnotationPainter()
+        out_name = f'{self.dataset_name}-eval-final-image.png'
+        with show.image_canvas(image, fig_file=out_name, show=False) as ax:
+            annotation_painter.annotations(ax, pred)
+            if self.show_final_ground_truth:
+                annotation_painter.annotations(
+                    ax, gt_anns, color='grey')
+        LOG.info('final image written: %s', out_name)
 
     def evaluate(self, output: str, *, checkpoint=None, model=None,
                  write_predictions=False):
@@ -111,10 +136,6 @@ class Evaluator:
 NOT_PORTED = {
     'pipeline_decode': ('--pipeline-decode', 'the pipelined serving loop, '
                         'ROADMAP A5(b)'),
-    'eval_show_final_image': ('--eval-show-final-image',
-                              'the show module, ROADMAP A13'),
-    'eval_show_final_ground_truth': ('--eval-show-final-ground-truth',
-                                     'the show module, ROADMAP A13'),
 }
 
 
@@ -144,10 +165,11 @@ def cli(argv=None):
                         default=Evaluator.loader_warmup, type=float)
     parser.add_argument('--eval-show-final-image', default=False,
                         action='store_true',
-                        help='not yet ported (ROADMAP A13)')
+                        help='show the final image with predictions')
     parser.add_argument('--eval-show-final-ground-truth', default=False,
                         action='store_true',
-                        help='not yet ported (ROADMAP A13)')
+                        help='show the final image with ground truth '
+                             'annotations')
     parser.add_argument('--eval-no-skip-epoch0', dest='eval_skip_epoch0',
                         default=True, action='store_false',
                         help='do not skip epoch 0 in --watch')
@@ -210,6 +232,8 @@ def main(argv=None):
         dm.loader_workers = args.loader_workers
 
     Evaluator.loader_warmup = args.eval_loader_warmup
+    Evaluator.show_final_image = args.eval_show_final_image
+    Evaluator.show_final_ground_truth = args.eval_show_final_ground_truth
     Evaluator.skip_epoch0 = args.eval_skip_epoch0
     Evaluator.skip_existing = args.eval_skip_existing
 

@@ -2,6 +2,12 @@
 
 Example:
     python -m openpifpaf_tpu_torch.predict image.jpg --json-output
+    python -m openpifpaf_tpu_torch.predict image.jpg -o out/ \
+        --show-decoding-order
+
+``-o/--image-output`` and ``--show`` draw the annotations with ``show/``
+(matplotlib); ``--debug-indices`` draws the decoder's fields with
+``visualizer/``.
 """
 
 import argparse
@@ -56,6 +62,8 @@ def cli(args=None):
     parser.add_argument('--multi-scale', default=False, action='store_true',
                         help='decode at multiple scales and merge with '
                              'OKS suppression (test-time augmentation)')
+    parser.add_argument('-o', '--image-output', default=None, nargs='?',
+                        const=True, help='image output file or directory')
     parser.add_argument('--json-output', default=None, nargs='?',
                         const=True, help='json output file or directory')
     parser.add_argument('--precise-rescaling', dest='fast_rescaling',
@@ -64,10 +72,15 @@ def cli(args=None):
                              'JAX package, whose rescale never reads it')
     parser.add_argument('--debug', default=False, action='store_true')
     decoder.cli(parser)
+    from . import show, visualizer
+    visualizer.cli(parser)
+    show.cli(parser)
 
     args = parser.parse_args(args)
     logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO)
     decoder.configure(args)
+    visualizer.configure(args)
+    show.configure(args)
     if args.glob:
         args.images += glob.glob(args.glob)
     if not args.images:
@@ -97,6 +110,11 @@ def main(args=None):
     predictor.long_edge = args.long_edge
     predictor.preprocess = predictor._build_preprocess()
 
+    annotation_painter = None
+    if args.image_output is not None or args.show:
+        from . import show
+        annotation_painter = show.AnnotationPainter()
+
     for pred, _, meta in predictor.images(args.images):
         json_out_name = out_name(
             args.json_output, meta['file_name'], '.predictions.json')
@@ -104,6 +122,17 @@ def main(args=None):
             LOG.debug('json output = %s', json_out_name)
             with open(json_out_name, 'w') as f:
                 json.dump([ann.json_data() for ann in pred], f)
+
+        if annotation_painter is not None:
+            import PIL.Image
+            image_out_name = out_name(
+                args.image_output, meta['file_name'], '.predictions.jpg')
+            with open(meta['file_name'], 'rb') as f:
+                image = PIL.Image.open(f).convert('RGB')
+            with show.image_canvas(image, image_out_name,
+                                   show=args.show) as ax:
+                annotation_painter.annotations(ax, pred)
+
         LOG.info('%s: %d annotations', meta['file_name'], len(pred))
 
 

@@ -31,6 +31,7 @@ from .models.tracking import TrackingShell
 from .plugins.coco.constants import cocokp_head_metas
 from .signal_ import Signal
 from .training import checkpoint as ckpt_mod
+from .visualizer import Base as VisualizerBase
 
 LOG = logging.getLogger(__name__)
 
@@ -342,6 +343,10 @@ class Predictor:
             _, image_batch, gt_anns_batch, meta_batch = batch
         else:
             image_batch, gt_anns_batch, meta_batch = batch
+        if VisualizerBase.all_indices and len(image_batch):
+            # the backdrop of the decoder's debug plots: batch element 0
+            VisualizerBase.processed_image(
+                np.asarray(image_batch[0], dtype=np.float32))
         fields = self.fields_batch(image_batch)
         pred_batch = self.processor.batch_decode(fields)
         self.last_decoder_time = self.processor.last_decoder_time

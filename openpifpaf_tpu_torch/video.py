@@ -8,8 +8,10 @@ Example:
 
 ``--json-output`` writes one JSON line per frame, as the JAX package does.
 Without ``--device cpu`` it runs on the first CUDA device and raises where
-there is none. ``--video-output`` and ``--show`` draw with ``show/`` and
-``visualizer/``, which are not yet ported (ROADMAP A13): they raise.
+there is none. ``--video-output`` draws each frame's annotations into a
+video with matplotlib's ``ffmpeg`` writer, or, where matplotlib has no
+``ffmpeg``, into one JPEG per frame named ``<video-output>.<frame>.jpg``;
+``--show`` draws them on screen.
 """
 
 import argparse
@@ -43,7 +45,8 @@ def cli(args=None):
                              'with the cocokp heads')
     parser.add_argument('--long-edge', default=None, type=int)
     parser.add_argument('--video-output', default=None, nargs='?', const=True,
-                        help='not yet ported (ROADMAP A13): raises')
+                        help='video output file (default: the source name '
+                             'with .pifpaf.mp4), or "virtualcam"')
     parser.add_argument('--json-output', default=None, nargs='?', const=True)
     parser.add_argument('--scale', default=1.0, type=float)
     parser.add_argument('--start-frame', default=None, type=int)
@@ -59,7 +62,7 @@ def cli(args=None):
                         help='debug overlays on a separate axis next to '
                              'the annotated frame (with --video-output)')
     parser.add_argument('--show', default=False, action='store_true',
-                        help='not yet ported (ROADMAP A13): raises')
+                        help='show every frame with matplotlib')
     parser.add_argument('--device', default='cuda',
                         help='torch device of the forward and the decode; '
                              '"cpu" runs on the CPU')
@@ -79,13 +82,13 @@ def cli(args=None):
 
     args = parser.parse_args(args)
     logger.configure(args, LOG)
-    if args.video_output or args.show:
-        raise NotImplementedError(
-            '--video-output and --show draw with show/ and visualizer/, '
-            'which are not yet ported to PyTorch (ROADMAP A13)')
     decoder.configure(args)
     decoder.TrackBase.configure(args)
 
+    # output files
+    if args.video_output is True:
+        args.video_output = args.source + '.pifpaf.mp4'
+        assert not os.path.exists(args.video_output)
     if args.json_output is True:
         args.json_output = args.source + '.pifpaf.json'
         assert not os.path.exists(args.json_output)
@@ -115,6 +118,22 @@ def main(args=None):
     )
 
     json_f = open(args.json_output, 'w') if args.json_output else None
+
+    # with a usable writer (virtualcam or ffmpeg), render through
+    # AnimationFrame; without ffmpeg, fall back to per-frame jpgs next to
+    # the requested output name
+    animation = None
+    painter = None
+    use_animation = False
+    if args.video_output == 'virtualcam' or args.show:
+        use_animation = True
+    elif args.video_output:
+        import matplotlib.animation as manimation
+        use_animation = 'ffmpeg' in manimation.writers.list()
+        if not use_animation:
+            LOG.warning('ffmpeg not available: writing per-frame jpgs '
+                        'instead of %s', args.video_output)
+
     try:
         for raw_image, processed, anns, meta in stream:
             batch = ([raw_image], np.asarray(processed)[None], [anns], [meta])
@@ -124,11 +143,40 @@ def main(args=None):
                         'frame': frame_meta.get('frame_i'),
                         'predictions': [ann.json_data() for ann in pred],
                     }) + '\n')
+
+                if args.video_output or args.show:
+                    if not args.show:
+                        import matplotlib
+                        matplotlib.use('Agg')
+                    from . import show, visualizer
+                    if painter is None:
+                        painter = show.AnnotationPainter()
+                    if use_animation:
+                        if animation is None:
+                            animation = show.AnimationFrame(
+                                video_output=args.video_output,
+                                second_visual=args.separate_debug_ax)
+                            ax, ax_second = animation.frame_init(raw_image)
+                            visualizer.Base.common_ax = (
+                                ax_second if args.separate_debug_ax else ax)
+                        ax, _ = animation.frame(raw_image)
+                        painter.annotations(ax, pred)
+                        animation.frame_done()
+                    else:
+                        out_name = (args.video_output
+                                    + f'.{frame_meta.get("frame_i"):06d}'
+                                      '.jpg')
+                        with show.image_canvas(raw_image, out_name,
+                                               show=False) as ax:
+                            painter.annotations(ax, pred)
+
                 LOG.info('frame %d: %d annotations',
                          frame_meta.get('frame_i', -1), len(pred))
     finally:
         if json_f is not None:
             json_f.close()
+        if animation is not None:
+            animation.close()
 
 
 if __name__ == '__main__':

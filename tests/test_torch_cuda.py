@@ -8,8 +8,9 @@ step, the other backbones (resnet50, a group-norm k16) against the CPU,
 the engine choice on a group-norm k20, the eval CLI, tracking (the
 k16 tracking forward against the CPU, the tracking golden sequence, a
 cocokpst train step), the wholebody-133 golden decode, detection (the
-CifDet golden decode, the engines under the cocodet head), and a
-reference-layout k16 pickle served through the fused-block engine.
+CifDet golden decode, the engines under the cocodet head), a
+reference-layout k16 pickle served through the fused-block engine, and
+the golden scene's decoding order drawn (where matplotlib is installed).
 
 Every test here needs a GPU (marker ``gpu``) and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a machine that
@@ -1027,3 +1028,35 @@ def test_cuda_reference_pickle_served_through_pallas(cuda, tmp_path):
     assert launches == 13
     for o, r in zip(raw, ref):
         torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4)
+
+
+def test_cuda_golden_decoding_order_drawn(cuda, tmp_path):
+    """The golden 3-person scene decoded on the card by a decoder that
+    ``show.configure`` of ``--show-decoding-order --show-frontier-order``
+    switched to export its orders: JAX's poses and orders, drawn with
+    both overlays (needs matplotlib)."""
+    import argparse
+    pytest.importorskip('matplotlib')
+    import PIL.Image
+    from openpifpaf_tpu_torch import show
+    from torch_port_helpers import drawing_statics
+
+    golden = np.load(GOLDEN)
+    key = 'sparse_decoding_order'
+    with drawing_statics('openpifpaf_tpu_torch'):
+        parser = argparse.ArgumentParser()
+        show.cli(parser)
+        show.configure(parser.parse_args(['--show-decoding-order',
+                                          '--show-frontier-order']))
+        decoder = port_decoder(GOLDEN_STRIDE, GOLDEN_SPARSE_FLAGS)
+        fields, _ = golden_inputs(golden, 'sparse', 'decoding_order', key,
+                                  cuda)
+        anns = decoder.batch_decode(fields)[0]
+        assert_pose_gate(list(pose_rows(anns)), list(golden[f'{key}_poses']))
+        np.testing.assert_array_equal(order_rows(anns),
+                                      golden[f'{key}_order'])
+        path = str(tmp_path / 'golden.png')
+        with show.image_canvas(np.full((513, 641, 3), 128, np.uint8), path,
+                               show=False) as ax:
+            show.AnnotationPainter().annotations(ax, anns)
+    assert PIL.Image.open(path).size == (641, 513)

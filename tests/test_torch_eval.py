@@ -321,12 +321,43 @@ def test_eval_cli_writes_stats(coco_set, converted_fixture, tmp_path):
     assert stats['checkpoint'] == converted_fixture
 
 
-@pytest.mark.parametrize('flag', ['--pipeline-decode',
-                                  '--eval-show-final-image',
-                                  '--eval-show-final-ground-truth'])
+@pytest.mark.parametrize('flag', ['--pipeline-decode'])
 def test_eval_cli_refuses_what_is_not_ported(flag):
     with pytest.raises(NotImplementedError, match='ROADMAP A'):
         eval_cli.cli(['--device', 'cpu', flag])
+
+
+@pytest.mark.parametrize('flags', [
+    ('--eval-show-final-image',),
+    ('--eval-show-final-image', '--eval-show-final-ground-truth')],
+    ids=['predictions', 'with_ground_truth'])
+def test_eval_cli_draws_the_final_image(coco_set, converted_fixture,
+                                        tmp_path, monkeypatch, flags):
+    """The last image with its predictions, and under
+    ``--eval-show-final-ground-truth`` its ground truth in grey, as
+    ``cocokp-eval-final-image.png`` in the working directory."""
+    pytest.importorskip('matplotlib')
+    from openpifpaf_tpu_torch import datasets, show
+    ann_file, image_dir = coco_set
+    drawn = []
+    annotations = show.AnnotationPainter.annotations
+    monkeypatch.setattr(show.AnnotationPainter, 'annotations',
+                        lambda self, ax, anns, **kw: drawn.append(
+                            (len(anns), kw)) or annotations(self, ax, anns,
+                                                            **kw))
+    monkeypatch.chdir(tmp_path)
+    with restored_statics(*port_decoder_module.DECODERS,
+                          *datasets.datamodules().values(),
+                          eval_cli.Evaluator):
+        eval_cli.main([*_eval_flags(ann_file, image_dir, converted_fixture,
+                                    str(tmp_path / 'eval')),
+                       '--n-images', '1', *flags])
+    ground_truth = '--eval-show-final-ground-truth' in flags
+    assert [kw for _, kw in drawn] == [{}] + (
+        [{'color': 'grey'}] if ground_truth else [])
+    assert all(n > 0 for n, _ in drawn)
+    assert PIL.Image.open(tmp_path / 'cocokp-eval-final-image.png').size[0] \
+        >= 500
 
 
 def test_eval_cli_takes_hflip_tta(coco_set):

@@ -108,8 +108,27 @@ def test_every_port_module_imports_without_jax():
                  'datasets.wrapped', 'datasets.multiloader',
                  'datasets.multimodule', 'datasets.image_list',
                  'models.heads', 'predictor', 'models.convert_torch',
-                 'migrate', 'count_ops'):
+                 'migrate', 'count_ops', 'show', 'show.canvas',
+                 'show.painters', 'show.fields', 'show.animation_frame',
+                 'show.cli', 'visualizer', 'visualizer.base',
+                 'visualizer.fields_vis', 'visualizer.cli',
+                 'plugins.posetrack.draw_poses'):
         assert f'openpifpaf_tpu_torch.{name}' in report['modules']
+    assert report['loaded'] == []
+
+
+def test_every_port_module_imports_without_matplotlib():
+    """The card's machine may have no matplotlib: every module of the port
+    still imports (drawing then raises ``ImportError`` when used)."""
+    blocked = FORBIDDEN + ('matplotlib', 'pyvirtualcam')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    done = subprocess.run(
+        [sys.executable, '-c', _PROBE.format(forbidden=blocked)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+        check=False)
+    assert done.returncode == 0, done.stderr
+    report = json.loads(done.stdout.strip().splitlines()[-1])
+    assert 'openpifpaf_tpu_torch.show.painters' in report['modules']
     assert report['loaded'] == []
 
 

@@ -16,6 +16,7 @@ reported; ``test_torch_tracking_decode.py`` holds the tracked ids.)
 """
 
 import json
+import os
 import sys
 
 import numpy as np
@@ -33,8 +34,8 @@ from openpifpaf_tpu_torch.models.tracking import TrackingShell
 from openpifpaf_tpu_torch.predictor import Predictor
 from openpifpaf_tpu_torch.signal_ import Signal
 
-from torch_port_helpers import assert_pose_gate, jax_f32, \
-    jax_tracking_checkpoints, jax_tracking_metas, one_torch_thread, \
+from torch_port_helpers import assert_pose_gate, drawing_statics, \
+    jax_f32, jax_tracking_checkpoints, jax_tracking_metas, one_torch_thread, \
     pose_rows, reset_track_ids, restored_statics
 
 #: decoder flags that keep poses in the decode of random-weight fields
@@ -222,12 +223,26 @@ def test_video_cli_matches_jax(checkpoints, tmp_path, monkeypatch):
         _assert_json_equal(line['predictions'], ref_line['predictions'])
 
 
-def test_video_cli_runs_on_the_card_unless_told(tmp_path):
+def test_video_cli_runs_on_the_card_unless_told(tmp_path, monkeypatch):
+    """Without ``--device cpu`` and a card it raises; on the CPU
+    ``--video-output`` (here without ``ffmpeg``: one JPEG per frame) and
+    ``--show`` draw each frame."""
+    import matplotlib.animation
+    from openpifpaf_tpu_torch import show
     source = _write_frames(tmp_path, _frames()[0][:1])
-    with restored_statics(*port_decoder.DECODERS, port_decoder.TrackBase):
+    monkeypatch.delitem(matplotlib.animation.writers._registered, 'ffmpeg',
+                        raising=False)
+    drawn = []
+    annotations = show.AnnotationPainter.annotations
+    monkeypatch.setattr(show.AnnotationPainter, 'annotations',
+                        lambda self, ax, anns, **kw: drawn.append(ax)
+                        or annotations(self, ax, anns, **kw))
+    with restored_statics(*port_decoder.DECODERS, port_decoder.TrackBase), \
+            drawing_statics('openpifpaf_tpu_torch'):
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match='no CUDA device'):
                 video.main(['--source', source])
         for flag in ('--video-output', '--show'):
-            with pytest.raises(NotImplementedError, match='ROADMAP A13'):
-                video.main(['--source', source, '--device', 'cpu', flag])
+            video.main(['--source', source, '--device', 'cpu', flag])
+    assert len(drawn) == 2
+    assert os.path.getsize(source + '.pifpaf.mp4.000001.jpg') > 0

@@ -313,6 +313,46 @@ def restored_statics(*classes):
                     setattr(c, k, v)
 
 
+#: every flag of show/cli.py with a value unlike its default, and the
+#: visualizers' --debug-indices: what the predict CLI of either package
+#: parses into the drawing state
+SHOW_FLAGS = ('--save-all', 'all/', '--show', '--image-width', '7',
+              '--image-height', '5', '--image-dpi-factor', '2',
+              '--image-min-dpi', '80', '--show-file-extension', 'png',
+              '--textbox-alpha', '0.25', '--text-color', 'black',
+              '--font-size', '11', '--monocolor-connections',
+              '--line-width', '4', '--skeleton-solid-threshold', '0.7',
+              '--white-overlay', '0.5', '--show-frontier-order',
+              '--show-kp-labels', '--show-box', '--show-joint-scales',
+              '--show-joint-confidences', '--show-decoding-order',
+              '--show-only-decoded-connections', '--video-fps', '25',
+              '--video-dpi', '120')
+DEBUG_INDICES_FLAGS = ('--debug-indices', 'cif:0', 'caf:1:confidence')
+
+
+@contextlib.contextmanager
+def drawing_statics(root):
+    """Put back the drawing state of the package ``root``
+    (``'openpifpaf_tpu_torch'`` or ``'openpifpaf_tpu'``) on exit: the
+    painters' and the video writer's class options, the visualizers'
+    indices, images and common axis, ``--save-all`` and the canvas
+    config, and the decoder's order export."""
+    import importlib
+    show = importlib.import_module(f'{root}.show')
+    canvas = importlib.import_module(f'{root}.show.canvas')
+    visualizer = importlib.import_module(f'{root}.visualizer')
+    cifcaf = importlib.import_module(f'{root}.decoder.cifcaf')
+    dicts = [(d, dict(d)) for d in (canvas.SAVE_ALL, canvas.CONFIG)]
+    with restored_statics(show.KeypointPainter, show.AnimationFrame,
+                          visualizer.Base, cifcaf.CifCaf):
+        try:
+            yield
+        finally:
+            for d, saved in dicts:
+                d.clear()
+                d.update(saved)
+
+
 def _with_config(dec, overrides):
     inner = getattr(dec, 'cifcaf', dec)  # CifCafDense wraps a CifCaf
     inner.config = dataclasses.replace(inner.config, **overrides)
@@ -472,6 +512,28 @@ def order_rows(annotations):
             rows[t, 2] |= 1 << s
         out.append(rows)
     return np.asarray(out, np.int64).reshape(len(annotations), -1, 3)
+
+
+def assert_decoding_order(ann):
+    """``ann.decoding_order`` is a valid growth: each joint committed once,
+    from one seed, each edge's source committed before it, and every
+    visible joint the seed or a committed one (the keypoint threshold may
+    have zeroed a committed joint, the seed too). Returns the number of
+    edges."""
+    order = [(int(s), int(t)) for s, t, _, _ in ann.decoding_order]
+    targets = [t for _, t in order]
+    visible = set(np.flatnonzero(ann.data[:, 2] > 0).tolist())
+    assert len(targets) == len(set(targets)), order
+    if not order:
+        assert len(visible) <= 1, (visible, order)
+        return 0
+    seed = order[0][0]
+    committed = {seed}
+    for s, t in order:
+        assert s in committed and t != seed, (order, s, t)
+        committed.add(t)
+    assert visible <= committed, (visible, order)
+    return len(order)
 
 
 def assert_pose_gate(ours, ref, *, xy_atol=1e-3, conf_atol=2e-3):
@@ -956,6 +1018,55 @@ def reference_apollo66(seed=0, bn_seed=0):
             m.momentum = 0.01
     torch_ref.randomize_batch_norm_stats(shell, seed=bn_seed)
     return shell.eval()
+
+
+#: :func:`posed_head`: the share of the random head weights kept, the
+#: height of the pose in field cells, and the biases of the confidences
+#: (logits) and scales (before the softplus)
+POSED_WEIGHT = 0.2
+POSED_HEIGHT = 4.0
+POSED_CONFIDENCE = 3.0
+POSED_SCALE = 3.0
+
+
+def posed_head(kernel, bias, meta):
+    """(kernel, bias) of a CIF or CAF head's 1x1 conv, as numpy arrays
+    (either layout: the bias is (n_fields * n_components,)), made to
+    decode to whole people: the random kernel scaled by POSED_WEIGHT, and
+    biases that put every joint, from every cell, at its place in COCO's
+    upright pose POSED_HEIGHT cells tall around that cell, each CAF edge
+    joining its two joints there, with high confidences and wide scales.
+    The random part moves the fields from cell to cell and from image to
+    image."""
+    from openpifpaf_tpu_torch.plugins.coco.constants import COCO_UPRIGHT_POSE
+    pose = np.asarray(COCO_UPRIGHT_POSE, np.float32)[:, :2]
+    pose = (pose - pose.mean(0)) / np.ptp(pose[:, 1]) * POSED_HEIGHT
+    b = np.asarray(bias, np.float32).reshape(meta.n_fields,
+                                             meta.n_components).copy()
+    b[:, 1] = POSED_CONFIDENCE
+    if meta.n_components == 5:  # CIF: [logb, conf, x, y, scale]
+        b[:, 2:4] = pose
+        b[:, 4] = POSED_SCALE
+    else:  # CAF: [logb, conf, x1, y1, x2, y2, scale1, scale2]
+        edges = np.asarray(meta.skeleton) - 1
+        b[:, 2:4] = pose[edges[:, 0]]
+        b[:, 4:6] = pose[edges[:, 1]]
+        b[:, 6:8] = POSED_SCALE
+    return (np.asarray(kernel, np.float32) * POSED_WEIGHT).astype(
+        np.float32), b.reshape(-1)
+
+
+def posed_model(model):
+    """The port's ``model`` (a Shell with a CIF and a CAF head) with both
+    heads made :func:`posed_head`'s, in place."""
+    with torch.no_grad():
+        for head in model.head_nets:
+            kernel, bias = posed_head(head.conv.weight.cpu().numpy(),
+                                      head.conv.bias.cpu().numpy(),
+                                      head.meta)
+            head.conv.weight.copy_(torch.from_numpy(kernel))
+            head.conv.bias.copy_(torch.from_numpy(bias))
+    return model
 
 
 def raise_confidences(shell, by=2.0):
