@@ -259,6 +259,41 @@ Phases, each of which raises on failure (non-zero exit):
     drawing flags. Without matplotlib a line says so and nothing is
     drawn. The CifHr, depthwise and fused-block launches of (a), (c) and
     (d) are counted in the kernels line.
+20. deployment, with phase 19's posed k16 saved as a checkpoint of the
+    port: (a) ``python -m openpifpaf_tpu_torch.export --checkpoint`` on
+    the card, in processes of their own, of its fields program and, with
+    ``--with-decoder``, of its forward and CifCaf decode as one program
+    (481x641 input): wall seconds and ``.pt2`` bytes; each loaded with
+    ``torch.export.load`` and run on the main path's requests as 481x641
+    images: the fields within 1e-4 of each head's largest value of the
+    eager module graph (TF32 off), the poses within the pose gate of the
+    eager ``build_cifcaf_decoder`` on the card (and whether bit-equal),
+    every CifHr call of the program a counted kernel launch bit-equal to
+    its plain version; the program's NN and decode ms per image beside
+    the eager standard tier's (CUDA events), the device ops and stream
+    syncs of one exported decode, each fixpoint's ``while_loop``
+    rounds, and the eager decode with the growth's two forms (live lanes
+    gathered, every lane grown) in 4 alternating pairs; then the decode
+    alone exported on the card (a process of its own), loaded and run on
+    the posed fields, on 3 people drawn by the port's encoders (kept
+    whole) and on the random k16's sparse fields: bit-equal to the eager
+    decode, every CifHr call a counted launch bit-equal to its plain
+    version, decode ms per image of both, and the growth's two forms on
+    the sparse request; (b) ``jpeglib.h`` probed and the native JPEG
+    loader built,
+    its normalised batch within 0.5 (mean abs) of the PIL path's, load ms
+    per batch of each, then ``predict --long-edge 641`` over the requests
+    on ``pallas`` and ``dwpallas`` through the native loader and through
+    PIL: the loader ``images`` took, NN and decode ms per image, launches,
+    every CifHr call bit-equal to its plain version, and the two loaders'
+    poses compared (where the loader does not build, a line says so and
+    the PIL path runs); (c) ``train.main --profile`` for 2 steps of phase
+    11's k16 training: one Chrome trace per step with its device ops (a
+    trace with none is reported as such), then ``cifhr.cu`` and the
+    native loader built with ``--xla-compilation-cache`` of a fresh
+    directory in one process and loaded, not rebuilt, by a second; (d)
+    ``logs --print-last`` of (c)'s log. The CifHr and engine launches of
+    (a) and (b) are counted in the kernels line.
 
 The second-to-last line is a JSON object describing the kernels (with each
 one's bound: the larger of its bytes over the card's memory rate and its
@@ -4288,6 +4323,777 @@ def phase_drawing(port, device, card):
     return launches
 
 
+#: phase 20: deployment. (a) exports phase 19's posed k16 with ``python -m
+#: openpifpaf_tpu_torch.export`` (its fields program, and its forward and
+#: decode as one program) at the default 481x641 input and runs both on
+#: the phase's images, then the decode alone on posed, drawn and sparse
+#: fields; (b) serves those images as JPEGs through
+#: ``predict --long-edge`` on these engines, on the native loader and on
+#: PIL; (c) trains PROFILE_STEPS steps with ``--profile`` and builds
+#: CACHE_SOURCES twice with ``--xla-compilation-cache``; (d) ``logs
+#: --print-last`` of (c)'s training log
+EXPORT_TIMED_PASSES = 2
+NATIVE_LONG_EDGE = 641
+NATIVE_ENGINES = DRAW_ENGINES
+PROFILE_STEPS = 2
+CACHE_SOURCES = ('cifhr.cu',)
+#: ``tests/test_native_io.py::test_close_to_pil``'s gate: the mean absolute
+#: difference of the normalised native batch from the PIL path's
+NATIVE_PIL_MEAN_ATOL = 0.5
+#: the decode's fixpoints, in the order one decode runs them
+FIXPOINTS = ('seed_nms', 'seed_rank_dedup', 'nms_keypoints')
+#: alternating pairs of the eager decode with each form of the growth
+GROW_PAIRS = 4
+#: 20a's drawn request: (centre x, height) of each person, as fractions of
+#: the 481x641 image, drawn by the port's encoders into its fields
+EXPORT_PEOPLE = ((0.2, 0.7), (0.5, 0.5), (0.8, 0.6))
+#: the include directories searched for ``jpeglib.h`` (the loader's header)
+JPEG_INCLUDES = ('/usr/include', '/usr/local/include',
+                 '/usr/include/x86_64-linux-gnu')
+
+
+def pil_preprocess(long_edge):
+    """The port Predictor's preprocess of a file at ``long_edge`` (its PIL
+    path)."""
+    from openpifpaf_tpu_torch import transforms
+    from openpifpaf_tpu_torch.predictor import _pil_image
+
+    return transforms.Compose([
+        transforms.ImageTransform(_pil_image),
+        transforms.NormalizeAnnotations(),
+        transforms.RescaleAbsolute(long_edge) if long_edge else None,
+        transforms.CenterPadTight(16),
+        transforms.EVAL_TRANSFORM,
+    ])
+
+
+def phase_images(files, device):
+    """The JPEGs of ``files`` (one list per request) as (1, H, W, 3)
+    float32 tensors on ``device``, preprocessed as the Predictor does at
+    their own size."""
+    import PIL.Image
+
+    preprocess = pil_preprocess(None)
+    images = []
+    for path in (f for request in files for f in request):
+        with open(path, 'rb') as f:
+            image, _, _ = preprocess(PIL.Image.open(f).convert('RGB'), [],
+                                     {'dataset_index': 0})
+        images.append(torch.from_numpy(np.asarray(image, np.float32))[None]
+                      .to(device))
+    return images
+
+
+def run_export(ckpt, outfile, *extra):
+    """``python -m openpifpaf_tpu_torch.export --checkpoint ckpt`` on the
+    card in a process of its own; returns its wall seconds."""
+    start = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, '-m', 'openpifpaf_tpu_torch.export', '--checkpoint',
+         ckpt, '--outfile', outfile, *extra], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=600, check=False)
+    wall = time.perf_counter() - start
+    if done.returncode != 0 or \
+            done.stdout.strip().splitlines()[-1:] != [f'wrote {outfile}']:
+        raise AssertionError(f'export {extra} failed ({done.returncode}):\n'
+                             f'{done.stdout[-2000:]}{done.stderr[-4000:]}')
+    return wall
+
+
+@contextlib.contextmanager
+def kept_launches(cifhr_cuda):
+    """Within: each launch of the CifHr operator's CUDA implementation
+    (``cifhr_cuda.launch_counted``, what an exported program calls) keeps
+    its cells, keywords and map (cloned) in the list this yields."""
+    launch_counted = cifhr_cuda.launch_counted
+    calls = []
+
+    def kept(x, y, sigma, w, **kw):
+        out = launch_counted(x, y, sigma, w, **kw)
+        calls.append(((x.clone(), y.clone(), sigma.clone(), w.clone()), kw,
+                      out.clone()))
+        return out
+
+    cifhr_cuda.launch_counted = kept
+    try:
+        yield calls
+    finally:
+        cifhr_cuda.launch_counted = launch_counted
+
+
+@contextlib.contextmanager
+def counted_rounds():
+    """Within: the decode's fixpoints run as the host loop they replaced,
+    each appending its number of rounds to the list this yields."""
+    from openpifpaf_tpu_torch.ops import nms, seeds
+
+    fixpoint = seeds._fixpoint
+    rounds = []
+
+    def counted(step, start, *operands):
+        state, n = start, 0
+        while True:
+            new = step(state, *operands)
+            n += 1
+            if torch.equal(new, state):
+                rounds.append(n)
+                return new
+            state = new
+
+    seeds._fixpoint = nms._fixpoint = counted
+    try:
+        yield rounds
+    finally:
+        seeds._fixpoint = nms._fixpoint = fixpoint
+
+
+def check_program_calls(port, calls, launches, n_images, label):
+    """One launch of the CifHr kernel per image, each kept map
+    (:func:`kept_launches`) bit-equal to its plain version."""
+    if launches != n_images or len(calls) != n_images:
+        raise AssertionError(f'{label}: {launches} CifHr launches, '
+                             f'{len(calls)} kept, for {n_images} images')
+    for i, (cells, kw, out) in enumerate(calls):
+        plain = port.cifhr.accumulate_dense(*cells, **kw)
+        if not torch.equal(out, plain):
+            raise AssertionError(
+                f'{label} CifHr call {i}: kernel vs plain not bit-equal, '
+                f'max abs err {float((out - plain).abs().max())}')
+
+
+def event_ms(fn):
+    """Milliseconds of one call of ``fn`` between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def lane_poses(poses):
+    """The (n, n_kp, 4) poses of image 0 that have a visible joint."""
+    poses = poses[0].cpu().numpy()
+    return poses[(poses[:, :, 0] > 0).any(axis=1)]
+
+
+def phase_export(port, ckpt, images, directory, device, card):
+    """20a: the fields program within 1e-4 of each head's largest value of
+    the eager module graph (TF32 off); the decode program's poses within
+    the pose gate of the eager ``build_cifcaf_decoder`` on the card (and
+    whether they are bit-equal); every CifHr call of the program bit-equal
+    to its plain version; times, device ops, syncs and fixpoint rounds;
+    then :func:`phase_export_decode`. Returns the CifHr launches of the
+    programs."""
+    from openpifpaf_tpu_torch.ops.decode_cifcaf import build_cifcaf_decoder
+    from openpifpaf_tpu_torch.training import checkpoint
+    from torch_port_helpers import assert_pose_gate
+
+    model, _ = checkpoint.load_shell(ckpt)
+    model = model.to(device).eval()
+    cif_meta, caf_meta = model.head_metas[:2]
+    decode = build_cifcaf_decoder(stride=cif_meta.stride,
+                                  skeleton=caf_meta.skeleton,
+                                  n_keypoints=len(cif_meta.keypoints))
+    with torch.no_grad():
+        field_hw = tuple(model(images[0])[0].shape[-2:])
+
+    # the three exports run side by side, each in a process of its own
+    paths = {name: os.path.join(directory, f'k16-{name}.pt2')
+             for name in ('fields', 'decode', 'decode-only')}
+    with ThreadPoolExecutor(len(paths)) as pool:
+        exports = {
+            'fields': pool.submit(run_export, ckpt, paths['fields']),
+            'decode': pool.submit(run_export, ckpt, paths['decode'],
+                                  '--with-decoder'),
+            'decode-only': pool.submit(run_decode_export,
+                                       paths['decode-only'], device,
+                                       cif_meta.stride, field_hw)}
+        walls = {name: future.result() for name, future in exports.items()}
+    for name in ('fields', 'decode'):
+        log(f'export (20a) {name}: python -m openpifpaf_tpu_torch.export '
+            f'--checkpoint posed-k16{" --with-decoder" * (name == "decode")}'
+            f' at {IMAGE_HW[0]}x{IMAGE_HW[1]}: {walls[name]:.1f} s wall '
+            '(process start, checkpoint load, trace, save; beside the '
+            f'other two exports), {os.path.getsize(paths[name])} bytes '
+            f'[{card}]')
+    programs = {name: torch.export.load(paths[name]).module()
+                for name in ('fields', 'decode')}
+
+    errs, bit_fields = [], True
+    with no_tf32(), torch.no_grad():
+        for i, image in enumerate(images):
+            for o, r in zip(programs['fields'](image), model(image)):
+                err = float((o - r).abs().max())
+                if not err <= 1e-4 * float(r.abs().max()):
+                    raise AssertionError(f'export (20a) fields of image {i}:'
+                                         f' max abs err {err}')
+                errs.append(err / float(r.abs().max()))
+                bit_fields &= torch.equal(o, r)
+    log(f'export (20a) fields program: {len(images)} images within '
+        f'{max(errs):.3g} of each head\'s largest value of the eager module '
+        f'graph (gate 1e-4, TF32 off), bit-equal {bit_fields} [{card}]')
+
+    reset_launches(port)
+    with kept_launches(port.cifhr_cuda) as calls, torch.no_grad():
+        outs = [programs['decode'](image) for image in images]
+        torch.cuda.synchronize()
+    launches = read_launches(port)['cifhr_accumulate']
+    check_program_calls(port, calls, launches, len(images), 'export (20a)')
+    n_poses, differ = [], {}
+    with torch.no_grad():
+        eager_fields = [model(image) for image in images]
+        for i, (out, fields) in enumerate(zip(outs, eager_fields)):
+            eager = decode(*fields)
+            ours = lane_poses(out[0])
+            assert_pose_gate(list(ours), list(lane_poses(eager[0])))
+            if not (torch.equal(out[1], eager[1])
+                    and torch.equal(out[2], eager[2])):
+                raise AssertionError(f'export (20a) image {i}: keep or '
+                                     'order differ from the eager decode\'s')
+            n_poses.append((len(ours), int(out[1].sum()),
+                            int((out[0][0, :, :, 0] > 0).sum())))
+            for name, a, b in zip(('poses', 'keep', 'order'), out, eager):
+                if not torch.equal(a, b):
+                    differ.setdefault(name, []).append(
+                        (i, int((a != b).sum()), float(
+                            (a.double() - b.double()).abs().max())))
+    if not sum(n for n, _, _ in n_poses):
+        raise AssertionError('export (20a): no pose has a visible joint')
+    log(f'export (20a) decode program: (poses with a visible joint, kept, '
+        f'visible joints) {n_poses} per image; every pose within the pose '
+        'gate of the eager build_cifcaf_decoder\'s on the card, keep and '
+        'order equal; '
+        + ('bit-equal' if not differ else 'not bit-equal: (image, '
+           f'elements, max abs difference) {differ}')
+        + f'; its {len(calls)} CifHr calls launched the kernel, each map '
+        f'bit-equal to the plain version [{card}]')
+
+    times = {'program NN': [], 'program total': [], 'eager NN': [],
+             'eager decode': []}
+    reset_launches(port)
+    with torch.no_grad():
+        for _ in range(EXPORT_TIMED_PASSES):
+            for image, fields in zip(images, eager_fields):
+                times['program NN'].append(event_ms(
+                    lambda: programs['fields'](image)))
+                times['program total'].append(event_ms(
+                    lambda: programs['decode'](image)))
+        launches += read_launches(port)['cifhr_accumulate']
+        for _ in range(EXPORT_TIMED_PASSES):
+            for image, fields in zip(images, eager_fields):
+                times['eager NN'].append(event_ms(lambda: model(image)))
+                times['eager decode'].append(event_ms(
+                    lambda: decode(*fields)))
+        ms = {k: float(np.median(v)) for k, v in times.items()}
+        log(f'export (20a) times, median of {EXPORT_TIMED_PASSES} passes '
+            f'over {len(images)} images, CUDA events, ms/image: program NN '
+            f'{ms["program NN"]:.3f}, program decode '
+            f'{ms["program total"] - ms["program NN"]:.2f} (forward and '
+            f'decode {ms["program total"]:.2f} less NN); eager NN '
+            f'{ms["eager NN"]:.3f}, eager decode (standard tier) '
+            f'{ms["eager decode"]:.2f} [{card}]')
+        total = decode_profile(lambda: programs['decode'](images[0]))
+        nn = decode_profile(lambda: programs['fields'](images[0]))
+        eager = decode_profile(lambda: decode(*eager_fields[0]))
+        with counted_rounds() as rounds:
+            counted = decode(*eager_fields[0])
+        eager_out = decode(*eager_fields[0])
+        growth = grow_forms(decode, eager_fields[0], eager_out)
+    if len(rounds) != len(FIXPOINTS) or not all(
+            torch.equal(a, b) for a, b in zip(counted, eager_out)):
+        raise AssertionError(f'export (20a): fixpoint rounds {rounds}, the '
+                             'host loop\'s decode differs')
+    log(f'export (20a) one exported decode (image 0): {total[0] - nn[0]} '
+        f'device ops, {total[1] - nn[1]} stream syncs, device busy '
+        f'{total[2] - nn[2]:.3f} ms (the forward-and-decode program\'s '
+        f'{total[0]} ops, {total[1]} syncs less the fields program\'s '
+        f'{nn[0]}, {nn[1]}); the eager standard tier {eager[0]} ops, '
+        f'{eager[1]} syncs, busy {eager[2]:.3f} ms; while_loop rounds '
+        f'{dict(zip(FIXPOINTS, rounds))} [{card}]')
+    log(f'export (20a) the eager decode (image 0) with the growth\'s live '
+        f'lanes gathered (`nonzero`, the eager form) against every lane '
+        f'grown (the exported form): {GROW_PAIRS} alternating pairs, CUDA '
+        'events, '
+        f'median {growth["compact"]:.2f} / {growth["masked"]:.2f} ms, '
+        f'gathering faster in {growth["wins"]} pairs, bit-equal [{card}]')
+    return launches + phase_export_decode(
+        port, decode, paths['decode-only'], walls['decode-only'],
+        export_requests(model.head_metas, images,
+                        [f[:2] for f in eager_fields]), card)
+
+
+#: 20a's decode-only export, in a process of its own (in the smoke's own
+#: process the same export took 85.0 s on the H100, 29.3 s in its own)
+_DECODE_EXPORT = r'''
+import sys, time
+import torch
+from openpifpaf_tpu_torch.models.shell import assign_strides
+from openpifpaf_tpu_torch.ops.decode_cifcaf import build_cifcaf_decoder
+from openpifpaf_tpu_torch.plugins.coco.constants import cocokp_head_metas
+
+
+class DecodeProgram(torch.nn.Module):
+    def __init__(self, decode):
+        super().__init__()
+        self.decode = decode
+
+    def forward(self, cif, caf):
+        return self.decode(cif, caf)
+
+
+path, device = sys.argv[1:3]
+stride, height, width = map(int, sys.argv[3:])
+cif_meta, caf_meta = assign_strides(cocokp_head_metas(), stride)[:2]
+decode = build_cifcaf_decoder(stride=cif_meta.stride,
+                              skeleton=caf_meta.skeleton,
+                              n_keypoints=len(cif_meta.keypoints))
+fields = [torch.zeros((1, meta.n_fields, meta.n_components, height, width),
+                      device=device) for meta in (cif_meta, caf_meta)]
+start = time.perf_counter()
+with torch.no_grad():
+    program = torch.export.export(DecodeProgram(decode), tuple(fields))
+traced = time.perf_counter() - start
+torch.export.save(program, path)
+print(f'traced in {traced:.1f} s')
+'''
+
+
+def export_requests(head_metas, images, posed):
+    """{request: [(cif, caf) per image]} of 20a's decode-only program: the
+    posed k16's fields of ``images`` (``posed``), EXPORT_PEOPLE drawn by
+    the port's encoders, and the fields of the random k16 (seed 0, no
+    posed heads: the main path's model) of ``images``."""
+    from openpifpaf_tpu_torch.models import factory
+    from openpifpaf_tpu_torch.plugins.coco.constants import cocokp_head_metas
+    from torch_port_helpers import port_person, port_pose_fields
+
+    device = images[0].device
+    people = [port_person(fx * IMAGE_HW[1], 0.5 * IMAGE_HW[0],
+                          fh * IMAGE_HW[0], np.random.RandomState(i))
+              for i, (fx, fh) in enumerate(EXPORT_PEOPLE)]
+    drawn = tuple(torch.from_numpy(f[None]).to(device) for f in
+                  port_pose_fields(people, IMAGE_HW, *head_metas[:2]))
+    model = factory.Factory().from_scratch(
+        cocokp_head_metas(), generator=torch.Generator().manual_seed(0))
+    model = model.to(device).eval()
+    with torch.no_grad():
+        sparse = [model(image)[:2] for image in images]
+    del model
+    shapes = {tuple(f.shape) for fields in (*posed, drawn, *sparse)
+              for f in fields}
+    if len(shapes) != 2:
+        raise AssertionError(f'export (20a): request fields at {shapes}')
+    return {'posed': posed, 'drawn': [drawn], 'sparse': sparse}
+
+
+def run_decode_export(path, device, stride, field_hw):
+    """``_DECODE_EXPORT`` of the CifCaf decode at ``stride`` and fields of
+    ``field_hw`` on ``device``, into ``path``, in a process of its own;
+    returns (wall seconds, its line of trace seconds)."""
+    start = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, '-c', _DECODE_EXPORT, path, str(device),
+         str(stride), *map(str, field_hw)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=600, check=False)
+    wall = time.perf_counter() - start
+    if done.returncode != 0:
+        raise AssertionError(f'export (20a) decode-only failed '
+                             f'({done.returncode}):\n{done.stderr[-4000:]}')
+    return wall, done.stdout.strip()
+
+
+def phase_export_decode(port, decode, path, export_wall, requests, card):
+    """20a: the decode alone as a program (:func:`run_decode_export` into
+    ``path``, (wall seconds, trace line) ``export_wall``), loaded here and
+    run on each of ``requests``: bit-equal to the eager ``decode``, every
+    CifHr call of it bit-equal to its plain version, the drawn request's
+    EXPORT_PEOPLE kept whole; decode ms per image of the program and the
+    eager decode, and the growth's forms on the sparse request. Returns
+    the program's CifHr launches."""
+    shape = tuple(requests['posed'][0][0].shape)
+    program = torch.export.load(path).module()
+    n_images = sum(len(fields) for fields in requests.values())
+
+    reset_launches(port)
+    with kept_launches(port.cifhr_cuda) as calls, torch.no_grad():
+        outs = {name: [program(*f) for f in fields]
+                for name, fields in requests.items()}
+        torch.cuda.synchronize()
+    launches = read_launches(port)['cifhr_accumulate']
+    check_program_calls(port, calls, launches, n_images,
+                        'export (20a) decode-only')
+    with torch.no_grad():
+        for name, fields in requests.items():
+            for i, (f, out) in enumerate(zip(fields, outs[name])):
+                if not all(torch.equal(a, b)
+                           for a, b in zip(out, decode(*f))):
+                    raise AssertionError(
+                        f'export (20a) decode-only, {name} request image '
+                        f'{i}: differs from the eager decode')
+    poses, keep, _ = outs['drawn'][0]
+    joints = (poses[0][keep[0]][:, :, 0] > 0).sum(dim=1).tolist()
+    if joints != [poses.shape[2]] * len(EXPORT_PEOPLE):
+        raise AssertionError(f'export (20a) decode-only, drawn request: '
+                             f'kept poses of {joints} visible joints')
+    kept = {name: [int(out[1].sum()) for out in o]
+            for name, o in outs.items()}
+    log(f'export (20a) decode-only program: exported on the card at CIF '
+        f'fields {shape} in a process of its own (beside the CLI\'s two), '
+        f'{export_wall[0]:.1f} s wall ({export_wall[1]}), '
+        f'{os.path.getsize(path)} bytes, loaded here; kept poses per image '
+        f'{kept}, the drawn people whole ({joints} visible joints); '
+        f'bit-equal to the eager build_cifcaf_decoder on every request; '
+        f'its {len(calls)} CifHr calls launched the kernel, each map '
+        f'bit-equal to the plain version [{card}]')
+
+    times = {}
+    with torch.no_grad():
+        reset_launches(port)
+        for name, fields in requests.items():
+            times[name, 'program'] = [
+                event_ms(lambda: program(*f))
+                for _ in range(EXPORT_TIMED_PASSES) for f in fields]
+        launches += read_launches(port)['cifhr_accumulate']
+        for name, fields in requests.items():
+            times[name, 'eager'] = [
+                event_ms(lambda: decode(*f))
+                for _ in range(EXPORT_TIMED_PASSES) for f in fields]
+        sparse = requests['sparse'][0]
+        growth = grow_forms(decode, sparse, decode(*sparse))
+    ms = {key: float(np.median(t)) for key, t in times.items()}
+    log(f'export (20a) decode-only times, median of {EXPORT_TIMED_PASSES} '
+        'passes, CUDA events, ms/image, program / eager: '
+        + ', '.join(f'{name} {ms[name, "program"]:.2f} / '
+                    f'{ms[name, "eager"]:.2f}' for name in requests)
+        + f' [{card}]')
+    log(f'export (20a) the eager decode of the sparse request (image 0) '
+        f'with the live lanes gathered against every lane grown: '
+        f'{GROW_PAIRS} alternating pairs, CUDA events, median '
+        f'{growth["compact"]:.2f} / {growth["masked"]:.2f} ms, gathering '
+        f'faster in {growth["wins"]} pairs, bit-equal [{card}]')
+    return launches
+
+
+def grow_forms(decode, fields, want):
+    """The eager ``decode`` of ``fields`` with each form of the growth
+    (``grow._grow_compact``, ``grow._grow_masked``) in GROW_PAIRS
+    alternating pairs of CUDA-event times; both must give ``want``.
+    Returns {form: median ms, 'wins': pairs the compact form won}."""
+    from openpifpaf_tpu_torch.ops import grow
+
+    live = grow._grow_live
+    forms = {'compact': grow._grow_compact, 'masked': grow._grow_masked}
+    times = {name: [] for name in forms}
+    try:
+        for name, form in forms.items():
+            grow._grow_live = form
+            if not all(torch.equal(a, b)
+                       for a, b in zip(decode(*fields), want)):
+                raise AssertionError(f'export (20a): the {name} growth '
+                                     'changes the decode')
+        for i in range(GROW_PAIRS):
+            for name in list(forms)[::1 if i % 2 == 0 else -1]:
+                grow._grow_live = forms[name]
+                times[name].append(event_ms(lambda: decode(*fields)))
+    finally:
+        grow._grow_live = live
+    out = {name: float(np.median(t)) for name, t in times.items()}
+    out['wins'] = sum(c < m for c, m in zip(times['compact'],
+                                            times['masked']))
+    return out
+
+
+def jpeglib_header():
+    """The path of ``jpeglib.h`` in JPEG_INCLUDES, or None."""
+    for directory in JPEG_INCLUDES:
+        path = os.path.join(directory, 'jpeglib.h')
+        if os.path.exists(path):
+            return path
+    return None
+
+
+@contextlib.contextmanager
+def loaders_taken():
+    """Within: the loader (``'native'`` or ``'pil'``) that each
+    ``Predictor.images`` call took is appended to the list this yields."""
+    from openpifpaf_tpu_torch.predictor import Predictor
+
+    images = Predictor.images
+    taken = []
+
+    def spied(self, file_names):
+        yield from images(self, file_names)
+        taken.append(self.last_image_loader)
+
+    Predictor.images = spied
+    try:
+        yield taken
+    finally:
+        Predictor.images = images
+
+
+def pose_table(predictions):
+    """{file: [(n_kp, 3) [c, x, y] rows]} of ``read_predictions``."""
+    return {name: [np.asarray(a['keypoints'], np.float64).reshape(-1, 3)
+                   [:, [2, 0, 1]] for a in anns]
+            for name, anns in predictions.items()}
+
+
+def phase_native(port, ckpt, files, directory, card):
+    """20b: the native loader probed and built; ``predict --long-edge``
+    over the phase's JPEGs on each engine of NATIVE_ENGINES through the
+    native loader and through PIL: which loader ``images`` took, the load
+    ms per batch of each, NN and decode ms per image, CifHr and engine
+    launches, every CifHr call bit-equal to its plain version, the native
+    batch within NATIVE_PIL_MEAN_ATOL of PIL's and the poses of the two
+    loaders compared. Returns {kernel: launches}."""
+    import ctypes
+
+    import PIL.Image
+    from openpifpaf_tpu_torch import decoder, predict
+    from openpifpaf_tpu_torch.datasets import ImageList
+    from openpifpaf_tpu_torch.datasets.collate import \
+        collate_images_anns_meta
+    from openpifpaf_tpu_torch.io import native
+    from openpifpaf_tpu_torch.predictor import Predictor
+    from torch_port_helpers import assert_pose_gate, restored_statics
+
+    header = jpeglib_header() or f'not found in {JPEG_INCLUDES}'
+    try:
+        start = time.perf_counter()
+        lib = native.build()
+        ctypes.CDLL(lib)
+        built = native.native_available()
+        log(f'native loader (20b): jpeglib.h {header}; built and loaded '
+            f'{lib} in {time.perf_counter() - start:.2f} s [{card}]')
+    except (RuntimeError, OSError) as e:
+        built = False
+        reason = (str(e).strip().splitlines() or [repr(e)])[0]
+        log(f'native loader (20b): jpeglib.h {header}; the loader does not '
+            f'build or load on this machine ({reason}): predict takes the '
+            f'PIL path here, as JAX does without libjpeg [{card}]')
+
+    paths = [f for request in files for f in request]
+    if built:
+        loader = native.NativeImageLoader(long_edge=NATIVE_LONG_EDGE)
+        ours, _ = loader.load_batch(paths)
+        diffs = []
+        for image, path in zip(ours, paths):
+            with open(path, 'rb') as f:
+                pil = PIL.Image.open(f).convert('RGB')
+            ref, _, _ = pil_preprocess(NATIVE_LONG_EDGE)(
+                pil, [], {'dataset_index': 0})
+            sh, sw = ref.shape[:2]
+            diffs.append(float(np.abs(image[:sh, :sw] - ref[:sh, :sw])
+                               .mean()))
+        if not max(diffs) < NATIVE_PIL_MEAN_ATOL:
+            raise AssertionError(f'native loader (20b): mean abs difference '
+                                 f'from PIL {diffs}')
+        load_ms = {'native': [], 'pil': []}
+        for _ in range(3):
+            for request in files:
+                start = time.perf_counter()
+                loader.load_batch_uint8(request)
+                load_ms['native'].append((time.perf_counter() - start) * 1e3)
+                start = time.perf_counter()
+                data = ImageList(request,
+                                 preprocess=pil_preprocess(NATIVE_LONG_EDGE))
+                collate_images_anns_meta([data[i] for i in range(len(data))])
+                load_ms['pil'].append((time.perf_counter() - start) * 1e3)
+        log(f'native loader (20b): its normalised batch within '
+            f'{max(diffs):.4f} (mean abs) of the PIL path\'s (gate '
+            f'{NATIVE_PIL_MEAN_ATOL}); load ms per batch (host clock, '
+            f'median of 3 passes over the {len(files)} requests): native '
+            f'{np.median(load_ms["native"]):.2f}, PIL '
+            f'{np.median(load_ms["pil"]):.2f} [{card}]')
+
+    launches = {'cifhr_accumulate': 0}
+    for engine, kernel in NATIVE_ENGINES.items():
+        predictions = {}
+        for way in ('native', 'pil') if built else ('pil',):
+            label = f'native loader (20b) {engine} {way}'
+            out = os.path.join(directory, f'native-{engine}-{way}')
+            os.makedirs(out)
+            argv = ['--checkpoint', ckpt, '--backbone-engine', engine,
+                    '--long-edge', str(NATIVE_LONG_EDGE),
+                    *REF_DECODER_FLAGS, '--json-output', out]
+            native_io = Predictor.native_io
+            Predictor.native_io = way == 'native'
+            reset_launches(port)
+            try:
+                with loaders_taken() as taken, recorded_runs([]) as records, \
+                        kept_cifhr_calls(port.cifhr_cuda) as calls, \
+                        restored_statics(*decoder.DECODERS):
+                    predict.main([*files[0], *files[1], *files[2], *argv])
+                    predict.main([*files[3], '--batch-size', '2', *argv])
+            finally:
+                Predictor.native_io = native_io
+            counts = read_launches(port)
+            if taken != [way] * 2:
+                raise AssertionError(f'{label}: images took {taken}')
+            check_records(records, label, ((17, 5), (19, 8)), card,
+                          at_field_hw=False)
+            want = FORWARD_LAUNCHES * len(records)
+            if counts[kernel] != want or counts['cifhr_accumulate'] != \
+                    len(calls):
+                raise AssertionError(f'{label}: launches {counts}, want '
+                                     f'{want} {kernel}, {len(calls)} CifHr')
+            check_kept_calls(port, calls, label)
+            for name in (kernel, 'cifhr_accumulate'):
+                launches[name] = launches.get(name, 0) + counts[name]
+            predictions[way] = pose_table(read_predictions(out))
+            warm = records[1:3]
+            log(f'{label}: images took the {taken[0]} loader; NN '
+                f'{np.mean([r["nn_ms"] for r in warm]):.3f} ms/image, '
+                f'decode {np.mean([r["decode_ms"] for r in warm]):.2f} '
+                f'ms/image (the 2 warm batch-1 requests); fields '
+                f'{records[0]["hw"]}; poses per image '
+                f'{[len(p) for p in predictions[way].values()]} [{card}]')
+        if built:
+            try:
+                for name in predictions['pil']:
+                    assert_pose_gate(predictions['native'][name],
+                                     predictions['pil'][name])
+                line = 'pass the pose gate'
+            except AssertionError as e:
+                reason = (str(e).strip().splitlines() or ['locations'])[0]
+                line = (f'differ beyond the pose gate ({reason}): the '
+                        'native loader\'s bilinear resize gives other '
+                        'pixels than PIL\'s antialiased one')
+            log(f'native loader (20b) {engine}: the native path\'s poses '
+                f'against the PIL path\'s {line} [{card}]')
+    return launches
+
+
+_CACHE_BUILD = r'''
+import argparse, json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+from openpifpaf_tpu_torch import _nvcc, logger
+from openpifpaf_tpu_torch.io import native
+parser = argparse.ArgumentParser()
+logger.cli(parser)
+args = parser.parse_args(sys.argv[2:4])
+logger.configure(args)
+out = {}
+for source in sys.argv[4:]:
+    start = time.perf_counter()
+    path = native.build() if source == 'pifpaf_io.cpp' \
+        else _nvcc.build(source)
+    out[source] = [time.perf_counter() - start, path,
+                   os.path.getmtime(path)]
+print(json.dumps(out))
+'''
+
+
+def phase_build_cache(directory, card, native_built):
+    """20c: CACHE_SOURCES (and the native loader where it builds) built
+    with ``--xla-compilation-cache`` of a fresh directory in one process,
+    then in a second: the first builds, the second only loads."""
+    cache = os.path.join(directory, 'kernel-cache')
+    sources = list(CACHE_SOURCES) + (['pifpaf_io.cpp'] if native_built
+                                     else [])
+    runs = []
+    for _ in range(2):
+        done = subprocess.run(
+            [sys.executable, '-c', _CACHE_BUILD, ROOT,
+             '--xla-compilation-cache', cache, *sources], cwd=directory,
+            capture_output=True, text=True, timeout=600, check=False)
+        if done.returncode != 0:
+            raise AssertionError(f'build cache (20c): {done.stderr[-3000:]}')
+        runs.append(json.loads(done.stdout.strip().splitlines()[-1]))
+    for source in sources:
+        (t1, p1, m1), (t2, p2, m2) = runs[0][source], runs[1][source]
+        if os.path.dirname(p1) != cache or p1 != p2 or m1 != m2:
+            raise AssertionError(f'build cache (20c) {source}: {runs}')
+        log(f'build cache (20c) {source}: built into a fresh '
+            f'--xla-compilation-cache in {t1:.2f} s, loaded from it by a '
+            f'second process in {t2 * 1e3:.2f} ms (not rebuilt) [{card}]')
+
+
+def phase_profile_train(directory, card):
+    """20c: PROFILE_STEPS steps of phase 11's k16 training (batch 8, 385 px,
+    float32) with ``--profile``: one Chrome trace per step, each trace's
+    device ops (a trace with none is reported as such). Returns the
+    training log's path."""
+    from openpifpaf_tpu_torch import train
+    from torch_port_helpers import write_synthetic_coco
+
+    data = write_synthetic_coco(
+        os.path.join(directory, 'coco'), n_images=TRAIN_BATCH * PROFILE_STEPS,
+        image_hw=TRAIN_IMAGE_HW, seed=TRAIN_SEED)
+    out = os.path.join(directory, 'profiled', 'model')
+    os.makedirs(os.path.dirname(out))
+    prefix = os.path.join(directory, 'profiled', 'step')
+    start = time.perf_counter()
+    trainer = train.main(train_flags(
+        data, out, '--train-batches', str(PROFILE_STEPS), '--val-batches',
+        '1', '--profile', prefix))
+    wall = time.perf_counter() - start
+    traces = trainer.train_step.traces
+    if [os.path.basename(p) for p, _ in traces] != \
+            [f'step.{i}.json' for i in range(1, PROFILE_STEPS + 1)] \
+            or not all(os.path.getsize(p) for p, _ in traces):
+        raise AssertionError(f'train --profile (20c): traces {traces}')
+    empty = [p for p, n in traces if not n]
+    for path in empty:
+        log(f'train --profile (20c): {os.path.basename(path)} recorded no '
+            'device op: the profiler missed the card\'s launches (not read '
+            'as zero)')
+    if len(empty) == len(traces):
+        raise AssertionError('train --profile (20c): no trace recorded a '
+                             'device op')
+    log(f'train --profile (20c): {PROFILE_STEPS} steps, one trace each: '
+        + ', '.join(f'{os.path.basename(p)} {n} device ops '
+                    f'{os.path.getsize(p)} bytes' for p, n in traces)
+        + f'; whole run {wall:.1f} s [{card}]')
+    return out + '.log'
+
+
+def phase_logs(log_path, card):
+    """20d: ``logs --print-last`` of (c)'s training log: its last train
+    row; nothing is drawn (matplotlib is imported only to draw)."""
+    import io
+    from openpifpaf_tpu_torch import logs
+
+    buffer = io.StringIO()
+    with contextlib.redirect_stdout(buffer):
+        logs.main([log_path, '--print-last'])
+    lines = buffer.getvalue().strip().splitlines()
+    if len(lines) != 1 or not lines[0].startswith(f'{log_path}: ') \
+            or "'type': 'train'" not in lines[0]:
+        raise AssertionError(f'logs --print-last (20d): {lines}')
+    log(f'logs --print-last (20d): {lines[0][len(log_path) + 2:]}; drawn '
+        f'nothing (matplotlib {"installed" if has_matplotlib() else "absent"}'
+        f') [{card}]')
+
+
+def phase_deploy(port, device, card):
+    """Phase 20: (a)-(d). Returns {kernel: launches} of (a) and (b)."""
+    import tempfile
+    from openpifpaf_tpu_torch.io import native
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as directory:
+        ckpt = posed_k16_checkpoint(directory)
+        files = write_requests(directory)
+        launches = {'cifhr_accumulate': phase_export(
+            port, ckpt, phase_images(files, device), directory, device,
+            card)}
+        for name, count in phase_native(port, ckpt, files, directory,
+                                        card).items():
+            launches[name] = launches.get(name, 0) + count
+        log_path = phase_profile_train(directory, card)
+        phase_build_cache(directory, card, native.native_available())
+        phase_logs(log_path, card)
+    log(f'phase 20: launches {launches}; {time.perf_counter() - t0:.1f} s '
+        f'[{card}]')
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, rows, row):
     """One kernel's entry of the JSON line: times and bound of ``row``,
     the largest error of all ``rows``."""
@@ -4319,12 +5125,18 @@ def main():
         f'{torch.cuda.get_device_name(0)}')
 
     port = import_port()
+    began = time.perf_counter()
+
+    def lap(phases):
+        log(f'{phases} done at {time.perf_counter() - began:.1f} s [{card}]')
+
     phase_build(port)
     start_profiler()
     cifhr_rows = phase_kernel(port.cifhr, port.cifhr_cuda, device, card)
     backbone_results = phase_backbone_kernels(port, device, card)
     phase_golden(port.cifhr_cuda, device, card)
     phase_configs(port.cifhr_cuda, device, card)
+    lap('phases 2-5b')
     predictor, cifhr_launches = phase_main_path(port, device, card)
     launches, predictors = phase_engines(port, predictor, device, card)
     launches['cifhr_accumulate'] = cifhr_launches
@@ -4333,12 +5145,15 @@ def main():
     phase_profile(predictors, device, card)
     lab_results = phase_lab_kernels(port, device, card)
     launches.update(phase_lab(port, card))
+    lap('phases 6-10')
     phase_train(port, device, card)
+    lap('phase 11')
     launches['cifhr_accumulate'] += phase_other_backbones(port, device, card)
     launches['cifhr_accumulate'] += phase_tracking(port, device, card)
     launches['cifhr_accumulate'] += phase_tracking_training(port, device,
                                                             card)
     launches['cifhr_accumulate'] += phase_plugins_path(port, device, card)
+    lap('phases 12-15')
     for name, count in phase_detection(port, device, card).items():
         launches[name] += count
     for name, count in phase_mix(port, device, card).items():
@@ -4347,6 +5162,10 @@ def main():
         launches[name] += count
     for name, count in phase_drawing(port, device, card).items():
         launches[name] += count
+    lap('phases 16-19')
+    for name, count in phase_deploy(port, device, card).items():
+        launches[name] += count
+    lap('phase 20')
 
     # no single PyTorch call computes the CifHr map; times at F=17 K=256
     entries = [kernel_entry('cifhr_accumulate', 'cifhr.cu',

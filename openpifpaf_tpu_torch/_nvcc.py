@@ -1,11 +1,15 @@
 """Build and load of the port's CUDA kernels (``csrc/*.cu``).
 
 Each source compiles on its own with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, in the git-ignored ``_build/`` directory
-beside this file, and is loaded with ``ctypes``. A library is keyed on the
-source's bytes and the flags, so an edited source or a changed flag builds
-anew and an unchanged one is reused. Nothing is compiled at import: the
-first call of a kernel's wrapper on a CUDA tensor builds its library.
+library with a plain C interface, in the build directory, and is loaded
+with ``ctypes``. The build directory is by default the git-ignored
+``_build/`` beside this file; ``--xla-compilation-cache DIR`` of every CLI
+(:mod:`.compile_cache`) points it elsewhere, or at a temporary directory
+of the process. A library is keyed on the source's bytes and the flags,
+so an edited source or a changed flag builds anew and an unchanged one is
+reused. Nothing is compiled at import: the first call of a kernel's
+wrapper on a CUDA tensor builds its library. :func:`cached_build` also
+builds the port's native JPEG loader (:mod:`.io.native`) with ``g++``.
 
     python -m openpifpaf_tpu_torch._nvcc depthwise.cu shuffle_block.cu
 
@@ -22,8 +26,10 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
-BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         '_build')
+#: the build directory unless :func:`set_build_dir` chose another
+DEFAULT_BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 '_build')
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
 
@@ -39,27 +45,50 @@ def _nvcc():
     return os.path.join(CUDA_HOME, 'bin', 'nvcc')
 
 
-def build(source, csrc=CSRC):
-    """Compile ``<csrc>/<source>`` (by default the port's ``csrc/``) unless a
-    library for this exact source and these flags exists. Returns the
-    library's path."""
-    path = os.path.join(csrc, source)
+def set_build_dir(path):
+    """Build and load the libraries in ``path`` from now on (libraries
+    already loaded stay loaded)."""
+    global BUILD_DIR
+    BUILD_DIR = os.path.abspath(os.path.expanduser(path))
+
+
+def cached_build(path, compiler, flags, libs=()):
+    """Compile the source ``path`` with ``compiler() *flags -o LIB path
+    *libs`` into the build directory, unless a library for these exact
+    bytes, flags and libraries is there. Returns the library's path.
+    ``compiler`` is called only for a build, so that a process that finds
+    the library needs no compiler."""
     with open(path, 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
-    stem = os.path.splitext(source)[0]
+        digest = hashlib.sha256(
+            f.read() + ' '.join((*flags, *libs)).encode())
+    stem = os.path.splitext(os.path.basename(path))[0]
     lib_path = os.path.join(BUILD_DIR,
                             f'lib{stem}_{digest.hexdigest()[:16]}.so')
     if os.path.exists(lib_path):
         return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    try:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+    except OSError as e:
+        raise RuntimeError(
+            f'cannot create the kernel build directory {BUILD_DIR} ({e}); '
+            'choose a writable one with --xla-compilation-cache DIR, or '
+            "'' for a temporary one") from e
     tmp = f'{lib_path}.{os.getpid()}.{threading.get_ident()}.tmp'
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, path]
+    cmd = [compiler(), *flags, '-o', tmp, path, *libs]
     done = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if done.returncode != 0:
-        raise RuntimeError(f'nvcc failed on {source} ({done.returncode}):\n'
+        raise RuntimeError(f'{os.path.basename(cmd[0])} failed on '
+                           f'{os.path.basename(path)} ({done.returncode}):\n'
                            f'{done.stdout}{done.stderr}')
     os.replace(tmp, lib_path)
     return lib_path
+
+
+def build(source, csrc=CSRC):
+    """Compile ``<csrc>/<source>`` (by default the port's ``csrc/``) with
+    ``nvcc`` unless a library for this exact source and these flags
+    exists. Returns the library's path."""
+    return cached_build(os.path.join(csrc, source), _nvcc, NVCC_FLAGS)
 
 
 def function(source, symbol, argtypes):

@@ -1,6 +1,7 @@
-"""Logging setup (port of ``openpifpaf_tpu/logger.py``, without the JAX
-compile cache): JSON-lines train log file + console logging with
---quiet/--debug."""
+"""Logging setup (port of ``openpifpaf_tpu/logger.py``): JSON-lines train
+log file + console logging with --quiet/--debug, and the build directory
+of the port's libraries (``--xla-compilation-cache``,
+:mod:`.compile_cache`)."""
 
 import argparse
 import json
@@ -30,9 +31,14 @@ def cli(parser: argparse.ArgumentParser):
     group.add_argument('--debug-log', dest='debug_logging',
                        default=False, action='store_true')
     group.add_argument('--log-stats', default=False, action='store_true')
+    from . import compile_cache
+    compile_cache.cli(parser)
 
 
 def configure(args: argparse.Namespace, local_log=None):
+    from . import compile_cache
+    compile_cache.configure(args)
+
     level = logging.INFO
     if args.quiet:
         level = logging.WARNING

@@ -18,9 +18,14 @@ The kernel is built at first use by :mod:`openpifpaf_tpu_torch._nvcc`.
 :func:`plan` chooses its launch in Python; :func:`keeps` is the kernel's
 cull as a plain function, for the tests.
 
-:func:`accumulate` runs the plain PyTorch version
-(:func:`.cifhr.accumulate_dense`) for a tensor on the CPU; for a CUDA
-tensor it launches the kernel, one device op per call, or raises.
+:func:`accumulate` calls the PyTorch operator
+``torch.ops.openpifpaf_tpu_torch.cifhr_accumulate`` (registered by the
+package's ``__init__``): on a CPU tensor its implementation is the plain
+PyTorch version (:func:`.cifhr.accumulate_dense`); on a CUDA tensor it is
+:func:`launch_counted`, which launches the kernel, one device op per
+call, or raises. ``torch.export`` records the operator as one opaque op
+(its fake implementation gives the map's shape), so an exported decode
+launches this kernel on the card.
 """
 
 import ctypes
@@ -30,7 +35,7 @@ import functools
 import torch
 
 from .. import _nvcc
-from .cifhr import accumulate_dense, scaled_weights
+from .cifhr import scaled_weights
 
 #: kernel launches made by :func:`accumulate` in this process
 LAUNCHES = 0
@@ -162,30 +167,37 @@ def launch(x, y, sigma, w, p, *, hr_h, hr_w, neighbors=16, factor=1.0):
     return out
 
 
-def accumulate(x, y, sigma, w, *, hr_h, hr_w, neighbors=16, factor=1.0):
-    """CifHr map (F, hr_h, hr_w) from (F, K) cells; the contract of
-    :func:`.cifhr.accumulate_dense`."""
+def launch_counted(x, y, sigma, w, *, hr_h, hr_w, neighbors=16,
+                   factor=1.0):
+    """The operator's CUDA implementation: :func:`launch` with the plan
+    of these shapes on contiguous cells, counted in :data:`LAUNCHES`."""
     global LAUNCHES
-    if x.device.type == 'cpu':
-        return accumulate_dense(x, y, sigma, w, hr_h=hr_h, hr_w=hr_w,
-                                neighbors=neighbors, factor=factor)
-    if x.device.type != 'cuda':
-        raise ValueError(f'CifHr kernel needs a CUDA tensor, got {x.device}')
-    if x.dim() != 2:
-        raise ValueError(f'cells must be (F, K), got {tuple(x.shape)}')
-    for name, t in (('y', y), ('sigma', sigma), ('w', w)):
-        if t.shape != x.shape or t.device != x.device:
-            raise ValueError(f'{name} {tuple(t.shape)} on {t.device} does '
-                             f'not match x {tuple(x.shape)} on {x.device}')
-    for name, t in (('x', x), ('y', y), ('sigma', sigma), ('w', w)):
-        if t.dtype != torch.float32:
-            raise ValueError(f'{name} must be float32, got {t.dtype}')
     n_fields, n_cells = x.shape
-    if n_fields * hr_h * hr_w >= 2 ** 31 or n_cells >= 2 ** 31:
-        raise ValueError('CifHr map too large for 32-bit sizes')
-
     out = launch(x.contiguous(), y.contiguous(), sigma.contiguous(),
                  w.contiguous(), plan(n_fields, n_cells, hr_h, hr_w),
                  hr_h=hr_h, hr_w=hr_w, neighbors=neighbors, factor=factor)
     LAUNCHES += 1
     return out
+
+
+def accumulate(x, y, sigma, w, *, hr_h, hr_w, neighbors=16, factor=1.0):
+    """CifHr map (F, hr_h, hr_w) from (F, K) cells; the contract of
+    :func:`.cifhr.accumulate_dense`."""
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'CifHr kernel needs a CUDA tensor, got {x.device}')
+    if x.device.type == 'cuda':
+        if x.dim() != 2:
+            raise ValueError(f'cells must be (F, K), got {tuple(x.shape)}')
+        for name, t in (('y', y), ('sigma', sigma), ('w', w)):
+            if t.shape != x.shape or t.device != x.device:
+                raise ValueError(f'{name} {tuple(t.shape)} on {t.device} '
+                                 f'does not match x {tuple(x.shape)} on '
+                                 f'{x.device}')
+        for name, t in (('x', x), ('y', y), ('sigma', sigma), ('w', w)):
+            if t.dtype != torch.float32:
+                raise ValueError(f'{name} must be float32, got {t.dtype}')
+        n_fields, n_cells = x.shape
+        if n_fields * hr_h * hr_w >= 2 ** 31 or n_cells >= 2 ** 31:
+            raise ValueError('CifHr map too large for 32-bit sizes')
+    return torch.ops.openpifpaf_tpu_torch.cifhr_accumulate(
+        x, y, sigma, w, hr_h, hr_w, float(neighbors), float(factor))

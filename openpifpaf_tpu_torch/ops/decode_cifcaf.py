@@ -290,3 +290,25 @@ def decode_cifcaf(cif, caf, initial_poses=None, *, stride, skeleton,
                                   config=config, graph=graph)
              for c, a, p in zip(cif, caf, initial_poses)]
     return tuple(torch.stack(p) for p in zip(*parts))
+
+
+def build_cifcaf_decoder(*, stride: int, skeleton, config=None,
+                         n_keypoints=None):
+    """The batched CifCaf decode as one function of tensors, with no host
+    read on its path, so that ``torch.export`` can trace it (the
+    counterpart of ``openpifpaf_tpu/ops/decode_cifcaf.py::
+    build_cifcaf_decoder``).
+
+    Returns fn(cif, caf) with cif (B, F, 5, H, W), caf (B, E, 8, H, W) ->
+    (poses (B, n_poses, n_kp, 4), keep (B, n_poses), order (B, n_poses)):
+    :func:`decode_cifcaf` without its overflow output. With
+    ``config.export_decoding_order`` two extra outputs (B, n_poses, n_kp)
+    report each joint's committing directed edge and commit step. It
+    never escalates to the crowd tier, as JAX's export builds it
+    (``with_overflow=False``).
+    """
+    def decode(cif, caf):
+        return decode_cifcaf(cif, caf, stride=stride, skeleton=skeleton,
+                             config=config, n_keypoints=n_keypoints)[:-1]
+
+    return decode

@@ -122,6 +122,19 @@ def blend_batch(cc, sx, sy, tx, ty, ts, x, y, s, *, filter_sigmas=1.0,
 _PLANES = ('c', 'sx', 'sy', 'tx', 'ty', 'ts')
 
 
+def grow_connection_blend(caf, d, x, y, s, *, filter_sigmas=1.0,
+                          only_max=False):
+    """Blend of the top-2 candidates of directed edge ``d`` near the source
+    (x, y) with scale ``s`` (``cifcaf.cpp:32-103``; JAX's
+    ``grow_connection_blend``): :func:`blend_batch` of that one edge.
+    caf: dict of (2E, C) candidate planes. Returns (v, tx, ty, ts), 0-d
+    tensors."""
+    planes = [caf[k][d] for k in _PLANES]
+    return blend_batch(*planes, torch.as_tensor(x), torch.as_tensor(y),
+                       torch.as_tensor(s), filter_sigmas=filter_sigmas,
+                       only_max=only_max)
+
+
 def _connection_values(planes, planes_rev, sv, sx, sy, ss, *,
                        keypoint_threshold, keypoint_threshold_rel,
                        reverse_match, filter_sigmas, only_max):
@@ -293,15 +306,27 @@ def _apply_block_joints(pose, dir_start, dir_end):
     return torch.where(blocked[..., None], mark, pose)
 
 
-def _grow_live(caf, graph, pose0, live, **kwargs):
+def _grow_masked(caf, graph, pose0, live, **kwargs):
     """:func:`grow_from_pose` on the lanes ``live`` of (K, n_kp, 4) start
-    poses; the other lanes give zeros (and -1 commits)."""
+    poses; the other lanes give zeros (and -1 commits). Every lane grows
+    and the dead ones are zeroed, as JAX does: no shape depends on the
+    data and nothing is read on the host, so ``torch.export`` traces it."""
+    grown = grow_from_pose(caf, graph, pose0, **kwargs)
     record = kwargs.get('record_order', False)
-    k = pose0.shape[0]
-    dev = pose0.device
+    out = tuple(torch.where(live.view(-1, *[1] * (a.dim() - 1)), a,
+                            0 if a.is_floating_point() else -1)
+                for a in (grown if record else (grown,)))
+    return out if record else out[0]
+
+
+def _grow_compact(caf, graph, pose0, live, **kwargs):
+    """:func:`_grow_masked`'s result from the live lanes alone, gathered
+    with ``torch.nonzero`` (a shape that depends on the data, read on the
+    host). Lanes grow independently, so both give the same bits."""
+    record = kwargs.get('record_order', False)
     poses = torch.zeros_like(pose0)
-    order = torch.full((k, graph.n_keypoints), -1, dtype=torch.int64,
-                       device=dev)
+    order = torch.full((pose0.shape[0], graph.n_keypoints), -1,
+                       dtype=torch.int64, device=pose0.device)
     out = (poses, order, order.clone())
     live = torch.nonzero(live).flatten()
     if live.numel():
@@ -309,6 +334,18 @@ def _grow_live(caf, graph, pose0, live, **kwargs):
         for full, part in zip(out, grown if record else (grown,)):
             full[live] = part
     return out if record else poses
+
+
+def _grow_live(caf, graph, pose0, live, **kwargs):
+    """The growth of the live lanes: compact when run eagerly, where a
+    decode with few or no live lanes then skips most or all of the
+    growth's launches (growing every lane made random-weight decodes
+    8-30x slower on the H100, ``chip_smoke.py`` phases 13c and 15c-e);
+    masked in a program that ``torch.export`` traces, where no shape may
+    depend on the data."""
+    if torch.compiler.is_exporting():
+        return _grow_masked(caf, graph, pose0, live, **kwargs)
+    return _grow_compact(caf, graph, pose0, live, **kwargs)
 
 
 def grow_poses(caf, graph: SkeletonGraph, seeds, **kwargs):

@@ -8,7 +8,7 @@ an occupied cell are suppressed (v *= 1e-5), surviving joints mark a
 square window. Then joints below the keypoint threshold are zeroed and
 annotations below the instance threshold dropped. The sequential loop is
 a per-field pairwise relation whose acceptance closure is a fixpoint,
-iterated here with a host-side "changed?" test.
+a while loop (:func:`.seeds._fixpoint`).
 """
 
 import torch
@@ -56,9 +56,9 @@ def nms_keypoints(poses, hr_shape, *, suppression=1e-5,
               & (yi.T[:, None, :] < maxy.T[:, :, None])
               & (rank[:, None] < rank[None, :])[None])      # (n_kp, K, K)
     accepted = _fixpoint(
-        lambda accept: active.T & ~torch.any(accept[:, :, None] & covers,
-                                             dim=1),
-        active.T)                                           # (n_kp, K)
+        lambda accept, active_t, covers:
+        active_t & ~torch.any(accept[:, :, None] & covers, dim=1),
+        active.T, active.T, covers)                         # (n_kp, K)
 
     v_new = torch.where(active & ~accepted.T, v * suppression, v)
     v_new = torch.where(v_new > keypoint_threshold, v_new, 0.0)

@@ -9,25 +9,50 @@ cell (:func:`occupancy_grid` / :func:`uncovered_any`), and the decoder
 escalates to the crowd tier when that check fails.
 
 The acceptance closures of :func:`seed_nms` and :func:`seed_rank_dedup`
-are fixpoints; here each round ends in a host-side "changed?" test
-(typically 2-4 rounds).
+are fixpoints, run as a while loop as JAX runs them as
+``lax.while_loop``: ``torch.export`` records each as one op of the graph,
+with no data-dependent guard. Each round's body copies its "changed?"
+flag to the host, where the loop's test reads it, run eagerly (by the
+decode) or from a loaded program: one host read per round (typically 1-6
+rounds).
 """
 
 import torch
 import torch.nn.functional as F
+try:  # torch's private module of the operator; torch 2.11 to 2.13 have it
+    from torch._higher_order_ops.while_loop import while_loop_op
+except ImportError as error:
+    raise ImportError(
+        'openpifpaf_tpu_torch needs the while-loop operator of '
+        'torch.while_loop (torch._higher_order_ops.while_loop.'
+        f'while_loop_op, in torch 2.11 to 2.13); torch {torch.__version__} '
+        'does not have it there') from error
 
 from .cifhr import cifhr_lookup, eval_cells
 from .topk import top_k
 
 
-def _fixpoint(step, start):
-    """Iterate ``state = step(state)`` until it stops changing."""
-    state = start
-    while True:
-        new = step(state)
-        if torch.equal(new, state):
-            return new
-        state = new
+def _fixpoint(step, start, *operands):
+    """Iterate ``state = step(state, *operands)`` until it stops changing:
+    the while-loop operator of ``torch.while_loop`` over ``(state,
+    changed)``, JAX's ``lax.while_loop(lambda st: st[1], body, (start,
+    True))``. ``step`` reads no tensor but ``state`` and ``operands`` and
+    returns a new tensor of ``start``'s shape, dtype and device. The
+    operator is called directly, with its operands explicit:
+    ``torch.while_loop`` finds a closure's tensors by running each eager
+    call through ``torch.compile``, which doubled the decode's host time
+    on the H100."""
+    def changed(state, flag, *operands):
+        return flag.clone()  # the loop's functions may not return an input
+
+    def body(state, flag, *operands):
+        new = step(state, *operands)
+        # the flag lives on the host: the loop reads it twice per test,
+        # and a flag on the card would wait for the card each time
+        return new, (new != state).any().cpu()
+
+    flag = torch.ones((), dtype=torch.bool)
+    return while_loop_op(changed, body, (start, flag), operands)[0]
 
 
 def _grid_shape(hr_shape, reduction):
@@ -193,8 +218,9 @@ def seed_nms(seeds, n_fields, hr_shape, *, n_keep, reduction=2.0,
     if occ0 is not None:
         valid = valid & ~occ0[f, yi.to(torch.int64), xi.to(torch.int64)]
     accepted = _fixpoint(
-        lambda accept: valid & ~torch.any(accept[:, None] & covers, dim=0),
-        valid)
+        lambda accept, valid, covers:
+        valid & ~torch.any(accept[:, None] & covers, dim=0),
+        valid, valid, covers)
 
     # accepted seeds first, in their (already score-sorted) order
     order_score = torch.where(accepted, -rank.to(torch.float32), -torch.inf)
@@ -232,9 +258,9 @@ def seed_rank_dedup(poses, seed_f, seed_x, seed_y, valid, hr_shape, *,
               & (rank[:, None] < rank[None, n_initial:]))       # (K, Ks)
     always = torch.ones((n_initial,), dtype=torch.bool, device=poses.device)
     return _fixpoint(
-        lambda accept: torch.cat([always, valid & ~torch.any(
-            accept[:, None] & covers, dim=0)]),
-        torch.cat([always, valid]))
+        lambda accept, always, valid, covers: torch.cat([always, valid & ~(
+            torch.any(accept[:, None] & covers, dim=0))]),
+        torch.cat([always, valid]), always, valid, covers)
 
 
 def occupancy_grid(poses, hr_shape, *, reduction=2.0, min_scale=4.0):

@@ -16,7 +16,7 @@ import json
 import logging
 import os
 
-from . import __version__, decoder
+from . import __version__, decoder, logger
 from .predictor import BACKBONE_ENGINES, Predictor
 
 LOG = logging.getLogger(__name__)
@@ -71,13 +71,14 @@ def cli(args=None):
                         help='accepted and ignored: a no-op, as in the '
                              'JAX package, whose rescale never reads it')
     parser.add_argument('--debug', default=False, action='store_true')
+    logger.cli(parser)
     decoder.cli(parser)
     from . import show, visualizer
     visualizer.cli(parser)
     show.cli(parser)
 
     args = parser.parse_args(args)
-    logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO)
+    logger.configure(args, LOG)
     decoder.configure(args)
     visualizer.configure(args)
     show.configure(args)

@@ -8,7 +8,10 @@ host work only); the forward and the decode run on the caller's thread,
 each batch forwarded, decoded and yielded before the next one starts.
 Test-time options: the horizontal flip (``hflip_tta``), several scales
 merged (``multi_scale``), and large batches forwarded in chunks
-(``nn_chunk_size``, off by default).
+(``nn_chunk_size``, off by default). A list of JPEG files with a
+``long_edge`` loads through the native threaded JPEG loader
+(:mod:`.io.native`, ``native_io``) where it builds, as uint8 batches that
+are normalised on the device; elsewhere through PIL.
 """
 
 import copy
@@ -78,6 +81,8 @@ class Predictor:
     #: batches produced ahead by the worker thread; 0: produced on the
     #: caller's thread when the loop asks for them
     prefetch_depth = 2
+    #: use the native C++ threaded JPEG loader when possible
+    native_io = True
 
     def __init__(self, checkpoint=None, head_metas=None, *, model=None,
                  device=None, json_data=False, backbone_engine='auto',
@@ -148,6 +153,8 @@ class Predictor:
         self._warned_no_hflip = set()
 
         self.preprocess = self._build_preprocess()
+        #: the loader that :meth:`images` took last: 'native' or 'pil'
+        self.last_image_loader = None
         self.last_decoder_time = 0.0
         self.last_nn_time = 0.0
         self.total_nn_time = 0.0
@@ -302,7 +309,9 @@ class Predictor:
 
         Padding after normalisation only adds field cells outside the
         original image; annotations are inverse-transformed with the
-        original meta.
+        original meta. A uint8 batch (the native loader's) is padded with
+        the ImageNet mean colour, which the normalisation on the device
+        turns into about 0, as JAX pads it.
         """
         if not self.size_bucket:
             return image_batch
@@ -314,17 +323,43 @@ class Predictor:
             return image_batch
         out = np.zeros((image_batch.shape[0], target_h, target_w,
                         image_batch.shape[3]), dtype=image_batch.dtype)
+        if image_batch.dtype == np.uint8:
+            out[...] = np.asarray(transforms.IMAGENET_MEAN_U8,
+                                  dtype=np.uint8)
         out[:, :h, :w] = image_batch
         return out
 
+    @staticmethod
+    def _normalized_np(img):
+        if img.dtype == np.uint8:
+            return ((img.astype(np.float32) / 255.0
+                     - transforms.IMAGENET_MEAN) / transforms.IMAGENET_STD)
+        return np.asarray(img, dtype=np.float32)
+
+    @staticmethod
+    def _normalized(images):
+        """(B, H, W, 3) uint8 pixels on the device to the float32 input of
+        the forward, as JAX's in-graph ``forward_u8``: ``x / 255``, then
+        ``(x - mean) / std`` (divisions by tensors, so that CUDA rounds
+        them as the CPU does)."""
+        kw = dict(dtype=torch.float32, device=images.device)
+        x = images.to(torch.float32) / torch.tensor(255.0, **kw)
+        return ((x - torch.tensor(transforms.IMAGENET_MEAN, **kw))
+                / torch.tensor(transforms.IMAGENET_STD, **kw))
+
     def fields_batch(self, image_batch):
         """Per-head (B, F, C, H, W) fields of a (B, H, W, 3) float batch,
-        on ``self.device``."""
+        or of a uint8 batch of raw pixels (normalised on the device), on
+        ``self.device``."""
         start = time.perf_counter()
-        image_batch = self._bucket_pad(np.asarray(image_batch,
-                                                  dtype=np.float32))
+        image_batch = np.asarray(image_batch)
+        if image_batch.dtype != np.uint8:
+            image_batch = image_batch.astype(np.float32, copy=False)
+        image_batch = self._bucket_pad(image_batch)
         images = torch.from_numpy(image_batch).to(self.device)
         with torch.inference_mode():
+            if images.dtype == torch.uint8:
+                images = self._normalized(images)
             if self._tracking:
                 fields = self._tracking_fields(images)
             elif self.hflip_tta:
@@ -346,7 +381,7 @@ class Predictor:
         if VisualizerBase.all_indices and len(image_batch):
             # the backdrop of the decoder's debug plots: batch element 0
             VisualizerBase.processed_image(
-                np.asarray(image_batch[0], dtype=np.float32))
+                self._normalized_np(np.asarray(image_batch[0])))
         fields = self.fields_batch(image_batch)
         pred_batch = self.processor.batch_decode(fields)
         self.last_decoder_time = self.processor.last_decoder_time
@@ -534,10 +569,41 @@ class Predictor:
         finally:
             self.json_data = json_data
 
+    def _native_loader(self, file_names):
+        """The native JPEG loader where JAX's Predictor takes it (JPEG
+        files, a ``long_edge``, not tracking; the port has no raw-image
+        option) and where it builds; else None."""
+        if not (self.native_io and self.long_edge and not self._tracking):
+            return None
+        if not all(f.lower().endswith(('.jpg', '.jpeg'))
+                   for f in file_names):
+            return None
+        from .io import native
+        if not native.native_available():
+            return None
+        return native.NativeImageLoader(long_edge=self.long_edge)
+
+    def _images_native(self, file_names, loader):
+        def batches():
+            for start in range(0, len(file_names), self.batch_size):
+                paths = file_names[start:start + self.batch_size]
+                images, metas = loader.load_batch_uint8(paths)
+                yield images, [[] for _ in metas], metas
+
+        yield from self._run_batches(self._prefetched(batches()))
+
     def images(self, file_names):
         file_names = list(file_names)
         if self.multi_scale:
             yield from self._images_multiscale(file_names)
+            return
+        native_loader = self._native_loader(file_names)
+        self.last_image_loader = 'pil' if native_loader is None \
+            else 'native'
+        LOG.info('loading %d images with the %s loader', len(file_names),
+                 'native JPEG' if native_loader else 'PIL')
+        if native_loader is not None:
+            yield from self._images_native(file_names, native_loader)
             return
         yield from self.dataset(datasets.ImageList(
             file_names, preprocess=self.preprocess))

@@ -68,7 +68,8 @@ def cli(argv=None):
     parser.add_argument('--seed', default=42, type=int)
     parser.add_argument('--profile', default=None, nargs='?',
                         const='torch_trace',
-                        help='not yet ported (ROADMAP A13)')
+                        help='write a torch.profiler Chrome trace of each '
+                             'train step to <prefix>.<n>.json')
     parser.add_argument('--debug', default=False, action='store_true')
 
     logger.cli(parser)
@@ -85,9 +86,6 @@ def cli(argv=None):
         raise NotImplementedError(
             'training on a device mesh (--n-devices, --spatial-partitions) '
             'is not yet ported to PyTorch (ROADMAP A12)')
-    if args.profile:
-        raise NotImplementedError(
-            '--profile is not yet ported to PyTorch (ROADMAP A13)')
 
     if args.output is None:
         args.output = default_output_file(args)
@@ -164,6 +162,11 @@ def main(argv=None):
             'version': __version__,
             'hostname': socket.gethostname(),
         })
+    if args.profile:
+        from .profiler import TorchProfiler
+        trainer.train_step = TorchProfiler(trainer.train_step,
+                                           out_name=args.profile,
+                                           device=args.device)
     trainer.loop(train_loader, val_loader, start_epoch)
     return trainer
 

@@ -23,6 +23,7 @@ from .image import ImageTransform, Blur, HorizontalBlur, JpegCompression
 from .random import RandomApply, RandomChoice, DeterministicEqualChoice
 from .rotate import RotateBy90, RotateUniform
 from .minsize import MinSize
+from .misc import Assert, Deinterlace, MultiScale, AddCrowdForIncompleteHead
 from .unclipped import UnclippedArea, UnclippedSides
 from .toannotations import (ToAnnotations, ToKpAnnotations, ToDetAnnotations,
                             ToCrowdAnnotations)

@@ -1060,3 +1060,65 @@ def test_cuda_golden_decoding_order_drawn(cuda, tmp_path):
                                show=False) as ax:
             show.AnnotationPainter().annotations(ax, anns)
     assert PIL.Image.open(path).size == (641, 513)
+
+
+def test_cuda_exported_decode_launches_the_kernel(cuda, tmp_path,
+                                                  monkeypatch):
+    """A narrow shell with posed heads (``posed_model``) exported with the
+    decoder for the card, saved and loaded: its one CifHr call launches
+    the kernel (counted), the map is bit-equal to the plain version on
+    the same cells, and the poses equal the eager decode's on the card."""
+    from openpifpaf_tpu_torch import export
+    from openpifpaf_tpu_torch.ops.decode_cifcaf import build_cifcaf_decoder
+    from torch_port_helpers import posed_model
+
+    model = posed_model(port_narrow_shell(cocokp_head_metas()))
+    path = str(tmp_path / 'narrow.pt2')
+    torch.export.save(export.export_program(
+        model, input_shape=(1, 97, 129, 3), with_decoder=True, device=cuda),
+        path)
+    loaded = torch.export.load(path)
+    program = loaded.module()
+    image = torch.randn((1, 97, 129, 3), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(0))
+
+    # the program's only copies to the host: each fixpoint's "changed?"
+    # flag, which its while_loop reads once per round
+    host_copies = {}
+    for name, module in loaded.graph_module.named_modules():
+        for node in module.graph.nodes:
+            if node.op == 'call_function' and str(node.target).startswith(
+                    ('aten.to.', 'aten._to_copy')) and any(
+                        isinstance(a, torch.device) and a.type == 'cpu'
+                        for a in (*node.args, *node.kwargs.values())):
+                host_copies.setdefault(name, []).append(
+                    node.meta['val'].dtype)
+    assert host_copies == {f'while_loop_body_graph_{i}': [torch.bool]
+                           for i in range(3)}
+
+    calls = []
+    launch_counted = cifhr_cuda.launch_counted
+
+    def kept(x, y, sigma, w, **kw):
+        out = launch_counted(x, y, sigma, w, **kw)
+        calls.append(((x.clone(), y.clone(), sigma.clone(), w.clone()), kw,
+                      out.clone()))
+        return out
+
+    monkeypatch.setattr(cifhr_cuda, 'launch_counted', kept)
+    before = cifhr_cuda.LAUNCHES
+    poses, keep, order = program(image)
+    torch.cuda.synchronize()
+    assert cifhr_cuda.LAUNCHES == before + 1 and len(calls) == 1
+    cells, kw, out = calls[0]
+    assert out.shape == (17, 97, 129)
+    assert torch.equal(out, cifhr.accumulate_dense(*cells, **kw))
+    monkeypatch.undo()
+
+    with torch.no_grad():
+        cif, caf = model(image)
+        eager = build_cifcaf_decoder(stride=16, skeleton=model.head_metas[1]
+                                     .skeleton, n_keypoints=17)(cif, caf)
+    for a, b in zip((poses, keep, order), eager):
+        assert torch.equal(a, b)
+    assert keep.sum() >= 1

@@ -112,7 +112,9 @@ def test_every_port_module_imports_without_jax():
                  'show.painters', 'show.fields', 'show.animation_frame',
                  'show.cli', 'visualizer', 'visualizer.base',
                  'visualizer.fields_vis', 'visualizer.cli',
-                 'plugins.posetrack.draw_poses'):
+                 'plugins.posetrack.draw_poses', 'export', 'compile_cache',
+                 'logs', 'io', 'io.native', 'transforms.misc',
+                 'decoder.utils'):
         assert f'openpifpaf_tpu_torch.{name}' in report['modules']
     assert report['loaded'] == []
 
