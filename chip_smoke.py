@@ -70,11 +70,12 @@ Phases, each of which raises on failure (non-zero exit):
 11. training: a synthetic COCO keypoint set (80 JPEG images of 427x569
     with 1-4 people, ``torch_port_helpers.write_synthetic_coco``, seed 0)
     in a temporary directory, then (a) one train step of the full-width
-    k16 with the cocokp heads on a batch of 8 at 385 px of the port's
+    k16 with the cocokp heads on the first image of a batch of 8 at
+    385 px of the port's
     CocoKp pipeline on the card (TF32 off) against the same step on the
     CPU in float64 (the CPU's float32 step measures float32's own error):
     losses, parameters, BatchNorm buffers and EMA compared; (b)
-    ``train.main`` in-process for 8 steps and 2 validation batches in
+    ``train.main`` in-process for 4 steps and 1 validation batch in
     float32, ``--bf16`` and ``--remat``: checkpoints and finite losses,
     the warm step time (CUDA events), images per second, peak memory and
     the loader's share of the loop's wall time; (c) the float32 run's
@@ -95,7 +96,7 @@ Phases, each of which raises on failure (non-zero exit):
     CifHr launches read around them (counted in the kernels line), a
     bf16 forward against float32, and the batch-1 forward profile in
     float32 and bf16; (c) ``python -m openpifpaf_tpu_torch.eval`` on the
-    card over a synthetic COCO set (8 images of 427x569, seed 0) with that
+    card over a synthetic COCO set (4 images of 427x569, seed 0) with that
     resnet50 saved as a checkpoint of the port, at long edge 641: 10 finite
     stats of every image, nn and decoder time per image; the ground truth
     as predictions through ``metric.Coco`` gives AP 1.0; ``benchmark.py``
@@ -110,16 +111,17 @@ Phases, each of which raises on failure (non-zero exit):
     (CifCaf and TrackingPose, CifHr through the kernel): each frame's
     annotations and track ids within the decode gate, CifHr launches,
     decode ms, device ops, syncs and busy time per frame; (c)
-    ``openpifpaf_tpu_torch.video`` on the card over 8 synthetic JPEGs with
+    ``openpifpaf_tpu_torch.video`` on the card over 4 synthetic JPEGs with
     that model saved as a checkpoint of the port: 8 JSON lines, per-frame
     NN ms (CUDA events), decode ms and device-busy share, peak memory,
     CifHr launches (counted in the kernels line);
 14. tracking training and PoseTrack eval, on a synthetic COCO set (as in
     phase 11): (a) one cocokpst train step of the full-width
-    tshufflenetv2k16 (random, seed 0) on 4 pairs (8 interleaved frames at
+    tshufflenetv2k16 (random, seed 0) on the first of the 4 pairs of a
+    batch (2 interleaved frames at
     385 px) of the port's cocokpst pipeline on the card against the same
     step on the CPU in float64, as in 11a; (b) ``train.main --dataset
-    cocokpst --basenet tshufflenetv2k16`` for 8 steps at the JAX defaults
+    cocokpst --basenet tshufflenetv2k16`` for 4 steps at the JAX defaults
     (batch 8, 385 px, augmentation, SGD) in float32: warm step ms, images
     per second, loader share, peak memory, and ``load_shell`` reads the
     checkpoint as a TrackingShell, then one more step profiled (as after
@@ -140,15 +142,16 @@ Phases, each of which raises on failure (non-zero exit):
     on a synthetic COCO-WholeBody set in pifpaf style (80 JPEGs of
     427x569, 133 keypoints posed from ``WHOLEBODY_STANDING_POSE``,
     ``torch_port_helpers.write_synthetic_wholebody``, seed 0) one step of
-    the full-width shufflenetv2k16 with the wholebody heads on a batch of
-    2 on the card against the CPU's float64 step, as in 11a, then
-    ``train.main --dataset wholebody`` for 8 steps at the JAX defaults
+    the full-width shufflenetv2k16 with the wholebody heads on the first
+    image of a batch of 2 on the card against the CPU's float64 step, as
+    in 11a, then
+    ``train.main --dataset wholebody`` for 4 steps at the JAX defaults
     (batch 8, 385 px, augmentation, SGD, float32), as in 11b; (c)
     ``predict.main --checkpoint`` of that checkpoint over 481x641 JPEGs
     (three single-image requests, one batch of two): 133x5 CIF and 160x8
     CAF fields at 33x41, one CifHr launch per image per tier, NN and
     decode ms per image, a profiled request's device ops, syncs and busy
-    share; (d) ``eval_cli.main --dataset wholebody`` with it over 4
+    share; (d) ``eval_cli.main --dataset wholebody`` with it over 2
     synthetic images at long edge 641: ten finite ``WholeBodyMetric``
     stats, nn and decoder ms per image, and the ground truth as
     predictions gives AR 1.0 for each part and AP 1.0 for each part that
@@ -175,8 +178,9 @@ Phases, each of which raises on failure (non-zero exit):
     synthetic COCO detection set (80 JPEGs of 427x569 with 1-5 boxes of
     several categories, some crowds, no keypoints,
     ``torch_port_helpers.write_synthetic_cocodet``, seed 0) one step of
-    that model on a batch of 2 against the CPU's float64 step, as in 11a,
-    then ``train.main --dataset cocodet`` for 8 steps at the JAX defaults
+    that model on the first image of a batch of 2 against the CPU's
+    float64 step, as in 11a,
+    then ``train.main --dataset cocodet`` for 4 steps at the JAX defaults
     (batch 8, 513 px, augmentation, SGD, float32), as in 11b, and
     ``predict.main --checkpoint`` of its checkpoint writing the detections'
     JSON; (d) ``eval_cli.main --dataset cocodet`` with it over 4 synthetic
@@ -190,14 +194,14 @@ Phases, each of which raises on failure (non-zero exit):
 17. multi-dataset training and the Predictor's test-time options: (a)
     on a synthetic COCO keypoint set and a synthetic COCO detection set
     (80 JPEGs each, seed 0) ``train.main --dataset cocokp-cocodet
-    --dataset-weights 2 1`` for 8 steps with k16 at full width (batch 8,
+    --dataset-weights 2 1`` for 4 steps with k16 at full width (batch 8,
     385 px, float32), as in 11b: the dataset of each step (read from the
     None pattern of its logged head losses) in the ``MultiLoader`` order
     computed on the host, and the checkpoint's three heads; (b) that
     checkpoint through ``Predictor(checkpoint=...)``, ``Multi`` of
     CifCaf and CifDet: its hflip TTA fields against the CPU's and each
     engine's against the module graph's (TF32 off); the module graph and
-    ``'pallas'`` serving two 481x641 JPEGs plain, with ``hflip_tta``,
+    ``'pallas'`` serving one 481x641 JPEG plain, with ``hflip_tta``,
     ``multi_scale`` (long edges 641, 481, 961) and both, ``'dwpallas'``
     with ``hflip_tta``: NN and decode ms per image, the engine's kernel
     launching 13 times per forward, every CifHr call held bit for bit
@@ -205,7 +209,7 @@ Phases, each of which raises on failure (non-zero exit):
     prefetch depth 0 answering as ``images``; a batch of 16 forwarded in
     chunks of 8 and whole, fields and NN ms per image; (c)
     ``eval_cli.main --dataset cocokp --hflip-tta`` with that checkpoint
-    over 4 synthetic images at long edge 641: ten finite stats, nn and
+    over 2 synthetic images at long edge 641: ten finite stats, nn and
     decoder ms per image, every CifHr call bit-equal to its plain
     version, the ground truth as predictions AP 1.0. The CifHr, depthwise
     and fused-block launches of (b) and (c) are counted in the kernels
@@ -251,7 +255,7 @@ Phases, each of which raises on failure (non-zero exit):
     ``--show-decoding-order --show-frontier-order`` switched to export
     its orders: JAX's poses, decoding and frontier orders (and, with
     matplotlib, drawn); with matplotlib, (c) ``video.main --video-output``
-    over phase 13's 8 JPEGs (an mp4 where matplotlib has ``ffmpeg``, one
+    over phase 13's 4 JPEGs (an mp4 where matplotlib has ``ffmpeg``, one
     JPEG per frame otherwise) and (d) ``eval_cli.main
     --eval-show-final-image --eval-show-final-ground-truth`` over 4
     synthetic images; then every show and visualizer flag parsed by the
@@ -273,7 +277,7 @@ Phases, each of which raises on failure (non-zero exit):
     the eager standard tier's (CUDA events), the device ops and stream
     syncs of one exported decode, each fixpoint's ``while_loop``
     rounds, and the eager decode with the growth's two forms (live lanes
-    gathered, every lane grown) in 4 alternating pairs; then the decode
+    gathered, every lane grown) in 2 alternating pairs; then the decode
     alone exported on the card (a process of its own), loaded and run on
     the posed fields, on 3 people drawn by the port's encoders (kept
     whole) and on the random k16's sparse fields: bit-equal to the eager
@@ -293,7 +297,29 @@ Phases, each of which raises on failure (non-zero exit):
     native loader built with ``--xla-compilation-cache`` of a fresh
     directory in one process and loaded, not rebuilt, by a second; (d)
     ``logs --print-last`` of (c)'s log. The CifHr and engine launches of
-    (a) and (b) are counted in the kernels line.
+    (a) and (b) are counted in the kernels line. (b)-(d) run while (a)'s
+    three exports run in processes of their own: their times are taken
+    beside those processes.
+
+21. the pipelined serving loop and data-parallel training: (a) phase
+    19's posed k16 saved as a checkpoint of the port: ``predict.main``
+    over 8 random 481x641 JPEGs on ``--backbone-engine pallas`` and
+    ``dwpallas`` at batch 1 and 2, pipelined (the default) and with
+    ``--no-pipeline-decode``: the annotations bit-equal between the loops
+    and to ``CifCaf.batch_decode`` called directly on each image's
+    fields, every CifHr call a counted launch on the decode's side stream
+    (not the default stream) bit-equal to its plain version, the engine's
+    kernel 13 times per forward, wall, NN and decode ms per image of both
+    loops; ``--decode-device 0`` (the machine has one card); one
+    pipelined run in a ``torch.profiler`` trace: the fused block's
+    launches that ran while a decode materialised, CifHr's stream against
+    the forward's, the device's busy share; ``eval_cli.main
+    --pipeline-decode`` on phase 12's synthetic set gives the strict
+    loop's stats and predictions; (b) ``train.main --n-devices 1`` (DDP,
+    NCCL at world size 1, the cross-rank BatchNorm) for 3 steps against
+    the plain single-process run on the same batches, and ``predict
+    --n-devices 2`` raising on one card. The launches of (a) are counted
+    in the kernels line.
 
 The second-to-last line is a JSON object describing the kernels (with each
 one's bound: the larger of its bytes over the card's memory rate and its
@@ -584,7 +610,7 @@ def phase_kernel(cifhr, cifhr_cuda, device, card):
             floors[n_fields] = device_ms(out.zero_, 20)
         row = dict(case=label, err=err, ms=cuda_ms(call, 50),
                    plain_ms=cuda_ms(functools.partial(
-                       cifhr.accumulate_dense, *cells, **kw), 3),
+                       cifhr.accumulate_dense, *cells, **kw), 1),
                    library_ms=None,
                    device_ms=device_ms(call, 20, 'cifhr_band_kernel'),
                    cold_ms=device_ms(call, 10, 'cifhr_band_kernel',
@@ -637,7 +663,7 @@ def phase_golden(cifhr_cuda, device, card):
     for i, name in enumerate(names):
         one = [f[i:i + 1] for f in fields]
         seconds = []
-        for _ in range(4):
+        for _ in range(3):
             decoder.batch_decode(one)
             seconds.append(decoder.last_decoder_time)
         log(f'golden {name} decode, batch 1, warm: median '
@@ -654,7 +680,8 @@ def decode_profile(fn):
     """(device ops, stream syncs, device busy ms) of one call of ``fn``
     from ``torch.profiler``: the CUDA device events, the CUDA runtime's
     synchronising calls (less the profiler's closing one) and the sum of
-    the device events' times."""
+    the device events' times. It reads the profiler's raw events: the
+    tree of ``prof.events()`` costs seconds of host time per decode."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -663,11 +690,11 @@ def decode_profile(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = prof.events()
-    ops = [e for e in events if e.device_type == DeviceType.CUDA]
-    syncs = sum(e.device_type == DeviceType.CPU and e.name in SYNC_CALLS
-                for e in events) - 1
-    busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    events = prof.profiler.kineto_results.events()
+    ops = [e for e in events if e.device_type() == DeviceType.CUDA]
+    syncs = sum(e.device_type() == DeviceType.CPU
+                and e.name() in SYNC_CALLS for e in events) - 1
+    busy = sum(e.duration_ns() for e in ops) / 1e6
     return len(ops), syncs, busy
 
 
@@ -676,7 +703,7 @@ def phase_configs(cifhr_cuda, device, card):
     its CLI flags: the golden JAX poses within the gate, the decoding
     order and ids where the golden file has them, the crowd tier for the
     40-person scene only, the CifHr kernel's launches as the run expects;
-    then the warm batch-1 decode time (median of 5 after one), and the
+    then the warm batch-1 decode time (median of 2 after one), and the
     device ops, stream syncs and device busy time of one profiled
     decode."""
     from torch_port_helpers import GOLDEN_STRIDE, assert_pose_gate, \
@@ -708,7 +735,7 @@ def phase_configs(cifhr_cuda, device, card):
             raise AssertionError(f'config {label}: crowd tier for '
                                  f'{decoder.last_escalated}, want {want}')
         seconds = []
-        for _ in range(6):
+        for _ in range(3):
             decode()
             seconds.append(decoder.last_decoder_time)
         ms = float(np.median(seconds[1:])) * 1e3
@@ -1198,7 +1225,7 @@ TRAIN_EDGE = 385
 TRAIN_IMAGES = 80
 TRAIN_IMAGE_HW = (427, 569)
 TRAIN_SEED = 0
-TRAIN_STEPS = 8
+TRAIN_STEPS = 4
 #: one step on the card (float32, TF32 off) against the same step on the
 #: CPU in float64, with the CPU's float32 step as the measure of float32's
 #: own error: the loss within rtol 1e-4 and each component within 1e-4 of
@@ -1210,6 +1237,11 @@ TRAIN_STEPS = 8
 #: measured 0.9% of the update, the CPU float32 step's 8.4%.
 STEP_LOSS_RTOL = 1e-4
 STEP_NOISE_FACTOR = 3.0
+#: the step comparisons against the CPU run on the first STEP_IMAGES
+#: images of their batch (for a tracking batch, the first STEP_IMAGES
+#: pairs): the CPU's float64 step of the full-width model takes most of
+#: their time
+STEP_IMAGES = 1
 STEP_UPDATE_RTOL = 0.05
 STEP_ROUNDING = 2.4e-7
 #: overfitting one batch for 40 steps (SGD, lr 1e-3, no warm-up): the
@@ -1231,7 +1263,7 @@ def train_flags(data, out, *extra, prefix='cocokp'):
             f'--{prefix}-val-image-dir', image_dir,
             f'--{prefix}-square-edge', str(TRAIN_EDGE),
             '--batch-size', str(TRAIN_BATCH), '--epochs', '1',
-            '--train-batches', str(TRAIN_STEPS), '--val-batches', '2',
+            '--train-batches', str(TRAIN_STEPS), '--val-batches', '1',
             '--log-interval', '1', '--seed', str(TRAIN_SEED),
             '--output', out, *extra]
 
@@ -1302,13 +1334,16 @@ def compare_step(label, names, card_step, cpu32, cpu64, start):
 
 
 def phase_train_step(batch, device, card, label='train step (a)'):
-    """(a) One train step of the full-width model of ``batch`` on its
-    batch of 8 at 385 px on the card against the same step on the CPU in
-    float64 and float32 (TF32 off): losses, parameters, BatchNorm buffers
-    and EMA."""
+    """(a) One train step of the full-width model of ``batch`` on the
+    first STEP_IMAGES images (or pairs) of its batch on the card against
+    the same step on the CPU in float64 and float32 (TF32 off): losses,
+    parameters, BatchNorm buffers and EMA."""
     import copy
 
     images, targets, metas, model = batch
+    per_target = images.shape[0] // targets[0].shape[0]
+    images = images[:STEP_IMAGES * per_target]
+    targets = tuple(t[:STEP_IMAGES] for t in targets)
     start = {k: v.detach().double() for k, v in model.state_dict().items()}
     results = {}
     for name, dev, dtype in (('card', device, torch.float32),
@@ -1345,7 +1380,8 @@ def phase_train_step(batch, device, card, label='train step (a)'):
             f'{rel["card"]:.3e} of the update (L2) on the card, '
             f'{rel["cpu32"]:.3e} for the CPU float32 step; worst tensor '
             f'{worst[1]} at {worst[0]:.3f} of its allowance')
-    log(f'{label}: loss {loss} on the card, {ref_loss} in float64 '
+    log(f'{label}: {images.shape[0]} images of {images.shape[1]} px: loss '
+        f'{loss} on the card, {ref_loss} in float64 '
         f'on the CPU, head losses within {head_err:.3g}; first step '
         f'{card_s * 1e3:.1f} ms on the card, {cpu32_s:.1f} s (float32) and '
         f'{cpu64_s:.1f} s (float64) on the CPU ({torch.get_num_threads()} '
@@ -1552,7 +1588,7 @@ BACKBONE_HW = (129, 161)
 BACKBONE_RTOL = 1e-4
 #: phase 12c: the eval CLI on a synthetic COCO set of EVAL_IMAGES images of
 #: TRAIN_IMAGE_HW made from seed 0, at the JAX default long edge
-EVAL_IMAGES = 8
+EVAL_IMAGES = 4
 EVAL_LONG_EDGE = 641
 
 
@@ -1757,7 +1793,7 @@ def phase_other_backbones(port, device, card):
 
 #: phase 13: frames of the tracking forward and of the video CLI
 TRACKING_FRAMES = 3
-VIDEO_FRAMES = 8
+VIDEO_FRAMES = 4
 #: tracking fields on the card against the CPU, float32 with TF32 off:
 #: max abs error within this share of each head's largest value
 TRACKING_RTOL = 1e-4
@@ -2304,7 +2340,7 @@ WHOLEBODY_HEADS = ((133, 5), (160, 8))
 WHOLEBODY_STEP_BATCH = 2
 #: 15d: the eval's synthetic wholebody images (TRAIN_IMAGE_HW, seed 1), at
 #: EVAL_LONG_EDGE
-WHOLEBODY_EVAL_IMAGES = 4
+WHOLEBODY_EVAL_IMAGES = 2
 #: 15e: the other plugins, each served by a random k16 with its heads:
 #: (label, data module, flags, CIF fields, CAF edges)
 PLUGIN_CASES = (('crowdpose', 'crowdpose', (), 14, 15),
@@ -2359,7 +2395,7 @@ def wholebody_golden_scene(decoder, golden, seed, cifhr_cuda, device, card):
                              f'CifHr launches for {tiers} tiers')
     assert_pose_gate(pose_rows(anns), list(golden[f'scene{seed}_poses']))
     seconds = []
-    for _ in range(4):
+    for _ in range(3):
         decode()
         seconds.append(decoder.last_decoder_time)
     ops, syncs, busy = decode_profile(decode)
@@ -2415,14 +2451,16 @@ def phase_wholebody_train(data, directory, device, card):
 @contextlib.contextmanager
 def recorded_runs(records):
     """Within: each ``Predictor.fields_batch`` appends to ``records`` its
-    image shape, NN ms (CUDA events) and field shapes; each
-    ``CifCaf.batch_decode`` adds its CifHr launches, tiers and ms."""
+    image shape, NN ms (CUDA events, the card synchronised) and field
+    shapes; each ``CifCaf`` decode (``batch_decode_deferred``, which the
+    pipelined loop materialises after the next batch's forward) adds its
+    CifHr launches, tiers and ms to the record of its own forward."""
     from openpifpaf_tpu_torch.decoder import CifCaf
     from openpifpaf_tpu_torch.ops import cifhr_cuda
     from openpifpaf_tpu_torch.predictor import Predictor
 
     fields_batch = Predictor.fields_batch
-    batch_decode = CifCaf.batch_decode
+    batch_decode_deferred = CifCaf.batch_decode_deferred
 
     def timed_fields(self, image_batch):
         start = torch.cuda.Event(enable_timing=True)
@@ -2439,21 +2477,27 @@ def recorded_runs(records):
         return fields
 
     def counted_decode(self, *args, **kwargs):
-        before = cifhr_cuda.LAUNCHES
-        out = batch_decode(self, *args, **kwargs)
-        records[-1].update(launches=cifhr_cuda.LAUNCHES - before,
-                           tiers=len(out) + len(self.last_escalated),
-                           decode_ms=self.last_decoder_time * 1e3,
-                           poses=[len(a) for a in out])
-        return out
+        record = records[-1]
+        materialize = batch_decode_deferred(self, *args, **kwargs)
+
+        def counted():
+            before = cifhr_cuda.LAUNCHES
+            out = materialize()
+            record.update(launches=cifhr_cuda.LAUNCHES - before,
+                          tiers=len(out) + len(self.last_escalated),
+                          decode_ms=self.last_decoder_time * 1e3,
+                          poses=[len(a) for a in out])
+            return out
+
+        return counted
 
     Predictor.fields_batch = timed_fields
-    CifCaf.batch_decode = counted_decode
+    CifCaf.batch_decode_deferred = counted_decode
     try:
         yield records
     finally:
         Predictor.fields_batch = fields_batch
-        CifCaf.batch_decode = batch_decode
+        CifCaf.batch_decode_deferred = batch_decode_deferred
 
 
 def check_records(records, label, heads, card, at_field_hw=True):
@@ -2647,7 +2691,8 @@ def phase_wholebody_eval(port, ckpt, directory, card):
         f'{per_image["nn_time"]:.2f} ms, decoder '
         f'{per_image["decoder_time"]:.2f} ms (the first image included); '
         f'stats {dict(zip(stats["text_labels"], stats["stats"]))} (random '
-        f'weights after 8 steps); whole command {wall:.1f} s [{card}]')
+        f'weights after {TRAIN_STEPS} steps); whole command {wall:.1f} s '
+        f'[{card}]')
 
     with open(ann_file) as f:
         data = json.load(f)
@@ -2768,7 +2813,8 @@ def phase_plugins(port, directory, device, card):
         benchmark.main(['--checkpoints', ckpt, '--crowdpose', '--output',
                         out, '--crowdpose-val-annotations', ann_file,
                         '--crowdpose-image-dir', image_dir,
-                        '--eval-loader-warmup', '0'])
+                        '--eval-loader-warmup', '0', '--loader-workers',
+                        '0'])
     finally:
         if pythonpath is None:
             del os.environ['PYTHONPATH']
@@ -2901,7 +2947,7 @@ def phase_det_golden(device, card):
             assert_det_rows(anns, det_annotations(golden, key),
                             f'det golden (16a) {key}')
             seconds = []
-            for _ in range(4):
+            for _ in range(3):
                 decoder.batch_decode(batch)
                 seconds.append(decoder.last_decoder_time)
             ops, syncs, busy = decode_profile(
@@ -2964,7 +3010,7 @@ def phase_det_train(data, directory, device, card):
                   f'{DET_TRAIN_EDGE} px', card)
         path = os.path.join(directory, 'det-request.jpg')
         PIL.Image.fromarray(make_requests()[0][0]).save(path, quality=95)
-        # thresholds 0: every seed is a detection, whatever 8 steps made
+        # thresholds 0: every seed is a detection, whatever the steps made
         # of the weights
         predict.main([path, '--checkpoint', out, '--json-output', directory,
                       '--cif-th', '0', '--seed-threshold', '0',
@@ -3133,12 +3179,12 @@ TTA_WAYS = {'plain': {}, 'hflip_tta': {'hflip_tta': True},
 TTA_ENGINES = {'flax': None, 'pallas': 'shuffle_block'}
 TTA_ONLY_ENGINES = {'dwpallas': 'depthwise_conv'}
 #: 17b: requests of one image each (IMAGE_HW JPEGs)
-TTA_REQUESTS = 2
+TTA_REQUESTS = 1
 #: 17b: the batch forwarded whole and in chunks of CHUNK_SIZE (JAX's
 #: nn_chunk_size; the port's default is 0, whole)
 CHUNK_BATCH = 16
 CHUNK_SIZE = 8
-#: 17b-c: decoder thresholds 0, so that the 8 steps' weights give poses
+#: 17b-c: decoder thresholds 0, so that the train steps' weights give poses
 #: and boxes at every scale and the answer comparisons meet them (as
 #: 16c); pose budgets of 16, which both tiers fill, so that the merges'
 #: pairwise OKS stays cheap
@@ -3152,7 +3198,7 @@ MIX_DECODER_FLAGS = ('--cif-th', '0', '--seed-threshold', '0',
 DRAWN_PEOPLE = ((0.3, 0.8), (0.75, 0.6))
 DRAWN_BOXES = ((0, 0.3, 0.5, 0.3, 0.8), (2, 0.75, 0.5, 0.25, 0.6))
 #: 17c: the eval's synthetic COCO images
-MIX_EVAL_IMAGES = 4
+MIX_EVAL_IMAGES = 2
 
 
 def mix_train_flags(kp_data, det_data, out):
@@ -3952,23 +3998,29 @@ def posed_k16_checkpoint(directory):
 
 @contextlib.contextmanager
 def decoded_annotations():
-    """Within: the annotations that ``CifCaf.batch_decode`` gives, of
-    every image, are appended to the list this yields."""
+    """Within: the annotations that ``CifCaf``'s decodes give (pipelined
+    or strict: ``batch_decode_deferred``), of every image, are appended to
+    the list this yields."""
     from openpifpaf_tpu_torch.decoder import CifCaf
 
     decoded = []
-    batch_decode = CifCaf.batch_decode
+    batch_decode_deferred = CifCaf.batch_decode_deferred
 
     def kept(self, *args, **kwargs):
-        out = batch_decode(self, *args, **kwargs)
-        decoded.extend(ann for anns in out for ann in anns)
-        return out
+        materialize = batch_decode_deferred(self, *args, **kwargs)
 
-    CifCaf.batch_decode = kept
+        def kept_materialize():
+            out = materialize()
+            decoded.extend(ann for anns in out for ann in anns)
+            return out
+
+        return kept_materialize
+
+    CifCaf.batch_decode_deferred = kept
     try:
         yield decoded
     finally:
-        CifCaf.batch_decode = batch_decode
+        CifCaf.batch_decode_deferred = batch_decode_deferred
 
 
 @contextlib.contextmanager
@@ -4332,7 +4384,7 @@ def phase_drawing(port, device, card):
 #: PIL; (c) trains PROFILE_STEPS steps with ``--profile`` and builds
 #: CACHE_SOURCES twice with ``--xla-compilation-cache``; (d) ``logs
 #: --print-last`` of (c)'s training log
-EXPORT_TIMED_PASSES = 2
+EXPORT_TIMED_PASSES = 1
 NATIVE_LONG_EDGE = 641
 NATIVE_ENGINES = DRAW_ENGINES
 PROFILE_STEPS = 2
@@ -4343,7 +4395,7 @@ NATIVE_PIL_MEAN_ATOL = 0.5
 #: the decode's fixpoints, in the order one decode runs them
 FIXPOINTS = ('seed_nms', 'seed_rank_dedup', 'nms_keypoints')
 #: alternating pairs of the eager decode with each form of the growth
-GROW_PAIRS = 4
+GROW_PAIRS = 2
 #: 20a's drawn request: (centre x, height) of each person, as fractions of
 #: the 481x641 image, drawn by the port's encoders into its fields
 EXPORT_PEOPLE = ((0.2, 0.7), (0.5, 0.5), (0.8, 0.6))
@@ -4479,7 +4531,31 @@ def lane_poses(poses):
     return poses[(poses[:, :, 0] > 0).any(axis=1)]
 
 
-def phase_export(port, ckpt, images, directory, device, card):
+#: 20a's three exports, each in a process of its own
+EXPORTS = ('fields', 'decode', 'decode-only')
+
+
+def export_field_hw(stride):
+    """The fields' (H, W) of an IMAGE_HW input at ``stride``."""
+    return tuple((n - 1) // stride + 1 for n in IMAGE_HW)
+
+
+def start_exports(pool, ckpt, directory, device):
+    """Submit 20a's three exports of ``ckpt`` to ``pool``, side by side:
+    the fields program and the forward with the decode (the export CLI)
+    and the decode alone at phase 19's k16's stride 16
+    (:func:`run_decode_export`); {name: future of its wall seconds}."""
+    paths = {name: os.path.join(directory, f'k16-{name}.pt2')
+             for name in EXPORTS}
+    return {
+        'fields': pool.submit(run_export, ckpt, paths['fields']),
+        'decode': pool.submit(run_export, ckpt, paths['decode'],
+                              '--with-decoder'),
+        'decode-only': pool.submit(run_decode_export, paths['decode-only'],
+                                   device, 16, export_field_hw(16))}
+
+
+def phase_export(port, ckpt, images, directory, device, card, exports):
     """20a: the fields program within 1e-4 of each head's largest value of
     the eager module graph (TF32 off); the decode program's poses within
     the pose gate of the eager ``build_cifcaf_decoder`` on the card (and
@@ -4499,25 +4575,20 @@ def phase_export(port, ckpt, images, directory, device, card):
                                   n_keypoints=len(cif_meta.keypoints))
     with torch.no_grad():
         field_hw = tuple(model(images[0])[0].shape[-2:])
-
-    # the three exports run side by side, each in a process of its own
+    if field_hw != export_field_hw(cif_meta.stride):
+        raise AssertionError(f'export (20a): fields {field_hw}, the '
+                             f'decode-only program exported at '
+                             f'{export_field_hw(cif_meta.stride)}')
     paths = {name: os.path.join(directory, f'k16-{name}.pt2')
-             for name in ('fields', 'decode', 'decode-only')}
-    with ThreadPoolExecutor(len(paths)) as pool:
-        exports = {
-            'fields': pool.submit(run_export, ckpt, paths['fields']),
-            'decode': pool.submit(run_export, ckpt, paths['decode'],
-                                  '--with-decoder'),
-            'decode-only': pool.submit(run_decode_export,
-                                       paths['decode-only'], device,
-                                       cif_meta.stride, field_hw)}
-        walls = {name: future.result() for name, future in exports.items()}
+             for name in EXPORTS}
+    walls = {name: future.result() for name, future in exports.items()}
     for name in ('fields', 'decode'):
         log(f'export (20a) {name}: python -m openpifpaf_tpu_torch.export '
             f'--checkpoint posed-k16{" --with-decoder" * (name == "decode")}'
             f' at {IMAGE_HW[0]}x{IMAGE_HW[1]}: {walls[name]:.1f} s wall '
             '(process start, checkpoint load, trace, save; beside the '
-            f'other two exports), {os.path.getsize(paths[name])} bytes '
+            f'other two exports and (b)-(d)), {os.path.getsize(paths[name])} '
+            'bytes '
             f'[{card}]')
     programs = {name: torch.export.load(paths[name]).module()
                 for name in ('fields', 'decode')}
@@ -4742,7 +4813,8 @@ def phase_export_decode(port, decode, path, export_wall, requests, card):
     kept = {name: [int(out[1].sum()) for out in o]
             for name, o in outs.items()}
     log(f'export (20a) decode-only program: exported on the card at CIF '
-        f'fields {shape} in a process of its own (beside the CLI\'s two), '
+        f'fields {shape} in a process of its own (beside the CLI\'s two '
+        'and (b)-(d)), '
         f'{export_wall[0]:.1f} s wall ({export_wall[1]}), '
         f'{os.path.getsize(path)} bytes, loaded here; kept poses per image '
         f'{kept}, the drawn people whole ({joints} visible joints); '
@@ -5077,19 +5149,463 @@ def phase_deploy(port, device, card):
     from openpifpaf_tpu_torch.io import native
 
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as directory:
+    with tempfile.TemporaryDirectory() as directory, \
+            ThreadPoolExecutor(len(EXPORTS)) as pool:
         ckpt = posed_k16_checkpoint(directory)
         files = write_requests(directory)
-        launches = {'cifhr_accumulate': phase_export(
-            port, ckpt, phase_images(files, device), directory, device,
-            card)}
-        for name, count in phase_native(port, ckpt, files, directory,
-                                        card).items():
-            launches[name] = launches.get(name, 0) + count
+        # 20a's exports take a minute: (b)-(d) run beside them
+        exports = start_exports(pool, ckpt, directory, device)
+        launches = phase_native(port, ckpt, files, directory, card)
         log_path = phase_profile_train(directory, card)
         phase_build_cache(directory, card, native.native_available())
         phase_logs(log_path, card)
+        launches['cifhr_accumulate'] = launches.get(
+            'cifhr_accumulate', 0) + phase_export(
+                port, ckpt, phase_images(files, device), directory, device,
+                card, exports)
     log(f'phase 20: launches {launches}; {time.perf_counter() - t0:.1f} s '
+        f'[{card}]')
+    return launches
+
+
+#: phase 21: the requests of the pipelined serving loop (481x641 JPEGs)
+#: and the engines it runs on, with the backbone kernel each launches
+PIPE_REQUESTS = 8
+PIPE_ENGINES = {'pallas': 'shuffle_block', 'dwpallas': 'depthwise_conv'}
+PIPE_BATCHES = (1, 2)
+#: the fused block's kernel, as the profiler names it
+BLOCK_SYMBOL = BACKBONE_SYMBOLS['shuffle_block']
+#: 21b: the data-parallel train run at world size 1 against the plain
+#: single-process run on the same batches (float32, TF32 off): the first
+#: step's loss and components, from the same parameters, within
+#: DDP_LOSS_RTOL of the loss; the later steps' within DDP_LATER_RTOL. The
+#: cross-rank BatchNorm sums in another order than ``F.batch_norm``, and
+#: the gradients of the BatchNorm biases that the next BatchNorm cancels
+#: are rounding noise of the loss's large gradients (1.5x apart between
+#: the two, 1.2% of the whole gradient, at 97 px on the CPU), so
+#: each update parts the runs by about 20x more (on the H100: 2.7e-8,
+#: 5.0e-5, 9.65e-4 of the loss at steps 1-3); the CPU tests hold two gloo
+#: ranks within 1e-5 at every step in float64
+DDP_STEPS = 3
+DDP_LOSS_RTOL = 1e-5
+DDP_LATER_RTOL = 1e-2
+
+
+def write_pipe_requests(directory):
+    """PIPE_REQUESTS random JPEGs of IMAGE_HW (seed 21); their paths."""
+    import PIL.Image
+
+    rng = np.random.RandomState(21)
+    files = []
+    for i in range(PIPE_REQUESTS):
+        path = os.path.join(directory, f'pipe{i}.jpg')
+        PIL.Image.fromarray(rng.randint(0, 256, IMAGE_HW + (3,),
+                                        dtype=np.uint8)).save(path,
+                                                              quality=95)
+        files.append(path)
+    return files
+
+
+@contextlib.contextmanager
+def cifhr_streams(cifhr_cuda):
+    """Within: the current CUDA stream of each ``cifhr_cuda.accumulate``
+    call (the stream its kernel launches on) is appended to the list this
+    yields."""
+    accumulate = cifhr_cuda.accumulate
+    streams = []
+
+    def recorded(x, *args, **kw):
+        streams.append(torch.cuda.current_stream(x.device))
+        return accumulate(x, *args, **kw)
+
+    cifhr_cuda.accumulate = recorded
+    try:
+        yield streams
+    finally:
+        cifhr_cuda.accumulate = accumulate
+
+
+def annotation_rows(annotations):
+    """(score, data, joint scales) of each annotation, for equality."""
+    return [(a.score, a.data.tobytes(), a.joint_scales.tobytes())
+            for a in annotations]
+
+
+def pipe_predict(port, files, argv, label):
+    """``predict.main`` over ``files`` with ``argv`` in-process, the launch
+    counts set to 0 just before and read just after; returns (the
+    annotations that CifCaf's decodes gave, in order, the launches, the
+    wall s, the CifHr calls' cells and streams, the Predictor's NN and
+    decoder s in total)."""
+    from openpifpaf_tpu_torch import decoder, predict
+    from openpifpaf_tpu_torch.predictor import Predictor
+    from torch_port_helpers import restored_statics
+
+    totals = {}
+    init = Predictor.__init__
+
+    def kept_predictor(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        totals['predictor'] = self
+
+    reset_launches(port)
+    Predictor.__init__ = kept_predictor
+    try:
+        with decoded_annotations() as decoded, \
+                kept_cifhr_calls(port.cifhr_cuda) as calls, \
+                cifhr_streams(port.cifhr_cuda) as streams, \
+                restored_statics(*decoder.DECODERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            predict.main([*files, *argv])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        Predictor.__init__ = init
+    counts = read_launches(port)
+    if counts['cifhr_accumulate'] != len(calls) or not calls:
+        raise AssertionError(f'{label}: {counts["cifhr_accumulate"]} CifHr '
+                             f'launches, {len(calls)} calls')
+    predictor = totals['predictor']
+    return (decoded, counts, wall, calls, streams,
+            (predictor.total_nn_time, predictor.total_decoder_time))
+
+
+def kernel_spans(prof):
+    """The device events of a ``torch.profiler`` session as (name, stream,
+    start ns, end ns), and the host spans of its ``decode`` ranges as
+    (start ns, end ns), from the profiler's raw events (a Chrome trace of
+    a pipelined run holds ~70000 kernels)."""
+    from torch.autograd import DeviceType
+
+    kernels, decodes = [], []
+    for e in prof.profiler.kineto_results.events():
+        span = (e.start_ns(), e.start_ns() + e.duration_ns())
+        if e.is_user_annotation():
+            if e.device_type() == DeviceType.CPU and e.name() == 'decode':
+                decodes.append(span)
+        elif e.device_type() == DeviceType.CUDA:
+            kernels.append((e.name(), e.device_resource_id(), *span))
+    return kernels, decodes
+
+
+def pipe_overlap(port, files, argv, label, card):
+    """One pipelined ``predict.main`` over ``files`` (:func:`pipe_predict`)
+    in a ``torch.profiler`` session, each materialised decode a
+    ``decode`` range: the fused block's launches of batch i+1 that ran on
+    the card while batch i's decode ran on its side stream, CifHr's
+    stream against the fused block's, and the device's busy share of the
+    loop. Returns :func:`pipe_predict`'s results."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from openpifpaf_tpu_torch.predictor import Predictor
+
+    materialize = Predictor._materialize_batch
+
+    def ranged(self, staged):
+        with record_function('decode'):
+            out = list(materialize(self, staged))
+        yield from out
+
+    Predictor._materialize_batch = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            results = pipe_predict(port, files, argv, label)
+    finally:
+        Predictor._materialize_batch = materialize
+    kernels, decodes = kernel_spans(prof)
+    blocks = [k for k in kernels if BLOCK_SYMBOL in k[0]]
+    cifhr = [k for k in kernels if 'cifhr' in k[0]]
+    if not blocks or not cifhr or len(decodes) != len(files):
+        raise AssertionError(f'{label}: trace of {len(blocks)} fused-block '
+                             f'and {len(cifhr)} CifHr kernels, '
+                             f'{len(decodes)} decode ranges')
+    block_streams = {k[1] for k in blocks}
+    cifhr_streams_seen = {k[1] for k in cifhr}
+    if block_streams & cifhr_streams_seen:
+        raise AssertionError(f'{label}: CifHr on streams '
+                             f'{cifhr_streams_seen}, the forward on '
+                             f'{block_streams}')
+    overlapped = [k for k in blocks
+                  if any(k[2] < d1 and k[3] > d0 for d0, d1 in decodes)]
+    overlap_ns = sum(min(k[3], d1) - max(k[2], d0) for k in blocks
+                     for d0, d1 in decodes if k[2] < d1 and k[3] > d0)
+    span = max(k[3] for k in kernels) - min(k[2] for k in kernels)
+    busy = sum(k[3] - k[2] for k in kernels)
+    log(f'{label} traced: {len(overlapped)} of {len(blocks)} fused-block '
+        f'launches ran while a decode was materialising on the side stream '
+        f'({overlap_ns / 1e6:.3f} ms of device time under the decodes); '
+        f'CifHr on stream(s) {sorted(cifhr_streams_seen)}, the forward on '
+        f'{sorted(block_streams)}; device events busy {busy / 1e6:.2f} ms '
+        f'of {span / 1e6:.2f} ms ({busy / span:.3f} of the span; '
+        f'{len(kernels)} device events) [{card}]')
+    return results
+
+
+def pipe_serve(port, ckpt, files, directory, card):
+    """21a: the posed k16 through ``predict.main`` on each engine of
+    PIPE_ENGINES at each batch size of PIPE_BATCHES, pipelined (default)
+    and with ``--no-pipeline-decode``: bit-equal annotations, each CifHr
+    call a counted launch on the decode's side stream, bit-equal to its
+    plain version, the engine's kernel FORWARD_LAUNCHES times per forward;
+    wall ms per image of both loops. Returns {kernel: launches}."""
+    from openpifpaf_tpu_torch.decoder.cifcaf import side_stream
+
+    side = side_stream(torch.device('cuda:0'))
+    default = torch.cuda.default_stream(torch.device('cuda:0'))
+    launches = {}
+    for engine, kernel in PIPE_ENGINES.items():
+        for batch in PIPE_BATCHES:
+            argv = ['--checkpoint', ckpt, '--backbone-engine', engine,
+                    '--batch-size', str(batch), *REF_DECODER_FLAGS]
+            label = f'pipeline (21a) {engine} batch {batch}'
+            runs = {}
+            for name, extra in (('strict', ['--no-pipeline-decode']),
+                                ('pipelined', [])):
+                runs[name] = pipe_predict(port, files, argv + extra, label)
+            forwards = len(files) // batch
+            for name, (decoded, counts, wall, calls, streams, totals) in \
+                    runs.items():
+                for key in ('depthwise_conv', 'shuffle_block',
+                            'shuffle_branch2'):
+                    want = FORWARD_LAUNCHES * forwards if key == kernel \
+                        else 0
+                    if counts[key] != want:
+                        raise AssertionError(
+                            f'{label} {name}: {counts[key]} {key} launches '
+                            f'in {forwards} forwards, want {want}')
+                if any(st != side or st == default for st in streams):
+                    raise AssertionError(f'{label} {name}: CifHr launched '
+                                         'off the side stream')
+                check_kept_calls(port, calls, f'{label} {name}')
+                for key, count in counts.items():
+                    launches[key] = launches.get(key, 0) + count
+            rows = {name: annotation_rows(r[0]) for name, r in runs.items()}
+            if rows['pipelined'] != rows['strict'] or not rows['strict']:
+                raise AssertionError(f'{label}: pipelined annotations differ '
+                                     f'from the strict loop\'s '
+                                     f'({len(rows["pipelined"])} vs '
+                                     f'{len(rows["strict"])})')
+            log(f'{label}: {len(rows["strict"])} annotations bit-equal '
+                'between the loops; every CifHr call launched on the side '
+                'stream; wall '
+                + ', '.join(f'{name} {r[2] / len(files) * 1e3:.2f}'
+                            for name, r in runs.items())
+                + ' ms/image (the process\'s whole predict.main, first '
+                'request included); NN '
+                + ', '.join(f'{name} {r[5][0] / len(files) * 1e3:.3f}'
+                            for name, r in runs.items())
+                + ' ms/image (strict: host clock, pipelined: CUDA events); '
+                'decode '
+                + ', '.join(f'{name} {r[5][1] / len(files) * 1e3:.2f}'
+                            for name, r in runs.items())
+                + f' ms/image [{card}]')
+            if batch == PIPE_BATCHES[0] and engine == next(iter(
+                    PIPE_ENGINES)):
+                reference = rows['strict']
+    return launches, reference
+
+
+def pipe_eager(ckpt, files, reference, card):
+    """``reference`` (the loops' annotations of PIPE_ENGINES' first engine
+    at batch 1) against ``CifCaf.batch_decode`` called directly, on the
+    card, on the fields of each image alone."""
+    from openpifpaf_tpu_torch import datasets, decoder, predict
+    from openpifpaf_tpu_torch.datasets.collate import \
+        collate_images_anns_meta
+    from openpifpaf_tpu_torch.predictor import Predictor
+    from torch_port_helpers import restored_statics
+
+    # the flags stay set through the decode (the crowd tier reads its
+    # pose budget then)
+    with restored_statics(*decoder.DECODERS):
+        predict.cli(['request.jpg', *REF_DECODER_FLAGS])
+        predictor = Predictor(checkpoint=ckpt,
+                              backbone_engine=next(iter(PIPE_ENGINES)))
+        predictor.pipeline_decode = False
+        cifcaf = predictor.processor.decoders[0]
+        images = datasets.ImageList(files, preprocess=predictor.preprocess)
+        eager = []
+        for i in range(len(files)):
+            image_batch, _, _ = collate_images_anns_meta([images[i]])
+            eager.extend(cifcaf.batch_decode(
+                predictor.fields_batch(image_batch))[0])
+    if annotation_rows(eager) != reference:
+        raise AssertionError('pipeline (21a): the loops\' annotations '
+                             'differ from the eager decode\'s')
+    log(f'pipeline (21a): the loops\' {len(eager)} annotations equal those '
+        'of CifCaf.batch_decode called directly on each image\'s fields '
+        f'[{card}]')
+
+
+def pipe_eval(ckpt, directory, card):
+    """21a: ``eval_cli.main`` in-process with the posed k16 over phase
+    12's synthetic COCO set (EVAL_IMAGES images, seed 0) at long edge
+    EVAL_LONG_EDGE, strict (eval's default) and ``--pipeline-decode``:
+    the same stats and predictions. Returns the CifHr launches."""
+    from openpifpaf_tpu_torch import datasets, decoder, eval_cli
+    from openpifpaf_tpu_torch.ops import cifhr_cuda
+    from torch_port_helpers import restored_statics, write_synthetic_coco
+
+    ann_file, image_dir = write_synthetic_coco(
+        os.path.join(directory, 'pipe-coco'), n_images=EVAL_IMAGES,
+        image_hw=TRAIN_IMAGE_HW, seed=0)
+    results = {}
+    launches = 0
+    for name, extra in (('strict', []), ('pipelined', ['--pipeline-decode'])):
+        out = os.path.join(directory, f'pipe-eval-{name}')
+        before = cifhr_cuda.LAUNCHES
+        with restored_statics(*decoder.DECODERS,
+                              *datasets.datamodules().values(),
+                              eval_cli.Evaluator):
+            eval_cli.main(['--dataset', 'cocokp', '--checkpoint', ckpt,
+                           '--cocokp-val-annotations', ann_file,
+                           '--cocokp-val-image-dir', image_dir,
+                           '--coco-eval-long-edge', str(EVAL_LONG_EDGE),
+                           '--eval-loader-warmup', '0', '--write-predictions',
+                           '--output', out, *REF_DECODER_FLAGS, *extra])
+        launches += cifhr_cuda.LAUNCHES - before
+        with open(out + '.stats.json') as f:
+            stats = json.load(f)
+        with open(out + '.pred.json') as f:
+            results[name] = (stats, json.load(f))
+    (strict, strict_pred), (piped, piped_pred) = results.values()
+    if not (strict['stats'] == piped['stats'] and strict_pred == piped_pred
+            and strict['n_images'] == piped['n_images'] == EVAL_IMAGES
+            and strict_pred):
+        raise AssertionError(f'pipeline (21a) eval: stats {strict["stats"]} '
+                             f'strict, {piped["stats"]} pipelined')
+    log(f'pipeline (21a) eval --pipeline-decode: the strict loop\'s stats '
+        f'{[round(v, 4) for v in strict["stats"]]} and '
+        f'{len(strict_pred)} predictions over {EVAL_IMAGES} images; per '
+        'image nn / decoder ms: strict '
+        f'{strict["nn_time"] / EVAL_IMAGES * 1e3:.3f} / '
+        f'{strict["decoder_time"] / EVAL_IMAGES * 1e3:.2f}, pipelined '
+        f'{piped["nn_time"] / EVAL_IMAGES * 1e3:.3f} / '
+        f'{piped["decoder_time"] / EVAL_IMAGES * 1e3:.2f} [{card}]')
+    return launches
+
+
+def phase_pipe_serve(port, device, card):
+    """21a: :func:`pipe_serve`, the eager decode (:func:`pipe_eager`),
+    ``--decode-device 0`` traced for the overlap (:func:`pipe_overlap`)
+    and the eval (:func:`pipe_eval`). Returns {kernel: launches}."""
+    import tempfile
+    from openpifpaf_tpu_torch.decoder.cifcaf import side_stream
+
+    with tempfile.TemporaryDirectory() as directory:
+        ckpt = posed_k16_checkpoint(directory)
+        files = write_pipe_requests(directory)
+        launches, reference = pipe_serve(port, ckpt, files, directory, card)
+        pipe_eager(ckpt, files, reference, card)
+        engine = next(iter(PIPE_ENGINES))
+        argv = ['--checkpoint', ckpt, '--backbone-engine', engine,
+                *REF_DECODER_FLAGS]
+        decoded, counts, _, calls, streams, _ = pipe_overlap(
+            port, files, [*argv, '--decode-device', '0'],
+            f'pipeline (21a) {engine} batch 1 --decode-device 0', card)
+        if annotation_rows(decoded) != reference:
+            raise AssertionError('pipeline (21a) --decode-device 0: '
+                                 'annotations differ')
+        side = side_stream(torch.device('cuda:0'))
+        if any(st != side for st in streams):
+            raise AssertionError('pipeline (21a) --decode-device 0: CifHr '
+                                 'launched off the side stream')
+        check_kept_calls(port, calls, 'pipeline (21a) --decode-device 0')
+        for key, count in counts.items():
+            launches[key] += count
+        log('pipeline (21a) --decode-device 0: the same annotations, the '
+            'decode on cuda:0\'s side stream (this machine has one card: '
+            f'no other decode device is claimed) [{card}]')
+        launches['cifhr_accumulate'] += pipe_eval(ckpt, directory, card)
+    return launches
+
+
+def phase_ddp(port, device, card):
+    """21b: ``train.main --n-devices 1`` for DDP_STEPS steps (NCCL at
+    world size 1, the cross-rank BatchNorm in the graph) against the
+    plain single-process ``train.main`` on the same batches (np.random
+    seeded as the rank's): each step's loss and components within
+    DDP_LOSS_RTOL of the loss (TF32 off); ``predict --n-devices 2``
+    raises on one card."""
+    import tempfile
+    from openpifpaf_tpu_torch import parallel, predict, train
+    from openpifpaf_tpu_torch.models.basenetworks import BatchNorm
+    from openpifpaf_tpu_torch.training.trainer import Trainer
+    from torch_port_helpers import write_synthetic_coco
+
+    step = Trainer.train_step
+    seen = {}
+
+    def recorded(self, *args, **kwargs):
+        loss, heads = step(self, *args, **kwargs)
+        seen.setdefault('steps', []).append(
+            [float(loss)] + [float(h) for h in heads])
+        seen['cross_rank'] = any(
+            isinstance(m, BatchNorm) and m.process_group is not None
+            for m in self.model.modules())
+        seen['ddp'] = isinstance(self._step_module,
+                                 torch.nn.parallel.DistributedDataParallel)
+        return loss, heads
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as directory:
+        data = write_synthetic_coco(
+            os.path.join(directory, 'coco'), n_images=TRAIN_BATCH * DDP_STEPS,
+            image_hw=TRAIN_IMAGE_HW, seed=0)
+        Trainer.train_step = recorded
+        try:
+            for name, extra in (('plain', []), ('ddp', ['--n-devices', '1'])):
+                seen.clear()
+                out = os.path.join(directory, name, 'model')
+                os.makedirs(os.path.dirname(out))
+                argv = train_flags(data, out, *extra)
+                argv[argv.index('--train-batches') + 1] = str(DDP_STEPS)
+                np.random.seed(parallel.rank_seed(TRAIN_SEED, 0))
+                t0 = time.perf_counter()
+                with no_tf32():
+                    train.main(argv)
+                runs[name] = (dict(seen), time.perf_counter() - t0)
+        finally:
+            Trainer.train_step = step
+    (plain, plain_s), (ddp, ddp_s) = runs['plain'], runs['ddp']
+    if not (ddp['ddp'] and ddp['cross_rank'] and not plain['ddp']
+            and not plain['cross_rank']
+            and len(ddp['steps']) == len(plain['steps']) == DDP_STEPS):
+        raise AssertionError(f'ddp (21b): runs {runs}')
+    errs = [max(abs(a - b) for a, b in zip(d, p)) / abs(p[0])
+            for d, p in zip(ddp['steps'], plain['steps'])]
+    if not (errs[0] <= DDP_LOSS_RTOL
+            and max(errs[1:]) <= DDP_LATER_RTOL):
+        raise AssertionError(f'ddp (21b): losses {ddp["steps"]} under DDP, '
+                             f'{plain["steps"]} plain: {errs} of the loss')
+    log(f'ddp (21b): train --n-devices 1 (DDP, NCCL, world size 1, the '
+        f'cross-rank BatchNorm) for {DDP_STEPS} steps: losses '
+        f'{[d[0] for d in ddp["steps"]]} against the plain single-process '
+        f'run\'s {[p[0] for p in plain["steps"]]}: each step\'s loss and '
+        f'components within {[float(f"{e:.3g}") for e in errs]} of the '
+        f'loss (gates {DDP_LOSS_RTOL} for the first step, {DDP_LATER_RTOL} '
+        f'after; TF32 off); runs {plain_s:.1f} s plain, {ddp_s:.1f} s DDP; '
+        'world size 2 runs only in the CPU tests (gloo): this machine has '
+        f'one card [{card}]')
+    from openpifpaf_tpu_torch import decoder
+    from torch_port_helpers import restored_statics
+    try:
+        with restored_statics(*decoder.DECODERS):
+            predict.main(['request.jpg', '--n-devices', '2'])
+    except ValueError as e:
+        log(f'ddp (21b): predict --n-devices 2 on one card raises: {e}')
+    else:
+        raise AssertionError('predict --n-devices 2 ran on one card')
+
+
+def phase_pipeline(port, device, card):
+    """Phase 21: (a) the pipelined serving loop, (b) DDP on the card.
+    Returns {kernel: launches} of (a)."""
+    t0 = time.perf_counter()
+    launches = phase_pipe_serve(port, device, card)
+    phase_ddp(port, device, card)
+    log(f'phase 21: launches {launches}; {time.perf_counter() - t0:.1f} s '
         f'[{card}]')
     return launches
 
@@ -5166,6 +5682,9 @@ def main():
     for name, count in phase_deploy(port, device, card).items():
         launches[name] += count
     lap('phase 20')
+    for name, count in phase_pipeline(port, device, card).items():
+        launches[name] += count
+    lap('phase 21')
 
     # no single PyTorch call computes the CifHr map; times at F=17 K=256
     entries = [kernel_entry('cifhr_accumulate', 'cifhr.cu',

@@ -19,8 +19,8 @@ def _as_list(items):
 class Loader:
     """Batching loader over an indexable dataset.
 
-    shard_id/num_shards give each of several processes its slice (kept
-    from the JAX package for multi-process training, ROADMAP A12).
+    shard_id/num_shards give each of several processes its slice (the
+    ranks of data-parallel training, ``parallel.shard_loader``).
     """
 
     def __init__(self, dataset, *, batch_size=1, shuffle=False,

@@ -4,9 +4,22 @@ decode, initial (tracked) poses, the decoding order, the tensor ->
 Annotation conversion, and ``CifCafDense`` over sparse + dense CAF heads.
 The decoders' registry and the global ``--cif-th``/``--caf-th`` are
 :mod:`.factory`'s.
+
+On the card the decode runs on a side CUDA stream of its device (the
+fields' device, or ``cuda:k`` with ``decode_device = k``), which waits
+for the forward that made the fields. ``batch_decode_deferred`` splits a
+decode in two: the dispatch only queues that wait (and the copy to
+``cuda:k``); ``materialize()`` runs the decode, whose host syncs (the
+fixpoints' flags, the growth's gather, the crowd tier's overflow read)
+then wait for the side stream alone, so a forward queued on the main
+stream in between runs under the decode. The dispatch queues no decode
+work on the side stream: a batch's decode queued there before the
+previous batch's materialize would make that decode wait for this
+batch's forward.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import logging
 import time
@@ -22,6 +35,19 @@ from ..visualizer.base import Base as VisualizerBase
 from .base import Decoder
 
 LOG = logging.getLogger(__name__)
+
+#: the decode's side stream of each CUDA device, made at first use
+_SIDE_STREAMS = {}
+
+
+def side_stream(device):
+    """The side CUDA stream on which the decodes of ``device`` run."""
+    device = torch.device(device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _SIDE_STREAMS:
+        _SIDE_STREAMS[index] = torch.cuda.Stream(device=index)
+    return _SIDE_STREAMS[index]
 
 
 class CifCaf(Decoder):
@@ -53,6 +79,11 @@ class CifCaf(Decoder):
     #: Annotation.decoding_order / frontier_order (set by the callers that
     #: draw them, as the JAX package's show CLI does)
     export_decoding_order = False
+    #: ``--decode-device k``: decode on ``cuda:k``, the fields copied
+    #: there; out of range (or on the CPU) the decode stays on the fields'
+    #: device, with one warning per process
+    decode_device = None
+    _warned_decode_device = False
 
     def __init__(self, cif_meta: headmeta.Cif, caf_meta: headmeta.Caf):
         super().__init__()
@@ -263,11 +294,36 @@ class CifCaf(Decoder):
                 ids[b, i] = getattr(ann, 'id_', -1) or -1
         return torch.from_numpy(poses).to(device), ids
 
+    def _decode_target(self, device):
+        """The device of the decode: ``cuda:decode_device`` when that
+        exists, else ``device`` (the fields' own), warning once."""
+        if self.decode_device is None:
+            return device
+        count = torch.cuda.device_count() if torch.cuda.is_available() \
+            else 0
+        if 0 <= self.decode_device < count:
+            return torch.device('cuda', self.decode_device)
+        if not CifCaf._warned_decode_device:
+            CifCaf._warned_decode_device = True
+            LOG.warning('decode_device=%d but only %d CUDA devices; '
+                        'decoding on the fields\' device %s',
+                        self.decode_device, count, device)
+        return device
+
     def batch_decode(self, fields_batch, initial_annotations_batch=None):
         """fields_batch: list over head indices of (B, F, C, H, W) tensors;
         initial_annotations_batch: optional list over images of annotations
         (e.g. tracked from the previous frame) that grow first and keep
         their ``id_``. Returns one list of annotations per image."""
+        return self.batch_decode_deferred(fields_batch,
+                                          initial_annotations_batch)()
+
+    def batch_decode_deferred(self, fields_batch,
+                              initial_annotations_batch=None):
+        """Queue the decode of ``fields_batch``; return ``materialize()``,
+        which runs it and returns the annotations of each image (see the
+        module's docstring for the streams). ``last_decoder_time`` counts
+        the dispatch and the materialize."""
         cif = fields_batch[self.cif_meta.head_index]
         caf = fields_batch[self.caf_meta.head_index]
         cif, caf = (torch.as_tensor(f, dtype=torch.float32)
@@ -283,22 +339,52 @@ class CifCaf(Decoder):
             visualizer.Caf(self.caf_meta).predicted(caf[0].cpu().numpy())
 
         start = time.perf_counter()
-        args = (cif, caf)
-        ids_batch = None
-        if initial_annotations_batch is not None:
-            initial_poses, ids_batch = self._initial_poses(
-                initial_annotations_batch, cif.shape[0], cif.device)
-            args += (initial_poses,)
-        poses, keep, order, *commit = self._decode_adaptive(stride, args)
-        self.last_decoder_time = time.perf_counter() - start
-        return [
-            self.annotations_from_tensor(
-                poses[i], keep[i], order[i],
-                ids=None if ids_batch is None else ids_batch[i],
-                commit_edge=commit[0][i] if commit else None,
-                commit_step=commit[1][i] if commit else None)
-            for i in range(poses.shape[0])
-        ]
+        target = self._decode_target(cif.device)
+        stream = None
+        # the fields as made: another device's are read by the copy on the
+        # side stream, whose work has ended when materialize() returns
+        # (the decode ends in copies to the host)
+        sources = (cif, caf)
+        if target.type == 'cuda':
+            stream = side_stream(target)
+            if cif.device.type == 'cuda':
+                # the forward that made the fields, queued on the current
+                # stream of their device
+                stream.wait_stream(torch.cuda.current_stream(cif.device))
+            if cif.device == target:
+                for field in sources:
+                    # read on the side stream: not reused before it ran
+                    field.record_stream(stream)
+            with torch.cuda.stream(stream):
+                cif, caf = (f.to(target, non_blocking=True)
+                            for f in sources)
+        dispatch_time = time.perf_counter() - start
+
+        def materialize(_sources=sources):
+            t0 = time.perf_counter()
+            context = torch.cuda.stream(stream) if stream is not None \
+                else contextlib.nullcontext()
+            with context:
+                args = (cif, caf)
+                ids_batch = None
+                if initial_annotations_batch is not None:
+                    initial_poses, ids_batch = self._initial_poses(
+                        initial_annotations_batch, cif.shape[0], target)
+                    args += (initial_poses,)
+                poses, keep, order, *commit = self._decode_adaptive(
+                    stride, args)
+            self.last_decoder_time = dispatch_time \
+                + (time.perf_counter() - t0)
+            return [
+                self.annotations_from_tensor(
+                    poses[i], keep[i], order[i],
+                    ids=None if ids_batch is None else ids_batch[i],
+                    commit_edge=commit[0][i] if commit else None,
+                    commit_step=commit[1][i] if commit else None)
+                for i in range(poses.shape[0])
+            ]
+
+        return materialize
 
     def __call__(self, fields, initial_annotations=None):
         initial = [initial_annotations] if initial_annotations else None

@@ -32,8 +32,11 @@ def cli(parser: argparse.ArgumentParser):
                        const='profile_decoder.prof',
                        help='profile the decoder and write a pstats file')
     group.add_argument('--decode-device', default=None, type=int,
-                       help='decode on this device index (not yet ported: '
-                            'it raises, ROADMAP A5(b))')
+                       help='decode on cuda:K on a side stream, the '
+                            'fields copied there (out of range: on the '
+                            'fields\' device, with one warning); with one '
+                            'card only 0 exists, and the decode overlaps '
+                            'the next forward on that card\'s side stream')
     group.add_argument('--cif-th', default=CifCaf.cifhr_threshold,
                        type=float, help='cif threshold')
     group.add_argument('--caf-th', default=CifCaf.caf_score_th,
@@ -44,10 +47,7 @@ def cli(parser: argparse.ArgumentParser):
 
 def configure(args: argparse.Namespace):
     global profile_decoder
-    if getattr(args, 'decode_device', None) is not None:
-        raise NotImplementedError(
-            '--decode-device (the decode on a second device, overlapping '
-            'the next forward) is not yet ported to PyTorch (ROADMAP A5(b))')
+    CifCaf.decode_device = getattr(args, 'decode_device', None)
     profile_decoder = args.profile_decoder
     if args.decoder_workers:
         LOG.info('decoder workers requested (%d): decoding is one '

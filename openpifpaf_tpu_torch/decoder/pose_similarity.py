@@ -15,7 +15,6 @@ import logging
 import time
 
 import numpy as np
-import scipy.optimize
 
 from . import pose_distance
 from .cifcaf import CifCaf
@@ -106,6 +105,9 @@ class PoseSimilarity(TrackBase):
 
         poses = self.pose_generator(fields)
         cost = self._association_costs(poses)
+        # imported here: scipy.optimize takes a second to import, and
+        # every process of the package imports this module
+        import scipy.optimize
         rows, cols = scipy.optimize.linear_sum_assignment(cost)
 
         extended = set(

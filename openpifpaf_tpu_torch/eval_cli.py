@@ -33,6 +33,9 @@ class Evaluator:
     backbone_engine = 'auto'
     hflip_tta = False
     device = 'cuda'
+    #: eval reports the nn/decoder split, which the strict loop keeps
+    #: exact; ``--pipeline-decode`` opts into the pipelined loop
+    pipeline_decode = False
 
     def __init__(self, dataset_name: str):
         self.dataset_name = dataset_name
@@ -91,6 +94,7 @@ class Evaluator:
             head_metas=self.datamodule.head_metas, device=self.device,
             backbone_engine=self.backbone_engine, bf16=self.bf16)
         predictor.hflip_tta = self.hflip_tta
+        predictor.pipeline_decode = self.pipeline_decode
         metrics = self.datamodule.metrics()
 
         total_time = self.accumulate(predictor, metrics)
@@ -129,14 +133,6 @@ class Evaluator:
                 total_time / max(1, predictor.total_images),
                 predictor.total_nn_time / max(1, predictor.total_images),
                 predictor.total_decoder_time / max(1, predictor.total_images))
-
-
-#: flags of the JAX package that the port refuses, with the ROADMAP item
-#: that ports them
-NOT_PORTED = {
-    'pipeline_decode': ('--pipeline-decode', 'the pipelined serving loop, '
-                        'ROADMAP A5(b)'),
-}
 
 
 def cli(argv=None):
@@ -183,7 +179,9 @@ def cli(argv=None):
                         help='serving backbone engine (see predict)')
     parser.add_argument('--pipeline-decode', default=False,
                         action='store_true',
-                        help='not yet ported (ROADMAP A5(b))')
+                        help='the pipelined serving loop (batch i+1\'s '
+                             'forward queued before batch i\'s decode); '
+                             'its nn/decoder time split is approximate')
     parser.add_argument('--hflip-tta', default=False, action='store_true',
                         help='average fields with the mirrored-image '
                              'forward pass (test-time augmentation)')
@@ -200,10 +198,6 @@ def cli(argv=None):
         dm.cli(parser)
 
     args = parser.parse_args(argv)
-    for dest, (flag, item) in NOT_PORTED.items():
-        if getattr(args, dest):
-            raise NotImplementedError(
-                f'{flag} is not yet ported to PyTorch ({item})')
     logger.configure(args, LOG)
     decoder.configure(args)
     for dm in datasets.datamodules().values():
@@ -218,6 +212,7 @@ def _evaluator(args):
     evaluator.backbone_engine = args.backbone_engine
     evaluator.hflip_tta = args.hflip_tta
     evaluator.device = args.device
+    evaluator.pipeline_decode = args.pipeline_decode
     return evaluator
 
 

@@ -24,6 +24,8 @@ from torch import nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from ..parallel.batch_norm import cross_rank_batch_norm
+
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01
 #: flax's ``nn.GroupNorm`` default (torch's is 1e-5)
@@ -44,10 +46,13 @@ class BatchNorm(nn.BatchNorm2d):
     the running buffers with flax's rule after the step, so that a
     recomputed forward (``remat``) or a validation pass does not move
     them. In train mode, input narrower than float32 (bf16) is normalised
-    in float32 and cast back.
+    in float32 and cast back. With a ``process_group`` (a data-parallel
+    step, :func:`set_batch_norm_group`) the statistics are those of every
+    rank's batch (:func:`cross_rank_batch_norm`).
     """
 
     batch_stats = None
+    process_group = None
 
     def forward(self, x, train=False):
         if not train:
@@ -56,6 +61,11 @@ class BatchNorm(nn.BatchNorm2d):
         dtype = x.dtype
         # flax's force_float32_reductions: at least float32
         xf = x.to(torch.promote_types(dtype, torch.float32))
+        if self.process_group is not None:
+            y, mean, var = cross_rank_batch_norm(
+                xf, self.weight, self.bias, self.eps, self.process_group)
+            self.batch_stats = (mean.detach(), var.detach())
+            return y.to(dtype)
         with torch.no_grad():
             mean = xf.mean((0, 2, 3))
             var = (xf * xf).mean((0, 2, 3)) - mean * mean
@@ -121,6 +131,14 @@ def commit_batch_stats(model, momentum=BN_MOMENTUM):
                 module.batch_stats = None
                 n += 1
     return n
+
+
+def set_batch_norm_group(model, group):
+    """Normalise every :class:`BatchNorm` of ``model`` in train mode over
+    the batches of the ranks of ``group`` (None: this process's batch)."""
+    for module in model.modules():
+        if isinstance(module, BatchNorm):
+            module.process_group = group
 
 
 def discard_batch_stats(model):

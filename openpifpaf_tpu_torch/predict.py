@@ -62,6 +62,19 @@ def cli(args=None):
     parser.add_argument('--multi-scale', default=False, action='store_true',
                         help='decode at multiple scales and merge with '
                              'OKS suppression (test-time augmentation)')
+    parser.add_argument('--no-pipeline-decode',
+                        dest='pipeline_decode', default=True,
+                        action='store_false',
+                        help='serve batch at a time: without it, batch '
+                             'i+1\'s forward is queued before batch i\'s '
+                             'decode runs (on a side CUDA stream)')
+    parser.add_argument('--n-devices', default=None, type=int,
+                        help='split the forward batch over the first N '
+                             'CUDA devices, one replica each; the fields '
+                             'are decoded on the first')
+    parser.add_argument('--spatial-devices', default=None, type=int,
+                        help='more than 1 (the image height sharded over '
+                             'devices) is not yet ported (ROADMAP A12(b))')
     parser.add_argument('-o', '--image-output', default=None, nargs='?',
                         const=True, help='image output file or directory')
     parser.add_argument('--json-output', default=None, nargs='?',
@@ -78,6 +91,10 @@ def cli(args=None):
     show.cli(parser)
 
     args = parser.parse_args(args)
+    if args.spatial_devices is not None and args.spatial_devices > 1:
+        from .parallel.mesh import SPATIAL_NOT_PORTED
+        raise NotImplementedError('--spatial-devices > 1: '
+                                  + SPATIAL_NOT_PORTED)
     logger.configure(args, LOG)
     decoder.configure(args)
     visualizer.configure(args)
@@ -104,8 +121,9 @@ def main(args=None):
     args = cli(args)
     predictor = Predictor(checkpoint=args.checkpoint, device=args.device,
                           backbone_engine=args.backbone_engine,
-                          bf16=args.bf16)
+                          bf16=args.bf16, n_devices=args.n_devices)
     predictor.batch_size = args.batch_size
+    predictor.pipeline_decode = args.pipeline_decode
     predictor.hflip_tta = args.hflip_tta
     predictor.multi_scale = args.multi_scale
     predictor.long_edge = args.long_edge

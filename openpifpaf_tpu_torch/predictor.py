@@ -4,8 +4,12 @@ Model -> forward -> decode (the decoder factory's ``Multi``), with
 generators over image files, PIL images, numpy arrays, datasets and data
 loaders; a tracking model's forward caches the previous frame's features.
 A worker thread produces the batches ahead (load, preprocess, collate:
-host work only); the forward and the decode run on the caller's thread,
-each batch forwarded, decoded and yielded before the next one starts.
+host work only); the forward and the decode run on the caller's thread.
+The serving loop is pipelined one batch deep (``pipeline_decode``): batch
+i+1's forward is queued on the card before batch i's decode runs, on a
+side CUDA stream, so the card runs the forward while the host decodes.
+``n_devices`` splits the forward batch over that many local devices
+(:class:`.parallel.ShardedForward`).
 Test-time options: the horizontal flip (``hflip_tta``), several scales
 merged (``multi_scale``), and large batches forwarded in chunks
 (``nn_chunk_size``, off by default). A list of JPEG files with a
@@ -23,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from . import datasets, decoder, headmeta, transforms
+from . import datasets, decoder, headmeta, parallel, transforms
 from .datasets.collate import collate_images_anns_meta
 from .datasets.loader_with_reset import LoaderWithReset
 from .models import factory as models_factory
@@ -83,10 +87,21 @@ class Predictor:
     prefetch_depth = 2
     #: use the native C++ threaded JPEG loader when possible
     native_io = True
+    #: the serving loop one batch deep: batch i+1's forward is queued
+    #: before batch i's decode runs (``decoder.CifCaf`` decodes on a side
+    #: CUDA stream, whose host syncs leave the forward's stream running);
+    #: False: each batch forwarded, decoded and yielded before the next.
+    #: Under it the NN time is the forward's device time (CUDA events)
+    #: and the decoder time the host's time in the decode, so the split
+    #: is approximate; eval keeps the strict loop unless asked
+    pipeline_decode = True
+    #: the CUDA events around the forward that ``fields_batch`` queued
+    #: last (pipelined on the card), else None
+    _nn_events = None
 
     def __init__(self, checkpoint=None, head_metas=None, *, model=None,
                  device=None, json_data=False, backbone_engine='auto',
-                 bf16=False):
+                 bf16=False, n_devices=None):
         """Without ``model``: the checkpoint at ``checkpoint`` (the port's,
         a reference ``.pkl`` or a published name of
         ``models.factory.CHECKPOINT_URLS``), with ``head_metas``
@@ -112,6 +127,12 @@ class Predictor:
         frame, and the heads run on the pair [new, previous]. The cache is
         dropped on a resolution change and on the ``eval_reset`` signal.
         An explicit engine or ``bf16`` raises ``ValueError`` for it.
+
+        ``n_devices`` (more than 1) splits each forward batch over the
+        first that many CUDA devices of the machine, one replica of the
+        serving forward on each, and gathers the fields on the first for
+        the decode; fewer visible cards raise ``ValueError``. With
+        ``device='cpu'`` the replicas are all on the CPU.
         """
         if backbone_engine not in BACKBONE_ENGINES:
             raise ValueError(f'unknown backbone engine {backbone_engine!r}; '
@@ -148,6 +169,10 @@ class Predictor:
             Signal.subscribe('eval_reset', self.reset_tracking)
         else:
             self._backbone = self._resolve_backbone_engine()
+        self.n_devices = n_devices
+        self._sharded = None
+        if n_devices is not None and n_devices > 1:
+            self._sharded = self._sharded_forward(n_devices)
         self.processor = decoder.factory(self.head_metas)
         self.json_data = json_data
         self._warned_no_hflip = set()
@@ -165,13 +190,15 @@ class Predictor:
         """Drop the tracking model's cached features."""
         self._prev_feats = None
 
-    def _resolve_backbone_engine(self):
+    def _resolve_backbone_engine(self, model=None):
         """The backbone forward ``fn(x) -> features`` (channels_last NCHW)
-        of ``backbone_engine`` and ``bf16``, or None for the module graph
-        in float32. Raises ``ValueError`` for an explicit engine on a
-        backbone that does not fold."""
+        of ``backbone_engine`` and ``bf16`` for ``model`` (default the
+        Predictor's), or None for the module graph in float32. Raises
+        ``ValueError`` for an explicit engine on a backbone that does not
+        fold."""
+        model = model or self.model
         engine = self.backbone_engine
-        base_net = self.model.base_net
+        base_net = model.base_net
         if engine == 'auto':
             # JAX tries the fold and falls back on the flax graph when it
             # fails: any backbone but a BatchNorm ShuffleNetV2K
@@ -187,7 +214,7 @@ class Predictor:
             net = copy.deepcopy(base_net).to(dtype)
             return lambda x: net(x.to(dtype))
         try:
-            folded = fused_inference.build_fused_backbone(self.model, dtype)
+            folded = fused_inference.build_fused_backbone(model, dtype)
         except ValueError as e:
             raise ValueError(f'backbone engine {engine!r}: {e}') from None
         LOG.info('backbone engine: %s (%s)', engine, dtype)
@@ -197,15 +224,42 @@ class Predictor:
             folded = folded.with_mode('dwpallas')
         return lambda x: folded(x.to(dtype))
 
-    def _forward(self, images):
+    def _sharded_forward(self, n_devices):
+        """The forward over ``n_devices`` devices: each replica of the
+        model runs the backbone engine resolved on it."""
+        if self._tracking:
+            raise ValueError('a tracking model serves one frame at a time '
+                             'on one device, not n_devices='
+                             f'{n_devices}')
+        if self.device.type == 'cuda':
+            visible = torch.cuda.device_count()
+            if visible < n_devices:
+                raise ValueError(
+                    f'n_devices={n_devices}: only {visible} CUDA '
+                    'device(s) visible')
+        mesh = parallel.data_mesh(n_devices, device_type=self.device.type)
+
+        def forward(replica):
+            backbone = self._resolve_backbone_engine(replica)
+            return lambda images: self._forward(images, replica, backbone)
+
+        return parallel.ShardedForward(self.model, mesh=mesh,
+                                       forward=forward)
+
+    def _forward(self, images, model=None, backbone=None):
         """Per-head fields of a (B, H, W, 3) float32 batch on the device:
-        the backbone engine, then the heads on float32 features."""
-        if self._backbone is None:
-            return self.model(images)
+        the backbone engine, then the heads on float32 features (of
+        ``model``, default the Predictor's, and its ``backbone``)."""
+        if model is None:
+            if self._sharded is not None:
+                return self._sharded(images)
+            model, backbone = self.model, self._backbone
+        if backbone is None:
+            return model(images)
         x = images.permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        features = self._backbone(x).float()
-        return tuple(hn(features) for hn in self.model.head_nets)
+        features = backbone(x).float()
+        return tuple(hn(features) for hn in model.head_nets)
 
     def _nn(self, images):
         """The forward of a batch; from ``nn_chunk_threshold`` images up,
@@ -350,8 +404,15 @@ class Predictor:
     def fields_batch(self, image_batch):
         """Per-head (B, F, C, H, W) fields of a (B, H, W, 3) float batch,
         or of a uint8 batch of raw pixels (normalised on the device), on
-        ``self.device``."""
+        ``self.device``. Strict (or on the CPU) the card is synchronised
+        and ``last_nn_time`` is the host's time; pipelined on the card
+        the forward is only queued, and its time (upload and forward) is
+        read later from CUDA events recorded on the forward's stream."""
         start = time.perf_counter()
+        queued = self.pipeline_decode and self.device.type == 'cuda'
+        if queued:
+            begin = torch.cuda.Event(enable_timing=True)
+            begin.record()
         image_batch = np.asarray(image_batch)
         if image_batch.dtype != np.uint8:
             image_batch = image_batch.astype(np.float32, copy=False)
@@ -366,14 +427,37 @@ class Predictor:
                 fields = self._hflip_tta_fields(images)
             else:
                 fields = self._nn(images)
-        if self.device.type == 'cuda':
-            torch.cuda.synchronize(self.device)
-        self.last_nn_time = time.perf_counter() - start
+        if queued:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self._nn_events = (begin, end)
+        else:
+            if self.device.type == 'cuda':
+                torch.cuda.synchronize(self.device)
+            self.last_nn_time = time.perf_counter() - start
+            self._nn_events = None
         return list(fields)
 
-    def _run_batch(self, batch):
-        """Forward, decode and yield one collated batch (images, anns,
-        metas), or (raw images, images, anns, metas)."""
+    def _nn_seconds(self):
+        """``nn_time()`` of the forward that :meth:`fields_batch` ran
+        last: from its CUDA events, waited for when called, or the host's
+        time it measured."""
+        if self._nn_events is None:
+            seconds = self.last_nn_time
+            return lambda: seconds
+        begin, end = self._nn_events
+
+        def nn_time():
+            end.synchronize()
+            return begin.elapsed_time(end) / 1e3
+
+        return nn_time
+
+    def _dispatch_batch(self, batch):
+        """Forward a collated batch and queue its decode (pipelined, with
+        a deferred decode) or decode it (strict); returns what
+        :meth:`_materialize_batch` finishes. A decode that ran here has
+        its time read here."""
         if len(batch) == 4:
             _, image_batch, gt_anns_batch, meta_batch = batch
         else:
@@ -383,8 +467,27 @@ class Predictor:
             VisualizerBase.processed_image(
                 self._normalized_np(np.asarray(image_batch[0])))
         fields = self.fields_batch(image_batch)
-        pred_batch = self.processor.batch_decode(fields)
-        self.last_decoder_time = self.processor.last_decoder_time
+        nn_time = self._nn_seconds()
+        if self.pipeline_decode \
+                and hasattr(self.processor, 'batch_decode_deferred'):
+            deferred = self.processor.batch_decode_deferred(fields)
+
+            def materialize():
+                return (deferred(), self.processor.last_decoder_time)
+        else:
+            done = (self.processor.batch_decode(fields),
+                    self.processor.last_decoder_time)
+
+            def materialize():
+                return done
+        return materialize, nn_time, gt_anns_batch, meta_batch
+
+    def _materialize_batch(self, staged):
+        """Run a dispatched batch's decode and yield (predictions,
+        ground truth, meta) per image."""
+        materialize, nn_time, gt_anns_batch, meta_batch = staged
+        pred_batch, self.last_decoder_time = materialize()
+        self.last_nn_time = nn_time()
         self.total_nn_time += self.last_nn_time
         self.total_decoder_time += self.last_decoder_time
         self.total_images += len(meta_batch)
@@ -397,28 +500,67 @@ class Predictor:
                 pred = [ann.json_data() for ann in pred]
             yield pred, gt_anns, meta
 
-    def _run_batches(self, batches):
-        """The serving loop: each batch is forwarded, decoded and yielded
-        before the next one is taken."""
-        for batch in batches:
-            yield from self._run_batch(batch)
+    def _run_batch(self, batch):
+        """Forward, decode and yield one collated batch (images, anns,
+        metas), or (raw images, images, anns, metas)."""
+        yield from self._materialize_batch(self._dispatch_batch(batch))
+
+    def _run_batches(self, batches, pipelined=None):
+        """The serving loop over collated batches and
+        ``LoaderWithReset.RESET`` markers (default ``pipelined``:
+        ``pipeline_decode``). Strict: each batch forwarded, decoded and
+        yielded before the next is taken. Pipelined: batch i+1 is taken
+        and dispatched before batch i is materialised; if taking or
+        dispatching batch i+1 fails, batch i's results are yielded first,
+        then the exception is raised. A marker emits ``eval_reset`` after
+        every batch before it was decoded and yielded."""
+        if pipelined is None:
+            pipelined = self.pipeline_decode
+        if not pipelined:
+            for batch in batches:
+                if batch is LoaderWithReset.RESET:
+                    Signal.emit('eval_reset')
+                    continue
+                yield from self._run_batch(batch)
+            return
+
+        def flush(pending):
+            if pending is not None:
+                yield from self._materialize_batch(pending)
+
+        pending = None
+        it = iter(batches)
+        while True:
+            try:
+                batch = next(it)
+            except StopIteration:
+                break
+            except BaseException:
+                yield from flush(pending)
+                raise
+            if batch is LoaderWithReset.RESET:
+                yield from flush(pending)
+                pending = None
+                Signal.emit('eval_reset')
+                continue
+            try:
+                staged = self._dispatch_batch(batch)
+            except BaseException:
+                yield from flush(pending)
+                raise
+            yield from flush(pending)
+            pending = staged
+        yield from flush(pending)
 
     def _prefetched(self, batches):
         """The items of ``batches``, produced up to ``prefetch_depth``
         ahead by a worker thread (host work only). A worker exception is
-        raised here after the items before it. A
-        ``LoaderWithReset.RESET`` marker emits ``eval_reset`` here, when
-        the loop asks for the batch after it, so the reset comes after
-        the previous batch was decoded and yielded."""
+        raised here after the items before it. ``LoaderWithReset.RESET``
+        markers pass through to the serving loop, which emits
+        ``eval_reset`` for them on the caller's thread."""
         if not self.prefetch_depth:
-            items = batches
-        else:
-            items = self._worker_items(batches)
-        for item in items:
-            if item is LoaderWithReset.RESET:
-                Signal.emit('eval_reset')
-                continue
-            yield item
+            return iter(batches)
+        return self._worker_items(batches)
 
     def _worker_items(self, batches):
         fifo = queue.Queue(maxsize=self.prefetch_depth)
@@ -480,13 +622,13 @@ class Predictor:
         yield from self._run_batches(self._prefetched(batches))
 
     def enumerated_dataloader(self, enumerated_dataloader):
-        """As :meth:`dataloader`, for (index, batch) pairs, pulled on the
-        caller's thread after the previous batch was yielded: behind an
-        ``enumerate`` a ``LoaderWithReset`` cannot be seen, and pulled
-        ahead it would emit ``eval_reset`` before the last frame of a
-        sequence was decoded."""
+        """As :meth:`dataloader`, for (index, batch) pairs, each pulled on
+        the caller's thread after the previous batch was yielded (the
+        strict loop): behind an ``enumerate`` a ``LoaderWithReset`` cannot
+        be seen, and pulled ahead it would emit ``eval_reset`` before the
+        last frame of a sequence was decoded and yielded."""
         yield from self._run_batches(
-            batch for _, batch in enumerated_dataloader)
+            (batch for _, batch in enumerated_dataloader), pipelined=False)
 
     @staticmethod
     def _pose_oks(ann_a, ann_b, sigmas):

@@ -3,6 +3,14 @@
 Runs on the first CUDA device unless ``--device cpu`` is given; without a
 card the default raises.
 
+Data-parallel training (``DistributedDataParallel``, one process per
+device): ``--n-devices N`` spawns N ranks on ``cuda:0`` .. ``cuda:N-1``
+(or N gloo ranks with ``--device cpu``); by default every visible card
+takes part, and with one card the step is the plain single-process one.
+A launch by ``torchrun --nproc-per-node N -m openpifpaf_tpu_torch.train``
+is found from its environment. ``--batch-size`` is the global batch: each
+rank loads its shard. Only rank 0 writes checkpoints and the log.
+
 Example:
     python -m openpifpaf_tpu_torch.train --dataset cocokp --basenet shufflenetv2k16
 """
@@ -12,11 +20,15 @@ import datetime
 import logging
 import os
 import socket
+import sys
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
-from . import __version__, datasets, encoder, logger
+from . import __version__, datasets, encoder, logger, parallel
 from .models import factory as models_factory
+from .models.basenetworks import set_batch_norm_group
 from .training import checkpoint as ckpt_mod
 from .training import losses, optimize
 from .training.trainer import Trainer
@@ -61,10 +73,14 @@ def cli(argv=None):
                         help='torch device to train on; "cpu" runs on the '
                              'CPU (the counterpart of JAX_PLATFORMS=cpu)')
     parser.add_argument('--n-devices', default=None, type=int,
-                        help='not yet ported: more than one device '
-                             '(ROADMAP A12)')
+                        help='train data-parallel over this many ranks, '
+                             'one process per device (default: every '
+                             'visible CUDA device; with one, a single '
+                             'process); 1 runs the data-parallel step on '
+                             'one device')
     parser.add_argument('--spatial-partitions', default=1, type=int,
-                        help='not yet ported: more than 1 (ROADMAP A12)')
+                        help='more than 1 (the image height sharded over '
+                             'devices) is not yet ported (ROADMAP A12(b))')
     parser.add_argument('--seed', default=42, type=int)
     parser.add_argument('--profile', default=None, nargs='?',
                         const='torch_trace',
@@ -82,16 +98,24 @@ def cli(argv=None):
         dm.cli(parser)
 
     args = parser.parse_args(argv)
-    if args.n_devices not in (None, 1) or args.spatial_partitions != 1:
+    if args.spatial_partitions > 1:
         raise NotImplementedError(
-            'training on a device mesh (--n-devices, --spatial-partitions) '
-            'is not yet ported to PyTorch (ROADMAP A12)')
+            '--spatial-partitions > 1: ' + parallel.mesh.SPATIAL_NOT_PORTED)
+    if args.n_devices is not None and args.n_devices < 1:
+        parser.error('--n-devices must be at least 1')
 
     if args.output is None:
         args.output = default_output_file(args)
         os.makedirs('outputs', exist_ok=True)
 
-    logger.configure(args, LOG)
+    if int(os.environ.get('RANK', '0')) > 0:
+        # only rank 0 writes the log
+        log_args = argparse.Namespace(**vars(args))
+        log_args.output = None
+        log_args.quiet = True
+        logger.configure(log_args, LOG)
+    else:
+        logger.configure(args, LOG)
     Trainer.configure(args)
     models_factory.configure(args)
     losses.Factory.configure(args)
@@ -101,16 +125,80 @@ def cli(argv=None):
     return args
 
 
+def _free_port():
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def _spawned_rank(index, argv, world_size, port):
+    """A rank that ``main`` spawned: torchrun's environment, then main."""
+    os.environ.update(RANK=str(index), LOCAL_RANK=str(index),
+                      WORLD_SIZE=str(world_size), MASTER_ADDR='localhost',
+                      MASTER_PORT=str(port))
+    main(argv)
+
+
+def _process_group(args, argv):
+    """The ranks of this run: ``(group, rank, world_size, device)``,
+    group None in a single process; ``(None, None, n, None)`` when this
+    process is to spawn ``n`` ranks."""
+    device_type = torch.device(args.device).type
+    if 'WORLD_SIZE' in os.environ:
+        group = parallel.initialize_multihost(device_type)
+        rank = dist.get_rank()
+        device = args.device
+        if device_type == 'cuda':
+            device = torch.device('cuda',
+                                  int(os.environ.get('LOCAL_RANK', rank)))
+            torch.cuda.set_device(device)
+        return group, rank, dist.get_world_size(), device
+    n = args.n_devices
+    if n is None:
+        n = torch.cuda.device_count() if device_type == 'cuda' else 1
+        if n <= 1:
+            return None, 0, 1, args.device
+    if device_type == 'cuda' and n > torch.cuda.device_count():
+        raise ValueError(f'--n-devices {n}: only '
+                         f'{torch.cuda.device_count()} CUDA devices visible')
+    if n > 1:
+        return None, None, n, None
+    group = parallel.initialize_multihost(
+        device_type, init_method=f'tcp://localhost:{_free_port()}',
+        world_size=1, rank=0)
+    device = torch.device(args.device)
+    if device.type == 'cuda' and device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
+    return group, 0, 1, device
+
+
 def main(argv=None):
-    """Train as the command line says; returns the Trainer."""
+    """Train as the command line says; returns the Trainer (None in a
+    process that spawned the ranks)."""
+    if argv is None:
+        argv = sys.argv[1:]
     args = cli(argv)
     if args.device.startswith('cuda') and not torch.cuda.is_available():
         raise RuntimeError('train: no CUDA device found; pass --device cpu '
                            'to train on the CPU')
 
+    group, rank, world_size, device = _process_group(args, argv)
+    if rank is None:
+        LOG.info('spawning %d ranks', world_size)
+        torch.multiprocessing.start_processes(
+            _spawned_rank, args=(argv, world_size, _free_port()),
+            nprocs=world_size, start_method='spawn')
+        return None
+    if args.batch_size % world_size:
+        raise ValueError(f'--batch-size {args.batch_size} (the global '
+                         f'batch) not divisible by {world_size} ranks')
+    if group is not None:
+        # each rank's augmentations draw from a stream of its own
+        np.random.seed(parallel.rank_seed(args.seed, rank))
+
     datasets.MultiDataModule.weights = args.dataset_weights
     datamodule = datasets.factory(args.dataset)
-    datamodule.batch_size = args.batch_size
+    datamodule.batch_size = args.batch_size // world_size
     datamodule.loader_workers = args.loader_workers
 
     if args.checkpoint:
@@ -141,6 +229,9 @@ def main(argv=None):
 
     train_loader = datamodule.train_loader()
     val_loader = datamodule.val_loader()
+    if group is not None:
+        parallel.shard_loader(train_loader, rank, world_size)
+        parallel.shard_loader(val_loader, rank, world_size)
     LOG.info('training batches: %d, validation batches: %d',
              len(train_loader), len(val_loader))
 
@@ -149,7 +240,7 @@ def main(argv=None):
 
     trainer = Trainer(
         model, loss_fn, optimizer, schedule, args.output,
-        device=args.device,
+        device=device, process_group=group,
         model_meta_data={
             'base_name': args.basenet,
             'backbone_options': {
@@ -166,8 +257,14 @@ def main(argv=None):
         from .profiler import TorchProfiler
         trainer.train_step = TorchProfiler(trainer.train_step,
                                            out_name=args.profile,
-                                           device=args.device)
-    trainer.loop(train_loader, val_loader, start_epoch)
+                                           device=device)
+    try:
+        trainer.loop(train_loader, val_loader, start_epoch)
+    finally:
+        if group is not None:
+            # the returned trainer's model normalises on its own again
+            set_batch_norm_group(model, None)
+            dist.destroy_process_group()
     return trainer
 
 

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import headmeta
+from ..parallel.mesh import rank_mean
 
 
 @dataclasses.dataclass
@@ -361,9 +362,20 @@ class MultiHeadLossAutoTuneKendall(MultiHeadLossBase):
 class MultiHeadLossAutoTuneVariance(MultiHeadLossBase):
     """Running-variance loss normalization: each component is divided by
     the standard deviation of its last 53 values (prime buffer length),
-    normalized so sum(1/eps) is constant."""
+    normalized so sum(1/eps) is constant. In a data-parallel step
+    (``process_group`` set) the buffer takes each component's mean over
+    the ranks, so that every rank's normaliser moves alike."""
 
     buffer_len = 53
+    process_group = None
+
+    def _buffer_values(self, flat):
+        """The detached values the buffer takes: the rank's own, or their
+        mean over ``process_group``."""
+        values = [l.detach() if l is not None else None for l in flat]
+        if self.process_group is None:
+            return values
+        return rank_mean(values, self.process_group)
 
     def init_state(self):
         n = len(self.lambdas)
@@ -378,10 +390,10 @@ class MultiHeadLossAutoTuneVariance(MultiHeadLossBase):
 
         index = (loss_state['index'] + 1) % self.buffer_len
         buffer = loss_state['buffer'].clone()
-        for i, l in enumerate(flat):
-            if l is None:
+        for i, value in enumerate(self._buffer_values(flat)):
+            if value is None:
                 continue
-            buffer[i, index.long()] = l.detach()
+            buffer[i, index.long()] = value
 
         epsilons = torch.sqrt(
             torch.mean(buffer ** 2, dim=1)

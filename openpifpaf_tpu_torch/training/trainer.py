@@ -10,8 +10,16 @@ model, the loss's own parameters (the Kendall log-sigmas) and its state
 the step counter and, with ``--stride-apply``, the accumulated gradients
 (in the parameters' ``.grad``). Checkpoints carry the EMA parameters.
 
-The JAX package's device mesh (``--n-devices``, ``--spatial-partitions``)
-is not ported yet (ROADMAP A12).
+With a ``process_group`` the step is data-parallel, the counterpart of
+JAX's step on a data mesh: the forward and the loss run as one module
+under ``DistributedDataParallel`` (DDP averages the gradients of the
+model and of the loss's log-sigmas), the BatchNorms normalise over every
+rank's batch, the running-variance normaliser moves with the mean of the
+ranks' losses, and the logged losses are those means. Each rank's batch
+is its shard of the global batch; the per-head losses divide by the
+rank's batch size, so the averaged gradient is the global batch's. Only
+rank 0 writes checkpoints. JAX's spatial mesh is not ported (ROADMAP
+A12(b)).
 """
 
 import logging
@@ -20,8 +28,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch import nn
 
-from ..models.basenetworks import commit_batch_stats, discard_batch_stats
+from ..models.basenetworks import (commit_batch_stats, discard_batch_stats,
+                                   set_batch_norm_group)
+from ..parallel.mesh import rank_mean
 
 LOG = logging.getLogger(__name__)
 
@@ -57,6 +69,23 @@ def _accumulate_head_losses(sums, counts, head_losses):
     return sums, counts
 
 
+class _StepModule(nn.Module):
+    """The train forward and the loss as one module, the unit that DDP
+    wraps: it holds the model and the loss's parameters."""
+
+    def __init__(self, trainer):
+        super().__init__()
+        self.model = trainer.model
+        self.loss_params = nn.ParameterDict(trainer.loss_params)
+        self._forward = trainer._forward
+        self.loss_fn = trainer.loss_fn
+
+    def forward(self, images, targets, head_mask, bn_train, loss_state):
+        outputs = self._forward(images, head_mask, bn_train)
+        return self.loss_fn(outputs, targets, dict(self.loss_params),
+                            loss_state)
+
+
 def _mean_head_losses(sums, counts):
     if sums is None:
         return []
@@ -79,11 +108,13 @@ class Trainer:
     n_val_batches = None
 
     def __init__(self, model, loss_fn, optimizer, schedule, out, *,
-                 device=None, model_meta_data=None):
+                 device=None, model_meta_data=None, process_group=None):
         """``optimizer`` builds the optimizer and its scheduler from the
         trainable tensors (``optimize.OptimizerFactory``); ``schedule``
         is the learning rate as a function of the step. The model is
-        moved to ``device`` (default: where its parameters are)."""
+        moved to ``device`` (default: where its parameters are).
+        ``process_group``: train data-parallel over its ranks (see the
+        module's docstring); rank 0's parameters are broadcast."""
         self.device = torch.device(device) if device is not None \
             else next(model.parameters()).device
         self.model = model.to(self.device)
@@ -91,12 +122,30 @@ class Trainer:
         self.schedule = schedule
         self.out = out
         self.model_meta_data = model_meta_data or {}
+        self.process_group = process_group
+        self.rank = dist.get_rank(process_group) \
+            if process_group is not None else 0
 
         self.loss_params = {
-            k: v.to(self.device).requires_grad_()
+            k: nn.Parameter(v.to(self.device))
             for k, v in loss_fn.init_params().items()}
         self.loss_state = {k: v.to(self.device)
                            for k, v in loss_fn.init_state().items()}
+        self._step_module = _StepModule(self)
+        if process_group is not None:
+            # the statistics' collectives on a group of their own, apart
+            # from DDP's gradient buckets
+            set_batch_norm_group(model, dist.new_group(
+                dist.get_process_group_ranks(process_group)))
+            if hasattr(loss_fn, 'process_group'):
+                loss_fn.process_group = process_group
+            # broadcasts rank 0's parameters; the running statistics are
+            # equal on every rank by construction
+            self._step_module = nn.parallel.DistributedDataParallel(
+                self._step_module, process_group=process_group,
+                device_ids=[self.device] if self.device.type == 'cuda'
+                else None,
+                broadcast_buffers=False, find_unused_parameters=True)
         self.params = list(model.parameters()) + list(
             self.loss_params.values())
         self.optimizer, self.lr_scheduler = optimizer(self.params)
@@ -105,8 +154,9 @@ class Trainer:
         #: the logged lr, and advances on every step; the optimizer's
         #: lr comes from the scheduler, which advances on applied steps
         self.step = 0
+        # one dropout stream per rank; rank 0's is the single process's
         self.dropout_generator = torch.Generator(self.device).manual_seed(
-            DROPOUT_SEED)
+            DROPOUT_SEED + self.rank)
 
     def _fix_bn_active(self, epoch):
         if self.fix_batch_norm is True:
@@ -193,10 +243,9 @@ class Trainer:
             # with the previous batch element
             images = images + torch.roll(images, 1, dims=0) * self.cross_talk
 
-        outputs = self._forward(images, head_mask,
-                                False if fix_bn else None)
-        total, head_losses, new_loss_state = self.loss_fn(
-            outputs, targets, self.loss_params, self.loss_state)
+        total, head_losses, new_loss_state = self._step_module(
+            images, targets, head_mask, False if fix_bn else None,
+            self.loss_state)
         task_sparsity_weight = getattr(self.loss_fn, 'task_sparsity_weight',
                                        0.0)
         if task_sparsity_weight:
@@ -209,8 +258,17 @@ class Trainer:
         if self.stride_apply <= 1 or (self.step + 1) % self.stride_apply == 0:
             self._apply_gradients()
         self.step += 1
-        return total.detach(), [l.detach() if l is not None else None
-                                for l in head_losses]
+        return self._rank_mean(total, head_losses)
+
+    def _rank_mean(self, total, head_losses):
+        """The detached loss and components, averaged over the ranks in
+        a data-parallel step (what the log and the finiteness check
+        read, equal on every rank)."""
+        values = [total.detach()] + [l.detach() if l is not None else None
+                                     for l in head_losses]
+        if self.process_group is not None:
+            values = rank_mean(values, self.process_group)
+        return values[0], values[1:]
 
     def _apply_gradients(self):
         """Clip, update and EMA from the gradients in ``.grad`` (summed
@@ -250,6 +308,7 @@ class Trainer:
                                  generator=self.dropout_generator)
             total, head_losses, _ = self.loss_fn(
                 outputs, targets, self.loss_params, self.loss_state)
+            total, head_losses = self._rank_mean(total, head_losses)
         discard_batch_stats(self.model)
         return total, head_losses
 
@@ -394,6 +453,8 @@ class Trainer:
         })
 
     def write_model(self, epoch, final=True):
+        if self.rank != 0:
+            return
         from . import checkpoint as ckpt_mod
         filename = f'{self.out}.epoch{epoch:03d}'
         LOG.debug('about to write model %s', filename)

@@ -18,11 +18,6 @@ from .pad import CenterPad
 from .preprocess import Preprocess
 from .. import utils
 
-try:
-    import scipy.ndimage
-except ImportError:
-    scipy = None  # pylint: disable=invalid-name
-
 LOG = logging.getLogger(__name__)
 
 _QUARTER_TURNS = {90.0: 1, 180.0: 2, 270.0: 3}
@@ -34,8 +29,13 @@ def _rotated_pixels(image, angle):
     if square and angle in _QUARTER_TURNS:
         array = np.rot90(array, _QUARTER_TURNS[angle])
     else:
-        assert scipy is not None, \
-            'scipy required for non-90-degree rotations'
+        # imported here: scipy.ndimage takes a second to import, and every
+        # process of the package imports this module
+        try:
+            import scipy.ndimage
+        except ImportError:
+            raise AssertionError(
+                'scipy required for non-90-degree rotations') from None
         fill = int(np.random.randint(0, 255))
         array = scipy.ndimage.rotate(array, angle=angle, cval=fill,
                                      reshape=False)

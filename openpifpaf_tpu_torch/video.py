@@ -102,6 +102,9 @@ def main(args=None):
                           backbone_engine=args.backbone_engine,
                           bf16=args.bf16)
     predictor.long_edge = args.long_edge
+    # frame at a time, as JAX's video: the current frame's poses, not one
+    # frame late
+    predictor.pipeline_decode = False
     predictor.preprocess = predictor._build_preprocess()
 
     stream = Stream(

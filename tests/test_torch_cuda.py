@@ -9,8 +9,9 @@ the engine choice on a group-norm k20, the eval CLI, tracking (the
 k16 tracking forward against the CPU, the tracking golden sequence, a
 cocokpst train step), the wholebody-133 golden decode, detection (the
 CifDet golden decode, the engines under the cocodet head), a
-reference-layout k16 pickle served through the fused-block engine, and
-the golden scene's decoding order drawn (where matplotlib is installed).
+reference-layout k16 pickle served through the fused-block engine, the
+golden scene's decoding order drawn (where matplotlib is installed), and
+the pipelined serving loop with its decode on a side stream.
 
 Every test here needs a GPU (marker ``gpu``) and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a machine that
@@ -1122,3 +1123,59 @@ def test_cuda_exported_decode_launches_the_kernel(cuda, tmp_path,
     for a, b in zip((poses, keep, order), eager):
         assert torch.equal(a, b)
     assert keep.sum() >= 1
+
+
+def test_cuda_pipelined_loop_equals_strict_on_a_side_stream(cuda,
+                                                            monkeypatch):
+    """The pipelined serving loop on the card (a narrow shell with posed
+    heads, batches of 2): the annotations equal the strict loop's and
+    ``--decode-device 0``'s bit for bit; every CifHr call is a counted
+    launch on the decode's side stream, not the default one, bit-equal to
+    its plain version."""
+    import argparse
+    from openpifpaf_tpu_torch import decoder
+    from openpifpaf_tpu_torch.decoder.cifcaf import side_stream
+    from torch_port_helpers import posed_model, restored_statics
+
+    calls = []
+    launch_counted = cifhr_cuda.launch_counted
+
+    def kept(x, y, sigma, w, **kw):
+        out = launch_counted(x, y, sigma, w, **kw)
+        calls.append((torch.cuda.current_stream(cuda),
+                      (x.clone(), y.clone(), sigma.clone(), w.clone()), kw,
+                      out.clone()))
+        return out
+
+    monkeypatch.setattr(cifhr_cuda, 'launch_counted', kept)
+    rng = np.random.RandomState(3)
+    images = [rng.randint(0, 256, (97, 129, 3), dtype=np.uint8)
+              for _ in range(5)]
+    model = posed_model(port_narrow_shell(cocokp_head_metas()))
+    served = {}
+    with restored_statics(*decoder.DECODERS):
+        parser = argparse.ArgumentParser()
+        decoder.cli(parser)
+        for name, flags, pipelined in (
+                ('strict', (), False), ('pipelined', (), True),
+                ('decode_device', ('--decode-device', '0'), True)):
+            decoder.configure(parser.parse_args([
+                '--seed-threshold', '0.05', '--keypoint-threshold', '0.05',
+                '--instance-threshold', '0.001', '--decoder-poses', '16',
+                '--decoder-crowd-poses', '16', *flags]))
+            predictor = Predictor(model=model, device=cuda)
+            predictor.batch_size = 2
+            predictor.pipeline_decode = pipelined
+            before = cifhr_cuda.LAUNCHES
+            start = len(calls)
+            served[name] = [pose_rows(pred) for pred, _, _ in
+                            predictor.numpy_images(images)]
+            assert cifhr_cuda.LAUNCHES - before == len(calls) - start >= 3
+    assert sum(len(p) for p in served['strict']) > 0
+    for name in ('pipelined', 'decode_device'):
+        for ours, ref in zip(served[name], served['strict']):
+            np.testing.assert_array_equal(ours, ref)
+    side = side_stream(cuda)
+    for stream, cells, kw, out in calls:
+        assert stream == side != torch.cuda.default_stream(cuda)
+        assert torch.equal(out, cifhr.accumulate_dense(*cells, **kw))

@@ -322,9 +322,30 @@ def test_eval_cli_writes_stats(coco_set, converted_fixture, tmp_path):
 
 
 @pytest.mark.parametrize('flag', ['--pipeline-decode'])
-def test_eval_cli_refuses_what_is_not_ported(flag):
-    with pytest.raises(NotImplementedError, match='ROADMAP A'):
-        eval_cli.cli(['--device', 'cpu', flag])
+def test_eval_cli_refuses_what_is_not_ported(flag, coco_set,
+                                             converted_fixture, tmp_path):
+    """Each flag that once raised as not ported now runs: eval with
+    ``--pipeline-decode`` gives the strict loop's stats and
+    predictions."""
+    from openpifpaf_tpu_torch import datasets
+    ann_file, image_dir = coco_set
+    stats = {}
+    for name, extra in (('strict', ()), ('flagged', (flag,))):
+        out = str(tmp_path / name)
+        with restored_statics(*port_decoder_module.DECODERS,
+                              *datasets.datamodules().values(),
+                              eval_cli.Evaluator):
+            eval_cli.main([*_eval_flags(ann_file, image_dir,
+                                        converted_fixture, out),
+                           '--write-predictions', *extra])
+        with open(out + '.stats.json') as f:
+            stats[name] = json.load(f)
+        with open(out + '.pred.json') as f:
+            stats[name]['predictions'] = json.load(f)
+    assert stats['flagged']['n_images'] == stats['strict']['n_images'] == 3
+    assert stats['flagged']['stats'] == stats['strict']['stats']
+    assert len(stats['strict']['predictions']) >= 3
+    assert stats['flagged']['predictions'] == stats['strict']['predictions']
 
 
 @pytest.mark.parametrize('flags', [

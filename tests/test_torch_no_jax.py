@@ -114,7 +114,9 @@ def test_every_port_module_imports_without_jax():
                  'visualizer.fields_vis', 'visualizer.cli',
                  'plugins.posetrack.draw_poses', 'export', 'compile_cache',
                  'logs', 'io', 'io.native', 'transforms.misc',
-                 'decoder.utils'):
+                 'decoder.utils', 'parallel', 'parallel.mesh',
+                 'parallel.inference', 'parallel.batch_norm',
+                 'decoder.multi'):
         assert f'openpifpaf_tpu_torch.{name}' in report['modules']
     assert report['loaded'] == []
 

@@ -358,8 +358,9 @@ def test_posesimilarity_is_not_auto_instantiated():
 
 
 def test_decoder_flags_match_jax():
-    """Every registry flag parses alike; ``--decode-device`` raises in the
-    port (ROADMAP A5); ``--profile-decoder`` wraps each decoder."""
+    """Every registry flag parses alike; ``--decode-device`` sets
+    ``CifCaf.decode_device`` on both sides; ``--profile-decoder`` wraps
+    each decoder."""
     argv = ['--cif-th', '0.2', '--caf-th', '0.25', '--decoder-workers', '2',
             '--trackingpose-track-recovery', '--posesimilarity-distance',
             'oks', '--posesimilarity-oks-inflate', '2.0']
@@ -378,12 +379,18 @@ def test_decoder_flags_match_jax():
                 decoder.pose_distance.Oks.inflate)
     assert parsed['jax'] == parsed['port'] == (0.2, 0.25, True, False, 'Oks',
                                                2.0)
-    parser = argparse.ArgumentParser()
-    with restored_statics(*port_decoder.DECODERS):
-        port_decoder.cli(parser)
-        with pytest.raises(NotImplementedError, match='ROADMAP A5'):
-            port_decoder.configure(parser.parse_args(['--decode-device',
-                                                      '1']))
+    decode_devices = {}
+    for name, decoder, factory in (('jax', jax_decoder, jax_decoder.factory),
+                                   ('port', port_decoder, port_decoder)):
+        parser = argparse.ArgumentParser()
+        with restored_statics(*decoder.DECODERS):
+            factory.cli(parser)
+            factory.configure(parser.parse_args(['--decode-device', '1']))
+            decode_devices[name] = decoder.CifCaf.decode_device
+            factory.configure(parser.parse_args([]))
+            decode_devices[name] = (decode_devices[name],
+                                    decoder.CifCaf.decode_device)
+    assert decode_devices['jax'] == decode_devices['port'] == (1, None)
     multi = port_tracking_decoder(STRIDE, flags=('--profile-decoder',))
     assert all(type(d.batch_decode).__name__ == 'Profiler'
                for d in multi.decoders)

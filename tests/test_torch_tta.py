@@ -366,11 +366,13 @@ def test_prefetch_gives_the_strict_output(predictors):  # noqa: F811
 
 
 def _bare_predictor(depth):
-    """A Predictor of the serving loop only: each batch 'decodes' to its
-    meta."""
+    """A Predictor of the serving loop only (pipelined, the default, and
+    strict): each batch 'decodes' to its meta."""
     p = Predictor.__new__(Predictor)
     p.prefetch_depth = depth
     p._run_batch = lambda batch: iter(batch[2])
+    p._dispatch_batch = lambda batch: batch
+    p._materialize_batch = lambda staged: iter(staged[2])
     return p
 
 
