@@ -321,6 +321,36 @@ Phases, each of which raises on failure (non-zero exit):
     --n-devices 2`` raising on one card. The launches of (a) are counted
     in the kernels line.
 
+22. the C++ runner: (a) after phase 11, beside phases 12-21, phase 19's
+    posed k16 exported with ``python -m openpifpaf_tpu_torch.export
+    --format savedmodel`` at 481x641, with ``--with-decoder`` (an
+    AOTInductor package of the (poses, keep) program) and without it (of
+    the fields), each in a process of its own (wall seconds and bytes),
+    and the C++ runner and its CifHr operator library built from this
+    checkout's sources (``python -m openpifpaf_tpu_torch.cpp_runner``:
+    CMake where it is on the path; build seconds, and whether
+    ``jpeglib.h`` was found, else the image runner reads PPM alone), the
+    three processes at a lower priority (``nice``); (b) both packages
+    loaded here
+    (``torch._inductor.aoti_load_package``) and run on phase 21's 8
+    images: the fields within 1e-3 of the eager module graph's (TF32 off);
+    keep equal and every lane within the pose gate of the eager
+    ``build_cifcaf_decoder`` and of phase 20's decode-only ``.pt2``
+    program on the fields package's fields (whether bit-equal, the largest
+    differences; the random model's decode moves with 1e-6 of noise in
+    its fields, so the end-to-end difference is reported, not gated),
+    every CifHr call a counted launch bit-equal to its plain version, NN
+    plus decode ms per image of the package, phase 20's ``.pt2`` program
+    and the eager decode (CUDA events) and their device ops and syncs; (c)
+    the image runner on those images as 481x641 PPMs: every lane equal to
+    the Python-loaded package's on the same input (its ``--verbose`` sums,
+    exactly), one JSON line each equal to the kept poses through JAX's
+    extraction formula to the printed precision, its wall seconds for the
+    list and per image after the first, and its C++ operator's CifHr
+    launches, one per image; (d) the video runner on a 3-frame clip where
+    OpenCV let it be built, else a line saying it was not. The launches of
+    (b)-(d) are counted in the kernels line.
+
 The second-to-last line is a JSON object describing the kernels (with each
 one's bound: the larger of its bytes over the card's memory rate and its
 operations over the peak rate of its type), the last
@@ -333,8 +363,10 @@ import gc
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -4436,15 +4468,16 @@ def phase_images(files, device):
     return images
 
 
-def run_export(ckpt, outfile, *extra):
+def run_export(ckpt, outfile, *extra, timeout=600, nice=()):
     """``python -m openpifpaf_tpu_torch.export --checkpoint ckpt`` on the
-    card in a process of its own; returns its wall seconds."""
+    card in a process of its own (under ``nice``, a command prefix);
+    returns its wall seconds."""
     start = time.perf_counter()
     done = subprocess.run(
-        [sys.executable, '-m', 'openpifpaf_tpu_torch.export', '--checkpoint',
-         ckpt, '--outfile', outfile, *extra], cwd=ROOT,
+        [*nice, sys.executable, '-m', 'openpifpaf_tpu_torch.export',
+         '--checkpoint', ckpt, '--outfile', outfile, *extra], cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
-        text=True, timeout=600, check=False)
+        text=True, timeout=timeout, check=False)
     wall = time.perf_counter() - start
     if done.returncode != 0 or \
             done.stdout.strip().splitlines()[-1:] != [f'wrote {outfile}']:
@@ -5143,8 +5176,11 @@ def phase_logs(log_path, card):
         f') [{card}]')
 
 
-def phase_deploy(port, device, card):
-    """Phase 20: (a)-(d). Returns {kernel: launches} of (a) and (b)."""
+def phase_deploy(port, device, card, runner_dir):
+    """Phase 20: (a)-(d); (a)'s two decode programs are copied into
+    ``runner_dir`` for phase 22. Returns {kernel: launches} of (a) and
+    (b)."""
+    import shutil
     import tempfile
     from openpifpaf_tpu_torch.io import native
 
@@ -5163,6 +5199,9 @@ def phase_deploy(port, device, card):
             'cifhr_accumulate', 0) + phase_export(
                 port, ckpt, phase_images(files, device), directory, device,
                 card, exports)
+        for name in ('decode', 'decode-only'):
+            shutil.copy(os.path.join(directory, f'k16-{name}.pt2'),
+                        os.path.join(runner_dir, f'k16-{name}.pt2'))
     log(f'phase 20: launches {launches}; {time.perf_counter() - t0:.1f} s '
         f'[{card}]')
     return launches
@@ -5610,6 +5649,434 @@ def phase_pipeline(port, device, card):
     return launches
 
 
+#: phase 22: the package's export may take this long (AOTInductor's
+#: compile of the whole program)
+PACKAGE_TIMEOUT = 900
+#: phase 22's compiles run beside phases 12-21 at a lower priority, so
+#: that they take idle cores rather than the host time those phases time
+NICE = ('nice', '-n', '10')
+#: the runner's default --instance-threshold (JAX's runner's)
+RUNNER_INSTANCE_THRESHOLD = 0.15
+#: the runner's JSON against the Python-loaded package: its printed
+#: precision (%.4f scores, %.2f keypoints, %.3f confidences)
+RUNNER_ATOL = {'score': 1e-4, 'xy': 0.01, 'v': 1e-3}
+#: the pose gate (counts and visibility equal, xy within 1e-3 px,
+#: confidences within 2e-3), lane by lane
+LANE_XY_ATOL = 1e-3
+LANE_V_ATOL = 2e-3
+#: the video runner's clip
+RUNNER_VIDEO_FRAMES = 3
+#: the fields package against the eager module graph, of each head's
+#: largest value: Inductor computes the NN in another order (BatchNorms
+#: folded into its kernels, its own conv layouts), 8.6e-5-9.8e-5 on the
+#: H100 with TF32 off or on, where 20a's interpreted program is bit-equal
+PACKAGE_FIELDS_RTOL = 1e-3
+
+
+def timed(fn, *args, **kwargs):
+    """(fn's result, its wall seconds)."""
+    start = time.perf_counter()
+    return fn(*args, **kwargs), time.perf_counter() - start
+
+
+def build_runner():
+    """``python -m openpifpaf_tpu_torch.cpp_runner`` in a process of its
+    own under NICE: (what it built, as a namespace, its wall seconds)."""
+    start = time.perf_counter()
+    done = subprocess.run(
+        [*NICE, sys.executable, '-m', 'openpifpaf_tpu_torch.cpp_runner'],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=PACKAGE_TIMEOUT, check=False)
+    if done.returncode != 0:
+        raise AssertionError(f'runner build failed ({done.returncode}):\n'
+                             f'{done.stdout[-2000:]}{done.stderr[-6000:]}')
+    made = json.loads(done.stdout.strip().splitlines()[-1])
+    return types.SimpleNamespace(**made), time.perf_counter() - start
+
+
+def start_runner(pool, directory):
+    """Phase 22's long steps, submitted to ``pool``: the exports of phase
+    19's posed k16 (written into ``directory``) as AOTInductor packages of
+    (poses, keep) and of the fields, each in a process of its own, and the
+    build of the C++ runner and its operator library from this checkout's
+    sources. Returns {'directory', 'ckpt', 'package', 'fields', 'pt2' and
+    'program' (where phase 20 copies its forward-and-decode and its
+    decode-only programs), 'export', 'export_fields', 'build'
+    (futures)}."""
+    ckpt = posed_k16_checkpoint(directory)
+    paths = {name: os.path.join(directory, f'k16-{name}.pt2')
+             for name in ('package', 'fields-package', 'decode',
+                          'decode-only')}
+    return {
+        'directory': directory, 'ckpt': ckpt, 'package': paths['package'],
+        'fields': paths['fields-package'], 'pt2': paths['decode'],
+        'program': paths['decode-only'],
+        'export': pool.submit(run_export, ckpt, paths['package'], '--format',
+                              'savedmodel', '--with-decoder',
+                              timeout=PACKAGE_TIMEOUT, nice=NICE),
+        'export_fields': pool.submit(run_export, ckpt,
+                                     paths['fields-package'], '--format',
+                                     'savedmodel', timeout=PACKAGE_TIMEOUT,
+                                     nice=NICE),
+        'build': pool.submit(build_runner)}
+
+
+def check_lanes(out, ref, label):
+    """``out`` (poses, keep, ...) against ``ref`` lane by lane: keep equal,
+    and each lane's pose within the pose gate of the same lane (so the
+    kept poses are the same and in the same order); then the pose gate on
+    the poses with a visible joint. Returns (bit-equal, largest xy and
+    confidence differences)."""
+    from torch_port_helpers import assert_pose_gate
+
+    if not torch.equal(out[1].cpu(), ref[1].cpu()):
+        raise AssertionError(f'{label}: keep differs')
+    ours, theirs = out[0][0].double().cpu(), ref[0][0].double().cpu()
+    visible = ours[..., 0] > 0
+    if not torch.equal(visible, theirs[..., 0] > 0):
+        raise AssertionError(f'{label}: visibility differs')
+    xy = float((ours[..., 1:3] - theirs[..., 1:3])[visible].abs().max()) \
+        if visible.any() else 0.0
+    v = float((ours[..., 0] - theirs[..., 0]).abs().max())
+    if not (xy <= LANE_XY_ATOL and v <= LANE_V_ATOL):
+        raise AssertionError(f'{label}: xy {xy}, confidence {v} beyond the '
+                             'pose gate')
+    assert_pose_gate(list(lane_poses(out[0])), list(lane_poses(ref[0])))
+    return torch.equal(out[0], ref[0]), xy, v
+
+
+def runner_predictions(poses, keep):
+    """JAX's runner formula (``cpp/runner_common.hpp::extract_poses``) on
+    (poses, keep) of one image: [(score, (n_kp, 3) [x, y, v])]."""
+    found = []
+    for pose, kept in zip(poses[0].cpu().numpy(), keep[0].cpu().numpy()):
+        visible = pose[:, 0] > 0
+        if not kept or not visible.any():
+            continue
+        score = np.float32(pose[visible, 0].sum(dtype=np.float32)
+                           / np.float32(len(pose)))
+        if score >= RUNNER_INSTANCE_THRESHOLD:
+            found.append((float(score), pose[:, [1, 2, 0]]))
+    return found
+
+
+def prediction_diffs(line, found, label):
+    """Largest (score, xy, confidence) differences of one runner JSON line
+    from ``found`` (:func:`runner_predictions`); raises beyond
+    RUNNER_ATOL or where the counts differ."""
+    preds = line['predictions']
+    if len(preds) != len(found):
+        raise AssertionError(f'{label}: {len(preds)} predictions, the '
+                             f'package\'s poses give {len(found)}')
+    diffs = [0.0, 0.0, 0.0]
+    for pred, (score, kps) in zip(preds, found):
+        ours = np.asarray(pred['keypoints'], np.float64).reshape(-1, 3)
+        diffs = [max(diffs[0], abs(pred['score'] - score)),
+                 max(diffs[1], float(np.abs(ours[:, :2] - kps[:, :2]).max())),
+                 max(diffs[2], float(np.abs(ours[:, 2] - kps[:, 2]).max()))]
+    if not (diffs[0] <= RUNNER_ATOL['score'] and diffs[1] <= RUNNER_ATOL['xy']
+            and diffs[2] <= RUNNER_ATOL['v']):
+        raise AssertionError(f'{label}: (score, xy, v) differences {diffs} '
+                             f'beyond {RUNNER_ATOL}')
+    return diffs
+
+
+def runner_launches(stderr, n_images, label):
+    """The CifHr launches that a runner's ``--verbose`` reports, which
+    must be one per image (the standard tier alone)."""
+    found = re.search(r'cifhr kernel launches: (\d+)', stderr)
+    launches = int(found.group(1)) if found else 0
+    if launches != n_images:
+        raise AssertionError(f'{label}: {launches} CifHr launches for '
+                             f'{n_images} images:\n{stderr[-2000:]}')
+    return launches
+
+
+def write_ppm(path, pixels):
+    with open(path, 'wb') as f:
+        f.write(f'P6\n{pixels.shape[1]} {pixels.shape[0]}\n255\n'.encode()
+                + np.ascontiguousarray(pixels, np.uint8).tobytes())
+
+
+def runner_input(pixels, device):
+    """The image runner's input of ``pixels`` (H, W, 3) uint8 without a
+    resize: ``pifpaf_io.cpp``'s float32 normalisation, in numpy."""
+    mean = np.float32([0.485, 0.456, 0.406])
+    std = np.float32([0.229, 0.224, 0.225])
+    x = (pixels.astype(np.float32) / np.float32(255) - mean) / std
+    return torch.from_numpy(x.astype(np.float32))[None].to(device)
+
+
+def lane_sums(poses, keep):
+    """What the runner's ``--verbose`` prints on all lanes of (poses,
+    keep) (``runner_common.hpp::print_lanes``): poses with a visible
+    joint, kept, and the sums of v, x and y over lanes and joints in
+    order, in double precision."""
+    lanes = poses[0].double().cpu().numpy()
+    flat = lanes.reshape(-1, 4)
+    return (int((lanes[:, :, 0] > 0).any(axis=1).sum()), int(keep.sum()),
+            *(float(np.add.accumulate(flat[:, c])[-1]) for c in range(3)))
+
+
+def phase_package(port, started, images, device, card):
+    """22b: the package and the fields package loaded in this process and
+    run on ``images``: the fields package within PACKAGE_FIELDS_RTOL of
+    each head's largest value of the eager module graph (TF32 off), and the
+    package's (poses, keep) lane by lane within the pose gate of the eager
+    ``build_cifcaf_decoder`` and of phase 20's decode-only ``.pt2``
+    program on the fields package's fields (:func:`check_lanes`); every
+    CifHr call a counted launch bit-equal to its plain version; NN plus
+    decode ms per image and device ops and syncs of the package, the
+    ``.pt2`` program and the eager decode. The random posed k16's decode
+    is chaotic (1e-6 of noise in its fields moves many joints), so the
+    package, whose NN Inductor computes in another order, is held to the
+    eager decode on its own fields, and the end-to-end difference is
+    reported. Returns (the package, its CifHr launches)."""
+    from openpifpaf_tpu_torch.ops.decode_cifcaf import build_cifcaf_decoder
+    from openpifpaf_tpu_torch.training import checkpoint
+
+    model, _ = checkpoint.load_shell(started['ckpt'])
+    model = model.to(device).eval()
+    cif_meta, caf_meta = model.head_metas[:2]
+    decode = build_cifcaf_decoder(stride=cif_meta.stride,
+                                  skeleton=caf_meta.skeleton,
+                                  n_keypoints=len(cif_meta.keypoints))
+    decode_only = torch.export.load(started['program']).module()
+    package, load_s = timed(torch._inductor.aoti_load_package,
+                            started['package'])
+    fields_package = torch._inductor.aoti_load_package(started['fields'])
+    log(f'runner (22b) package loaded in {load_s:.2f} s (torch._inductor.'
+        f'aoti_load_package) [{card}]')
+
+    errs = []
+    with no_tf32(), torch.no_grad():
+        for i, image in enumerate(images):
+            for o, r in zip(fields_package(image), model(image)):
+                err = float((o - r).abs().max()) / float(r.abs().max())
+                if not err <= PACKAGE_FIELDS_RTOL:
+                    raise AssertionError(f'runner (22b) fields package, '
+                                         f'image {i}: {err} of the largest '
+                                         'value')
+                errs.append(err)
+    with torch.no_grad():
+        tf32 = max(float((o - r).abs().max()) / float(r.abs().max())
+                   for o, r in zip(fields_package(images[0]),
+                                   model(images[0])))
+    log(f'runner (22b) fields package: {len(images)} images within '
+        f'{max(errs):.3g} of each head\'s largest value of the eager module '
+        f'graph (gate {PACKAGE_FIELDS_RTOL:g}, TF32 off; {tf32:.3g} with TF32 '
+        f'allowed) [{card}]')
+
+    reset_launches(port)
+    with kept_launches(port.cifhr_cuda) as calls, torch.no_grad():
+        outs = [package(image) for image in images]
+        torch.cuda.synchronize()
+    launches = read_launches(port)['cifhr_accumulate']
+    check_program_calls(port, calls, launches, len(images), 'runner (22b)')
+    found, bits, worst, moved = [], {'eager': True, 'pt2': True}, {}, []
+    with torch.no_grad():
+        for i, (image, out) in enumerate(zip(images, outs)):
+            if len(out) != 2 or tuple(out[0].shape[-2:]) != (17, 4):
+                raise AssertionError(f'runner (22b): outputs '
+                                     f'{[tuple(o.shape) for o in out]}')
+            fields = fields_package(image)[:2]
+            refs = {'eager': decode(*fields), 'pt2': decode_only(*fields)}
+            for name, ref in refs.items():
+                bit, xy, v = check_lanes(out, ref,
+                                         f'runner (22b) image {i} vs {name}')
+                bits[name] &= bit
+                worst[name] = max(worst.get(name, (0.0, 0.0)), (xy, v))
+            found.append((len(lane_poses(out[0])), int(out[1].sum())))
+            end_to_end = decode(*model(image)[:2])
+            moved.append(int(((out[0][0, ..., 0] > 0)
+                              != (end_to_end[0][0, ..., 0] > 0)).sum()))
+        fields = model(images[0])[:2]
+        noisy = [f * (1 + 1e-6 * torch.randn(
+            f.shape, device=f.device,
+            generator=torch.Generator(f.device).manual_seed(0)))
+            for f in fields]
+        chaos = int(((decode(*noisy)[0][0, ..., 0] > 0)
+                     != (decode(*fields)[0][0, ..., 0] > 0)).sum())
+    if not sum(n for n, _ in found):
+        raise AssertionError('runner (22b): no pose has a visible joint')
+    log(f'runner (22b) package: (poses with a visible joint, kept) {found} '
+        'per image; lane by lane within the pose gate of the eager '
+        'build_cifcaf_decoder and of phase 20\'s decode-only .pt2 program '
+        'on the fields package\'s fields, keep and order equal; bit-equal '
+        f'to eager {bits["eager"]}, to the .pt2 {bits["pt2"]}; largest (xy '
+        f'px, confidence) differences {worst}; its {len(calls)} CifHr calls '
+        'launched the kernel, each map bit-equal to the plain version. End '
+        'to end against the eager module graph and decode (not gated): '
+        f'{moved} joints per image differ in visibility; the eager decode '
+        f'of image 0\'s fields times (1 + 1e-6 noise) moves {chaos} [{card}]')
+
+    reset_launches(port)
+    program = torch.export.load(started['pt2']).module()
+    times = {'package': [], 'pt2 program': [], 'eager': []}
+    with torch.no_grad():
+        for image in images:
+            times['package'].append(event_ms(lambda: package(image)))
+            times['pt2 program'].append(event_ms(lambda: program(image)))
+            times['eager'].append(event_ms(
+                lambda: decode(*model(image)[:2])))
+        launches += read_launches(port)['cifhr_accumulate']
+        profiles = {
+            'package': decode_profile(lambda: package(images[0])),
+            'pt2 program': decode_profile(lambda: program(images[0])),
+            'eager': decode_profile(lambda: decode(*model(images[0])[:2]))}
+    log('runner (22b) NN plus decode, ms per image (CUDA events, median of '
+        f'{len(images)} images): '
+        + ', '.join(f'{k} {np.median(v):.2f} (min {min(v):.2f}, max '
+                    f'{max(v):.2f})' for k, v in times.items())
+        + '; image 0 (device ops, stream syncs, device busy ms): '
+        + ', '.join(f'{k} ({p[0]}, {p[1]}, {p[2]:.3f})'
+                    for k, p in profiles.items()) + f' [{card}]')
+    return package, launches
+
+
+#: the runner's ``--verbose`` line on all lanes of an image
+LANES_LINE = re.compile(r'^(.+): lanes (\d+) with a visible joint, (\d+) '
+                        r'kept, sums v (\S+) x (\S+) y (\S+)$', re.M)
+
+
+def phase_cpp_runner(made, package, files, device, card):
+    """22c: the image runner on ``files`` written as PPM at their own size
+    (no resize), against the Python-loaded package (``package``: the
+    loaded package and its path) on the same input: every lane equal
+    (:func:`lane_sums` of its ``--verbose`` lines, exactly) and one JSON
+    line per image equal, to the printed precision, to the package's kept
+    poses through JAX's extraction formula; its wall seconds and its C++
+    operator's CifHr launches, one per image. Returns its launches."""
+    import PIL.Image
+
+    ppm, inputs = [], []
+    for path in files:
+        pixels = np.asarray(PIL.Image.open(path).convert('RGB'))
+        ppm.append(path.rsplit('.', 1)[0] + '.ppm')
+        write_ppm(ppm[-1], pixels)
+        inputs.append(runner_input(pixels, device))
+    done, wall = timed(subprocess.run,
+                       [made.image, '--model', package[1], '--input-height',
+                        str(IMAGE_HW[0]), '--input-width', str(IMAGE_HW[1]),
+                        '--verbose', *ppm], capture_output=True, text=True,
+                       timeout=600, check=False)
+    lines = done.stdout.strip().splitlines()
+    sums = {m[0]: (int(m[1]), int(m[2]), *map(float, m[3:]))
+            for m in LANES_LINE.findall(done.stderr)}
+    if done.returncode != 0 or len(lines) != len(ppm) or \
+            sorted(sums) != sorted(ppm):
+        raise AssertionError(f'runner (22c): exit {done.returncode}, '
+                             f'{len(lines)} lines, {len(sums)} lane lines for '
+                             f'{len(ppm)} images:\n{done.stdout[-2000:]}'
+                             f'{done.stderr[-4000:]}')
+    launches = runner_launches(done.stderr, len(ppm), 'runner (22c)')
+    per_image = [float(m) for m in re.findall(r'load and run ([\d.]+) ms',
+                                              done.stderr)]
+    diffs, lanes = [0.0, 0.0, 0.0], []
+    with torch.no_grad():
+        for path, line, image in zip(ppm, lines, inputs):
+            line = json.loads(line)
+            if line['file'] != path:
+                raise AssertionError(f'runner (22c): line for '
+                                     f'{line["file"]}, expected {path}')
+            out = package[0](image)
+            ours = lane_sums(*out)
+            if sums[path] != ours:
+                raise AssertionError(f'runner (22c) {path}: the runner\'s '
+                                     f'lanes {sums[path]}, the package\'s in '
+                                     f'Python {ours}')
+            lanes.append(ours[:2])
+            diffs = [max(a, b) for a, b in zip(diffs, prediction_diffs(
+                line, runner_predictions(*out),
+                f'runner (22c) {os.path.basename(path)}'))]
+    if not sum(n for n, _ in lanes):
+        raise AssertionError('runner (22c): no pose has a visible joint')
+    log(f'runner (22c) openpifpaf-tpu-torch-image over {len(ppm)} '
+        f'{IMAGE_HW[0]}x{IMAGE_HW[1]} PPMs: (poses with a visible joint, '
+        f'kept) {lanes}; every lane equal to the Python-loaded package\'s on '
+        'the same normalised input (the sums of v, x and y over all lanes, '
+        'exactly), each JSON line equal to its kept poses through JAX\'s '
+        f'extraction formula within {RUNNER_ATOL} (the printed precision; '
+        f'largest differences: score {diffs[0]:.3g}, xy {diffs[1]:.3g} px, '
+        f'confidence {diffs[2]:.3g}); CifHr launched by the C++ operator '
+        f'{launches} times, one per image; wall {wall:.2f} s for the list '
+        '(process start and the package\'s load included), load and run '
+        f'{np.mean(per_image[1:]):.2f} ms per image after the first '
+        f'(first {per_image[0]:.2f}) [{card}]')
+    return launches
+
+
+def phase_video_runner(made, package, files, card):
+    """22d: the video runner on a RUNNER_VIDEO_FRAMES-frame clip where it
+    was built (it needs OpenCV); else a line saying why not."""
+    if not made.video:
+        log('runner (22d): the video runner was not built: CMake found no '
+            f'OpenCV on this machine (build {made.tool}) [{card}]')
+        return 0
+    import cv2
+    import PIL.Image
+
+    clip = os.path.join(os.path.dirname(files[0]), 'clip.avi')
+    first = np.asarray(PIL.Image.open(files[0]).convert('RGB'))
+    writer = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*'MJPG'), 10.0,
+                             (first.shape[1], first.shape[0]))
+    for path in files[:RUNNER_VIDEO_FRAMES]:
+        writer.write(np.asarray(PIL.Image.open(path).convert('RGB'))
+                     [:, :, ::-1].copy())
+    writer.release()
+    done = subprocess.run([made.video, '--model', package, '--source', clip,
+                           '--input-height', str(IMAGE_HW[0]),
+                           '--input-width', str(IMAGE_HW[1]), '--verbose'],
+                          capture_output=True, text=True, timeout=600,
+                          check=False)
+    lines = done.stdout.strip().splitlines()
+    if done.returncode != 0 or [json.loads(x)['frame'] for x in lines] != \
+            list(range(RUNNER_VIDEO_FRAMES)):
+        raise AssertionError(f'runner (22d): exit {done.returncode}, '
+                             f'{len(lines)} lines:\n{done.stderr[-3000:]}')
+    launches = runner_launches(done.stderr, RUNNER_VIDEO_FRAMES,
+                               'runner (22d)')
+    log(f'runner (22d) openpifpaf-tpu-torch-video on a '
+        f'{RUNNER_VIDEO_FRAMES}-frame clip: one line per frame, '
+        f'{launches} CifHr launches [{card}]')
+    return launches
+
+
+def phase_runner(port, started, device, card):
+    """Phase 22: (a) the package's export and the runner's build, started
+    after phase 11 (they run beside phases 12-21); (b) the package in
+    this process; (c) the image runner; (d) the video runner. Returns
+    {kernel: launches} of (b)-(d), the runners' counted by the C++
+    operator."""
+    t0 = time.perf_counter()
+    export_wall = started['export'].result()
+    fields_wall = started['export_fields'].result()
+    made, build_s = started['build'].result()
+    log(f'runner (22a) python -m openpifpaf_tpu_torch.export --format '
+        f'savedmodel --with-decoder --checkpoint posed-k16 at '
+        f'{IMAGE_HW[0]}x{IMAGE_HW[1]}: {export_wall:.1f} s wall (process '
+        'start, checkpoint load, export, AOTInductor compile; beside phases '
+        f'12-21), {os.path.getsize(started["package"])} bytes; without '
+        f'--with-decoder (the fields) {fields_wall:.1f} s, '
+        f'{os.path.getsize(started["fields"])} bytes; the C++ '
+        f'runner built with {made.tool} in {build_s:.1f} s (beside them), '
+        f'input {"JPEG and PPM" if made.jpeg else "PPM alone"} (jpeglib.h '
+        f'{made.jpeg or "not found"}), CifHr operator with CUDA {made.cuda}, '
+        f'video runner {"built" if made.video else "not built"} [{card}]')
+    if not made.cuda:
+        raise AssertionError('runner (22a): the operator was built without '
+                             'cifhr.cu')
+    files = write_pipe_requests(started['directory'])
+    package, launches = phase_package(
+        port, started, phase_images([files], device), device, card)
+    launches += phase_cpp_runner(made, (package, started['package']), files,
+                                 device, card)
+    launches += phase_video_runner(made, started['package'], files, card)
+    log(f'phase 22: CifHr launches {launches}; {time.perf_counter() - t0:.1f}'
+        f' s after phase 21 [{card}]')
+    return {'cifhr_accumulate': launches}
+
+
 def kernel_entry(name, source, replaces, launches, rows, row):
     """One kernel's entry of the JSON line: times and bound of ``row``,
     the largest error of all ``rows``."""
@@ -5664,27 +6131,33 @@ def main():
     lap('phases 6-10')
     phase_train(port, device, card)
     lap('phase 11')
-    launches['cifhr_accumulate'] += phase_other_backbones(port, device, card)
-    launches['cifhr_accumulate'] += phase_tracking(port, device, card)
-    launches['cifhr_accumulate'] += phase_tracking_training(port, device,
-                                                            card)
-    launches['cifhr_accumulate'] += phase_plugins_path(port, device, card)
-    lap('phases 12-15')
-    for name, count in phase_detection(port, device, card).items():
-        launches[name] += count
-    for name, count in phase_mix(port, device, card).items():
-        launches[name] += count
-    for name, count in phase_reference(port, device, card).items():
-        launches[name] += count
-    for name, count in phase_drawing(port, device, card).items():
-        launches[name] += count
-    lap('phases 16-19')
-    for name, count in phase_deploy(port, device, card).items():
-        launches[name] += count
-    lap('phase 20')
-    for name, count in phase_pipeline(port, device, card).items():
-        launches[name] += count
-    lap('phase 21')
+    with tempfile.TemporaryDirectory() as runner_dir, \
+            ThreadPoolExecutor(3) as runner_pool:
+        # phase 22's export compiles for minutes: it runs beside 12-21
+        started = start_runner(runner_pool, runner_dir)
+        launches['cifhr_accumulate'] += phase_other_backbones(port, device,
+                                                              card)
+        launches['cifhr_accumulate'] += phase_tracking(port, device, card)
+        launches['cifhr_accumulate'] += phase_tracking_training(
+            port, device, card)
+        launches['cifhr_accumulate'] += phase_plugins_path(port, device,
+                                                           card)
+        lap('phases 12-15')
+        for phase in (phase_detection, phase_mix, phase_reference,
+                      phase_drawing):
+            for name, count in phase(port, device, card).items():
+                launches[name] += count
+        lap('phases 16-19')
+        for name, count in phase_deploy(port, device, card,
+                                        runner_dir).items():
+            launches[name] += count
+        lap('phase 20')
+        for name, count in phase_pipeline(port, device, card).items():
+            launches[name] += count
+        lap('phase 21')
+        for name, count in phase_runner(port, started, device, card).items():
+            launches[name] += count
+        lap('phase 22')
 
     # no single PyTorch call computes the CifHr map; times at F=17 K=256
     entries = [kernel_entry('cifhr_accumulate', 'cifhr.cu',

@@ -6,14 +6,24 @@
 //
 // Exposed as a plain C API consumed via ctypes
 // (openpifpaf_tpu_torch/io/native.py), which builds it with g++ into the
-// port's build directory at first use.
+// port's build directory at first use, and linked into the C++ runner
+// (openpifpaf_tpu_torch/cpp/).
+//
+// Every build also reads binary PPM (P6, maxval 255): the one way to give
+// the C++ runner pixels on a machine without libjpeg's header. Built with
+// -DPIFPAF_NO_JPEG (the runner's build where jpeglib.h is not found) it
+// needs no libjpeg, reads PPM alone, and fails a JPEG with a message that
+// names the missing header.
 
 #include <cstddef>
 #include <cstdio>
 
+#ifndef PIFPAF_NO_JPEG
 #include <jpeglib.h>
+#endif
 
 #include <algorithm>
+#include <cctype>
 #include <cmath>
 #include <condition_variable>
 #include <cstdint>
@@ -36,6 +46,7 @@ struct Image {
     int width = 0;
 };
 
+#ifndef PIFPAF_NO_JPEG
 bool decode_jpeg(const uint8_t* bytes, size_t len, Image* out) {
     jpeg_decompress_struct cinfo;
     jpeg_error_mgr jerr;
@@ -62,6 +73,59 @@ bool decode_jpeg(const uint8_t* bytes, size_t len, Image* out) {
     jpeg_finish_decompress(&cinfo);
     jpeg_destroy_decompress(&cinfo);
     return true;
+}
+#endif  // PIFPAF_NO_JPEG
+
+// Binary PPM: "P6", width, height and maxval (255) as ASCII numbers
+// separated by whitespace and '#' comments, one whitespace byte, then
+// width * height RGB bytes.
+bool decode_ppm(const uint8_t* bytes, size_t len, Image* out) {
+    size_t pos = 2;
+    int fields[3] = {0, 0, 0};
+    for (int& field : fields) {
+        for (;;) {
+            while (pos < len && std::isspace(bytes[pos])) ++pos;
+            if (pos < len && bytes[pos] == '#') {
+                while (pos < len && bytes[pos] != '\n') ++pos;
+                continue;
+            }
+            break;
+        }
+        if (pos >= len || !std::isdigit(bytes[pos])) return false;
+        while (pos < len && std::isdigit(bytes[pos])) {
+            if (field > (1 << 20)) return false;
+            field = field * 10 + (bytes[pos++] - '0');
+        }
+    }
+    if (pos >= len || !std::isspace(bytes[pos]) || fields[2] != 255
+        || fields[0] <= 0 || fields[1] <= 0) {
+        return false;
+    }
+    ++pos;
+    const size_t n = size_t(fields[0]) * fields[1] * 3;
+    if (len - pos < n) return false;
+    out->width = fields[0];
+    out->height = fields[1];
+    out->data.assign(bytes + pos, bytes + pos + n);
+    return true;
+}
+
+// Decode a file's bytes, PPM by its magic "P6", else JPEG.
+bool decode_image(const uint8_t* bytes, size_t len, const char* path,
+                  Image* out) {
+    if (len >= 2 && bytes[0] == 'P' && bytes[1] == '6') {
+        return decode_ppm(bytes, len, out);
+    }
+#ifdef PIFPAF_NO_JPEG
+    std::fprintf(stderr,
+                 "pifpaf_io: %s: not binary PPM (P6), and this loader was "
+                 "built without JPEG support (jpeglib.h, libjpeg's header, "
+                 "was not found)\n", path);
+    return false;
+#else
+    (void)path;
+    return decode_jpeg(bytes, len, out);
+#endif
 }
 
 // Bilinear resize with the keypoint-aligned mapping used by the python
@@ -274,8 +338,8 @@ void preprocess_into(const Image& img, int long_edge, int out_h, int out_w,
 
 extern "C" {
 
-// Decode + preprocess a batch of JPEG files into a preallocated
-// (n, out_h, out_w, 3) float32 buffer. Returns the number of failures.
+// Decode + preprocess a batch of image files (JPEG, or binary PPM) into a
+// preallocated (n, out_h, out_w, 3) float32 buffer. Returns the number of failures.
 // scaled_sizes: (n, 4) int32 output per image:
 // (scaled_h, scaled_w, original_h, original_w).
 int pifpaf_load_batch(const char** paths, int n,
@@ -301,7 +365,7 @@ int pifpaf_load_batch(const char** paths, int n,
             if (long(n_read) != len) { failures[i] = 1; return; }
 
             Image img;
-            if (!decode_jpeg(bytes.data(), bytes.size(), &img)) {
+            if (!decode_image(bytes.data(), bytes.size(), path, &img)) {
                 failures[i] = 1;
                 return;
             }
@@ -345,7 +409,7 @@ int pifpaf_load_batch_u8(const char** paths, int n,
             if (long(n_read) != len) { failures[i] = 1; return; }
 
             Image img;
-            if (!decode_jpeg(bytes.data(), bytes.size(), &img)) {
+            if (!decode_image(bytes.data(), bytes.size(), path, &img)) {
                 failures[i] = 1;
                 return;
             }
@@ -402,12 +466,12 @@ int pifpaf_load_batch_u8(const char** paths, int n,
     return n_failures;
 }
 
-// Decode a single JPEG from memory into a preallocated uint8 HWC buffer
-// of capacity cap_h * cap_w * 3; writes actual (h, w) into size_out.
+// Decode a single JPEG (or binary PPM) from memory into a preallocated
+// uint8 HWC buffer of capacity cap_h * cap_w * 3; writes actual (h, w) into size_out.
 int pifpaf_decode_jpeg(const uint8_t* bytes, long len,
                        uint8_t* out, int cap_h, int cap_w, int* size_out) {
     Image img;
-    if (!decode_jpeg(bytes, size_t(len), &img)) return 1;
+    if (!decode_image(bytes, size_t(len), "<memory>", &img)) return 1;
     if (img.height > cap_h || img.width > cap_w) return 2;
     std::memcpy(out, img.data.data(), img.data.size());
     size_out[0] = img.height;

@@ -52,7 +52,10 @@ def _fixpoint(step, start, *operands):
         return new, (new != state).any().cpu()
 
     flag = torch.ones((), dtype=torch.bool)
-    return while_loop_op(changed, body, (start, flag), operands)[0]
+    # the carried state may alias no operand (the callers pass their
+    # start as an operand too): AOTInductor's functionalisation refuses
+    # a loop whose carried input is also one of its operands
+    return while_loop_op(changed, body, (start.clone(), flag), operands)[0]
 
 
 def _grid_shape(hr_shape, reduction):

@@ -10,8 +10,9 @@ k16 tracking forward against the CPU, the tracking golden sequence, a
 cocokpst train step), the wholebody-133 golden decode, detection (the
 CifDet golden decode, the engines under the cocodet head), a
 reference-layout k16 pickle served through the fused-block engine, the
-golden scene's decoding order drawn (where matplotlib is installed), and
-the pipelined serving loop with its decode on a side stream.
+golden scene's decoding order drawn (where matplotlib is installed),
+the pipelined serving loop with its decode on a side stream, and the CifHr
+call of an AOTInductor package.
 
 Every test here needs a GPU (marker ``gpu``) and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a machine that
@@ -189,6 +190,30 @@ def test_cuda_kernel_one_device_op_per_call(cuda):
     ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     assert cifhr_cuda.LAUNCHES == before + 1
     assert len(ops) == 1 and 'cifhr_band_kernel' in ops[0], ops
+
+
+class _CifhrProgram(torch.nn.Module):
+    def forward(self, x, y, sigma, w):
+        return cifhr_cuda.accumulate(x, y, sigma, w, hr_h=513, hr_w=641)
+
+
+def test_cuda_package_cifhr_call_is_the_kernel(cuda, tmp_path):
+    """In an AOTInductor package compiled for the card (``export --format
+    savedmodel``'s compile), the CifHr operator's call launches the
+    kernel: one counted launch, bit-equal to the plain version."""
+    from openpifpaf_tpu_torch import export
+
+    cells = random_cells(17, 256, 513, 641, seed=2, device=cuda)
+    with torch.no_grad():
+        program = torch.export.export(_CifhrProgram(), tuple(cells))
+    path = export.compile_package(program, str(tmp_path / 'cifhr.pt2'))
+    package = torch._inductor.aoti_load_package(path)
+    before = cifhr_cuda.LAUNCHES
+    out = package(*cells)
+    torch.cuda.synchronize()
+    assert cifhr_cuda.LAUNCHES == before + 1
+    ref = cifhr.accumulate_dense(*cells, hr_h=513, hr_w=641)
+    np.testing.assert_array_equal(out.cpu().numpy(), ref.cpu().numpy())
 
 
 def test_cuda_decode_matches_golden_jax_poses(cuda):
