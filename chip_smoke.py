@@ -159,7 +159,8 @@ Phases, each of which raises on failure (non-zero exit):
     (66) each served by a random full-width k16 with its heads (one
     request, field shapes, CifHr launches), then the tracking benchmark
     wrapper's ``--crowdpose`` over a synthetic CrowdPose set of 4 images
-    whose ``crowdIndex`` values cover the three buckets: each bucket's
+    whose ``crowdIndex`` values cover the three buckets (its four evals,
+    processes of their own, run beside phases 16-19): each bucket's
     eval sees the ids of the JAX package's buckets. In (a) and (c)-(e)
     the kernel on the cells of every CifHr call (F=133 in (a)-(d)) equals
     its plain version bit for bit. The CifHr launches of (c)-(e) are
@@ -350,6 +351,25 @@ Phases, each of which raises on failure (non-zero exit):
     launches, one per image; (d) the video runner on a 3-frame clip where
     OpenCV let it be built, else a line saying it was not. The launches of
     (b)-(d) are counted in the kernels line.
+
+23. the spatial ``('data', 'space')`` mesh, every shard on the one card
+    (the halo exchange's local side; NCCL between cards is its remote
+    side, which one card cannot run, and a line says so): (a) the
+    full-width k16 cocokp (random, seed 0) on the module graph and on
+    ``'dwpallas'`` and ``'pallas'`` with one 481x641 request's height
+    (padded to 513x641) split over 2 and 4 shards: its fields within 1e-4
+    (module graph) or ``ENGINE_TOL`` of the same engine unsharded (TF32
+    off), the engine's kernel launching 13 times per shard per forward,
+    every one of those launches held against its plain version on its
+    inputs, the decode of the gathered fields with its CifHr launches
+    (each call bit-equal to its plain version), NN ms per image (CUDA
+    events) and device ops at 1, 2 and 4 shards, then each kernel timed
+    at every shard tile it ran on; (b) one train step of the full-width
+    k16 on a batch of 8 at 385 px of the port's CocoKp pipeline, float32
+    with TF32 off, the height over 2 shards, against the unsharded step:
+    the loss within 1e-5, the parameters within rtol 1e-3, atol 1e-5;
+    each step's time and peak memory. The launches of (a) are counted in
+    the kernels line.
 
 The second-to-last line is a JSON object describing the kernels (with each
 one's bound: the larger of its bytes over the card's memory rate and its
@@ -1317,7 +1337,7 @@ def train_batch(data):
     return images, targets, datamodule.head_metas, model
 
 
-def make_trainer(model, metas, device, **flags):
+def make_trainer(model, metas, device, spatial=1, **flags):
     from openpifpaf_tpu_torch.training import losses, optimize
     from openpifpaf_tpu_torch.training.trainer import Trainer
     from torch_port_helpers import optimizer_args
@@ -1325,7 +1345,7 @@ def make_trainer(model, metas, device, **flags):
     optimizer, schedule = optimize.factory_optimizer(
         optimizer_args(**flags), training_batches_per_epoch=1)
     return Trainer(model, losses.Factory().factory(metas), optimizer,
-                   schedule, 'unused', device=device)
+                   schedule, 'unused', device=device, spatial=spatial)
 
 
 def step_state(trainer):
@@ -2796,17 +2816,11 @@ def serve_plugin(port, label, name, flags, n_kp, n_edges, device, card):
     return count, predictor.model
 
 
-def phase_plugins(port, directory, device, card):
+def phase_plugins(port, device, card):
     """15e: each of PLUGIN_CASES served by a random full-width k16 with its
     heads (seed 0): one request, its field shapes, its CifHr launches, the
-    kernel on each call's cells against its plain version; then
-    the tracking benchmark wrapper's ``--crowdpose`` with the crowdpose
-    model saved as a checkpoint, over a synthetic CrowdPose set whose
-    ``crowdIndex`` values cover the three buckets: each bucket's eval sees
-    the ids of CROWDPOSE_BUCKETS. Returns the requests' CifHr launches."""
-    from openpifpaf_tpu_torch.plugins.posetrack import benchmark
-    from torch_port_helpers import write_synthetic_crowdpose
-
+    kernel on each call's cells against its plain version. Returns the
+    requests' CifHr launches and the crowdpose model."""
     launches = 0
     crowdpose_model = None
     with kept_cifhr_calls(port.cifhr_cuda) as calls:
@@ -2817,6 +2831,18 @@ def phase_plugins(port, directory, device, card):
             if name == 'crowdpose':
                 crowdpose_model = model
     check_kept_calls(port, calls, 'plugin (15e)')
+    return launches, crowdpose_model
+
+
+def start_crowdpose_benchmark(pool, model, directory):
+    """15e: the tracking benchmark wrapper's ``--crowdpose`` with ``model``
+    saved as a checkpoint, over a synthetic CrowdPose set whose
+    ``crowdIndex`` values cover the three buckets, submitted to ``pool``:
+    the wrapper's four evals are processes of their own, and run beside
+    phases 16-19. The future gives the bucket ids each eval must see and
+    its wall seconds (:func:`finish_crowdpose_benchmark` checks them)."""
+    from openpifpaf_tpu_torch.plugins.posetrack import benchmark
+    from torch_port_helpers import write_synthetic_crowdpose
 
     ann_file, image_dir = write_synthetic_crowdpose(
         os.path.join(directory, 'crowdpose'), n_images=CROWDPOSE_IMAGES,
@@ -2834,25 +2860,35 @@ def phase_plugins(port, directory, device, card):
             raise AssertionError(f'crowdpose bucket {bucket} is empty')
     want[''] = sorted(with_people)
     ckpt = os.path.join(directory, 'crowdpose-k16')
-    save_checkpoint(ckpt, crowdpose_model, 'shufflenetv2k16')
+    save_checkpoint(ckpt, model, 'shufflenetv2k16')
     out = os.path.join(directory, 'crowdpose-bench')
-    # the wrapper's evals are ``python -m`` processes of this checkout
-    pythonpath = os.environ.get('PYTHONPATH')
-    os.environ['PYTHONPATH'] = os.pathsep.join(filter(None, (ROOT,
-                                                             pythonpath)))
-    t0 = time.perf_counter()
-    try:
-        benchmark.main(['--checkpoints', ckpt, '--crowdpose', '--output',
-                        out, '--crowdpose-val-annotations', ann_file,
-                        '--crowdpose-image-dir', image_dir,
-                        '--eval-loader-warmup', '0', '--loader-workers',
-                        '0'])
-    finally:
-        if pythonpath is None:
-            del os.environ['PYTHONPATH']
-        else:
-            os.environ['PYTHONPATH'] = pythonpath
-    wall = time.perf_counter() - t0
+
+    def run():
+        # the wrapper's evals are ``python -m`` processes of this checkout
+        pythonpath = os.environ.get('PYTHONPATH')
+        os.environ['PYTHONPATH'] = os.pathsep.join(filter(None, (
+            ROOT, pythonpath)))
+        t0 = time.perf_counter()
+        try:
+            benchmark.main(['--checkpoints', ckpt, '--crowdpose',
+                            '--output', out, '--crowdpose-val-annotations',
+                            ann_file, '--crowdpose-image-dir', image_dir,
+                            '--eval-loader-warmup', '0', '--loader-workers',
+                            '0'])
+        finally:
+            if pythonpath is None:
+                del os.environ['PYTHONPATH']
+            else:
+                os.environ['PYTHONPATH'] = pythonpath
+        return want, out, ckpt, time.perf_counter() - t0
+
+    return pool.submit(run)
+
+
+def finish_crowdpose_benchmark(future, card):
+    """Each bucket's eval of the benchmark of
+    :func:`start_crowdpose_benchmark` saw the ids of CROWDPOSE_BUCKETS."""
+    want, out, ckpt, wall = future.result()
     for suffix in ('', '.easy', '.medium', '.hard'):
         with open(os.path.join(out + suffix, ckpt.replace('/', '-')
                                + '.eval-crowdpose.stats.json')) as f:
@@ -2866,13 +2902,14 @@ def phase_plugins(port, directory, device, card):
         log(f'plugin (15e) crowdpose benchmark {bucket or "all"}: '
             f'{stats["n_images"]} images (ids {want[bucket]}), decoder '
             f'{stats["decoder_time"] / stats["n_images"] * 1e3:.2f} ms/image')
-    log(f'plugin (15e) crowdpose benchmark: 4 evals in {wall:.1f} s '
-        f'[{card}]')
-    return launches
+    log(f'plugin (15e) crowdpose benchmark: 4 evals in {wall:.1f} s beside '
+        f'phases 16-19 [{card}]')
 
 
-def phase_plugins_path(port, device, card):
-    """Phase 15: (a)-(e); returns the CifHr launches of (c)-(e)."""
+def phase_plugins_path(port, device, card, bench_pool, bench_dir):
+    """Phase 15: (a)-(e); returns the CifHr launches of (c)-(e) and the
+    future of the crowdpose benchmark, which runs in ``bench_pool`` with
+    its files in ``bench_dir``."""
     import tempfile
     from torch_port_helpers import write_synthetic_wholebody
 
@@ -2885,9 +2922,11 @@ def phase_plugins_path(port, device, card):
         launches = phase_wholebody_predict(port, ckpt, directory, device,
                                            card)
         launches += phase_wholebody_eval(port, ckpt, directory, card)
-        launches += phase_plugins(port, directory, device, card)
+        count, crowdpose_model = phase_plugins(port, device, card)
+        launches += count
+    bench = start_crowdpose_benchmark(bench_pool, crowdpose_model, bench_dir)
     log(f'phase 15: {launches} CifHr launches in (c)-(e)')
-    return launches
+    return launches, bench
 
 
 #: phase 16: the cocodet head of 80 categories at stride 16, the nuscenes
@@ -6077,6 +6116,278 @@ def phase_runner(port, started, device, card):
     return {'cifhr_accumulate': launches}
 
 
+#: phase 23: shards of each image's height, all on the one card
+SPATIAL_SHARDS = (2, 4)
+#: the engines of 23a and the kernel each launches on a shard's tile
+SPATIAL_ENGINES = {'flax': None, 'dwpallas': 'depthwise_conv',
+                   'pallas': 'shuffle_block'}
+#: 23a: the module graph's sharded fields against its unsharded ones,
+#: float32 with TF32 off (the engines: ENGINE_TOL, phase 7's gate)
+SPATIAL_TOL = dict(rtol=1e-4, atol=1e-4)
+#: forwards per NN time of 23a
+SPATIAL_NN_CALLS = 10
+#: 23b: the sharded step's loss against the unsharded one's, and its
+#: parameters
+SPATIAL_LOSS_RTOL = 1e-5
+SPATIAL_PARAM_TOL = dict(rtol=1e-3, atol=1e-5)
+
+
+def spatial_predictor(model, device, engine, shards):
+    """A Predictor of ``model`` on ``engine`` whose forward splits each
+    image's height over ``shards`` shards, all on ``device`` in this
+    process: the halo exchange's local side (one card holds every
+    shard; NCCL between cards is the remote side)."""
+    from openpifpaf_tpu_torch import parallel
+    from openpifpaf_tpu_torch.predictor import Predictor
+
+    return Predictor(model=model, device=device, backbone_engine=engine,
+                     mesh=parallel.grid_mesh(spatial=shards,
+                                             devices=[device] * shards))
+
+
+@contextlib.contextmanager
+def recorded_backbone_calls(port):
+    """Within: each call of ``dw_cuda.depthwise_conv`` and
+    ``shuffle_cuda.fused_block`` is kept (inputs and output cloned) in the
+    list this yields, as (name, args, keywords, output). A forward built
+    within binds the recording ``fused_block``, which records nothing
+    after the context: time a forward built outside it."""
+    calls = []
+    recording_on = [True]
+    saved = {'depthwise_conv': (port.dw_cuda, 'depthwise_conv'),
+             'shuffle_block': (port.shuffle_cuda, 'fused_block')}
+    originals = {name: getattr(m, attr) for name, (m, attr) in saved.items()}
+
+    def recording(name):
+        def call(*args, **kw):
+            out = originals[name](*args, **kw)
+            if not recording_on[0]:
+                return out
+            kw = dict(kw)
+            if 'weights' in kw:  # the engine binds the block's weights
+                args = args + (kw.pop('weights'),)
+            kept = [a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args]
+            calls.append((name, kept, kw, out.clone()))
+            return out
+        return call
+
+    for name, (module, attr) in saved.items():
+        setattr(module, attr, recording(name))
+    try:
+        yield calls
+    finally:
+        recording_on[0] = False
+        for name, (module, attr) in saved.items():
+            setattr(module, attr, originals[name])
+
+
+def check_shard_calls(port, calls, label):
+    """Each kept backbone kernel call against its plain version on the
+    same inputs (float32: F32_ATOL; call it with TF32 off, or the plain
+    version's 1x1 products round to TF32); returns {name: [(shape, first call's
+    args and keywords)]} of the distinct tile shapes."""
+    plain = {'depthwise_conv': port.dw_cuda.depthwise_conv_plain,
+             'shuffle_block': port.shuffle_cuda.fused_block_plain}
+    shapes = {}
+    worst = {}
+    for name, args, kw, out in calls:
+        err = float((out.float() - plain[name](*args, **kw).float())
+                    .abs().max())
+        if not err <= F32_ATOL:
+            raise AssertionError(f'{label}: {name} at {tuple(args[0].shape)} '
+                                 f'kernel vs plain max abs err {err}')
+        worst[name] = max(worst.get(name, 0.0), err)
+        shapes.setdefault(name, {}).setdefault(tuple(args[0].shape),
+                                               (args, kw))
+    for name, by_shape in shapes.items():
+        log(f'{label}: {name} kernel vs plain on each of its '
+            f'{sum(c[0] == name for c in calls)} calls within '
+            f'{worst[name]:.3g} (tol {F32_ATOL}); tiles '
+            f'{sorted(by_shape)}')
+    return shapes
+
+
+def phase_spatial_serve(port, device, card):
+    """23a: the full-width k16 (random, seed 0) on the module graph and on
+    ``'dwpallas'`` and ``'pallas'`` with each image's height split over
+    SPATIAL_SHARDS shards on the card: one 481x641 request's fields
+    against the same engine unsharded (TF32 off), the engine's kernel
+    launching FORWARD_LAUNCHES times per shard, every such launch held
+    against its plain version, the decode of the gathered fields with its
+    CifHr launches; NN ms per image and device ops at 1, 2 and 4 shards
+    of a second Predictor, built outside the recording; then each kernel
+    timed at its shard tiles. Returns {kernel: launches}."""
+    from openpifpaf_tpu_torch.predictor import Predictor
+
+    launches = {'cifhr_accumulate': 0, 'depthwise_conv': 0,
+                'shuffle_block': 0}
+    request = make_requests()[0]
+    image = test_image(device)
+    model = Predictor(device=device).model
+    tiles = {}
+    with kept_cifhr_calls(port.cifhr_cuda) as cifhr_calls:
+        for engine, kernel in SPATIAL_ENGINES.items():
+            tol = SPATIAL_TOL if kernel is None else ENGINE_TOL
+            plain = Predictor(model=model, device=device,
+                              backbone_engine=engine)
+            with no_tf32(), torch.inference_mode():
+                ref = plain.fields_batch(request)
+            times = {}
+            for shards in (1,) + SPATIAL_SHARDS:
+                if shards == 1:
+                    p = plain
+                else:
+                    with recorded_backbone_calls(port) as calls:
+                        checked = spatial_predictor(model, device, engine,
+                                                    shards)
+                        reset_launches(port)
+                        with no_tf32(), torch.inference_mode():
+                            out = checked.fields_batch(request)
+                        anns = list(checked.numpy_images(request))
+                        counts = read_launches(port)
+                    for name in ('depthwise_conv', 'shuffle_block'):
+                        want = 2 * FORWARD_LAUNCHES * shards \
+                            if name == kernel else 0
+                        if counts[name] != want:
+                            raise AssertionError(
+                                f'spatial (23a) {engine} x{shards}: '
+                                f'{counts[name]} {name} launches in 2 '
+                                f'forwards, want {want}')
+                        launches[name] += counts[name]
+                    launches['cifhr_accumulate'] += \
+                        counts['cifhr_accumulate']
+                    errs = compare_fields(out, ref,
+                                          f'spatial (23a) {engine} x{shards}',
+                                          **tol)
+                    log(f'spatial (23a) {engine} x{shards}: fields vs the '
+                        f'unsharded {engine}, max abs err per head {errs} '
+                        f'(TF32 off, rtol/atol {tol["rtol"]}); decode of '
+                        f'the gathered fields: {len(anns[0][0])} '
+                        f'annotations, {counts["cifhr_accumulate"]} CifHr '
+                        f'launches, {checked.last_decoder_time * 1e3:.2f}'
+                        f' ms; '
+                        f'launches {counts} [{card}]')
+                    with no_tf32():
+                        shard_tiles = check_shard_calls(
+                            port, calls, f'spatial (23a) {engine} x{shards}')
+                    for name, by_shape in shard_tiles.items():
+                        tiles.setdefault(name, {}).update(by_shape)
+                    del calls, checked
+                    # timed and traced: a Predictor whose forward binds
+                    # the kernels' own wrappers
+                    p = spatial_predictor(model, device, engine, shards)
+                with torch.inference_mode():
+                    ms = cuda_ms(lambda: p._forward(image), SPATIAL_NN_CALLS)
+                    ops = device_ops(lambda: p._forward(image))
+                times[shards] = (ms, len(ops))
+            log(f'spatial (23a) {engine}: NN ms per image (CUDA events, '
+                f'{FORWARD_HW[0]}x{FORWARD_HW[1]}) and device ops by shards '
+                + ', '.join(f'{s}: {ms:.3f} ms, {n} ops'
+                            for s, (ms, n) in times.items())
+                + f' [{card}]')
+    check_kept_calls(port, cifhr_calls, 'spatial (23a)')
+    kernels = {'depthwise_conv': (port.dw_cuda.depthwise_conv,
+                                  port.dw_cuda.depthwise_conv_plain),
+               'shuffle_block': (port.shuffle_cuda.fused_block,
+                                 port.shuffle_cuda.fused_block_plain)}
+    with no_tf32():
+        for name, by_shape in sorted(tiles.items()):
+            call, plain = kernels[name]
+            for shape, (args, kw) in sorted(by_shape.items()):
+                library = None
+                if name == 'depthwise_conv' and not kw.get('act', True):
+                    k = args[1].shape[-1]
+                    library = functools.partial(
+                        F.conv2d, padding=(k - 1) // 2 * kw['dilation'],
+                        dilation=kw['dilation'], groups=shape[1])
+                compare_and_time(name, f'shard tile {shape}', call, plain,
+                                 library, args, kw, torch.float32,
+                                 lambda ref: F32_ATOL, card)
+    return launches
+
+
+def spatial_train_step(trainer, images, targets, device):
+    """One float32 step (TF32 off) of ``trainer`` on the batch: (loss,
+    parameters, step ms by CUDA events, peak memory above what was held
+    before)."""
+    batch = (torch.from_numpy(images).to(device),
+             tuple(torch.from_numpy(t).to(device) for t in targets))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with no_tf32():
+        start.record()
+        loss, _ = trainer.train_step(*batch)
+        end.record()
+    torch.cuda.synchronize()
+    return (float(loss), {n: p.detach().clone() for n, p in
+                          trainer.model.named_parameters()},
+            start.elapsed_time(end),
+            torch.cuda.max_memory_allocated(device) - held)
+
+
+def phase_spatial_train(device, card):
+    """23b: one step of the full-width k16 (cocokp heads, random, seed 0)
+    on a batch of TRAIN_BATCH at TRAIN_EDGE px of the port's CocoKp
+    pipeline in float32 (TF32 off), each image's height split over 2
+    shards on the card, against the unsharded step: the loss and the
+    parameters; each step's time (CUDA events) and peak memory."""
+    import copy
+    from openpifpaf_tpu_torch.training.trainer import Trainer
+    from torch_port_helpers import restored_statics, write_synthetic_coco
+
+    with tempfile.TemporaryDirectory() as directory:
+        data = write_synthetic_coco(
+            os.path.join(directory, 'coco'), n_images=TRAIN_BATCH,
+            image_hw=TRAIN_IMAGE_HW, seed=TRAIN_SEED)
+        images, targets, metas, model = train_batch(data)
+    results = {}
+    with restored_statics(Trainer):
+        # the earlier phases' ``train.main`` runs configure the class
+        # (``--remat`` among them): the step here is the plain float32 one
+        Trainer.remat = Trainer.bf16 = False
+        for shards in (1, 2):
+            results[shards] = spatial_train_step(
+                make_trainer(copy.deepcopy(model), metas, device,
+                             spatial=shards, lr=1e-3, lr_warm_up_factor=1.0),
+                images, targets, device)
+    (loss, params, ms, peak), (sharded_loss, sharded, sharded_ms,
+                               sharded_peak) = results[1], results[2]
+    if not (np.isfinite(loss)
+            and abs(sharded_loss - loss) <= SPATIAL_LOSS_RTOL * abs(loss)):
+        raise AssertionError(f'spatial (23b): loss {sharded_loss} on 2 '
+                             f'shards, {loss} unsharded')
+    worst = 0.0
+    for name, p in params.items():
+        torch.testing.assert_close(sharded[name], p, **SPATIAL_PARAM_TOL,
+                                   msg=lambda m: f'spatial (23b) {name}: {m}')
+        worst = max(worst, float((sharded[name] - p).abs().max()))
+    rel = abs(sharded_loss - loss) / abs(loss)
+    log(f'spatial (23b): one step, batch {images.shape[0]} at '
+        f'{images.shape[1]} px, float32 (TF32 off): loss {sharded_loss} on '
+        f'2 shards, {loss} unsharded (rel {rel:.3g}, '
+        f'tol {SPATIAL_LOSS_RTOL}); parameters within {worst:.3g} (rtol '
+        f'{SPATIAL_PARAM_TOL["rtol"]}, atol {SPATIAL_PARAM_TOL["atol"]}); '
+        f'first step {sharded_ms:.1f} ms on 2 shards, {ms:.1f} ms unsharded '
+        f'(CUDA events, cuDNN picks its algorithms in it); peak memory '
+        f'{sharded_peak / 2 ** 30:.2f} GiB for both shards on the one card, '
+        f'{peak / 2 ** 30:.2f} GiB unsharded [{card}]')
+
+
+def phase_spatial(port, device, card):
+    """Phase 23; returns {kernel: launches} of 23a."""
+    launches = phase_spatial_serve(port, device, card)
+    phase_spatial_train(device, card)
+    log('spatial (23): every shard on the one card, the halo exchange\'s '
+        'local side; NCCL between cards (its remote side) is not measured '
+        'here: the machine has one card')
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, rows, row):
     """One kernel's entry of the JSON line: times and bound of ``row``,
     the largest error of all ``rows``."""
@@ -6132,7 +6443,9 @@ def main():
     phase_train(port, device, card)
     lap('phase 11')
     with tempfile.TemporaryDirectory() as runner_dir, \
-            ThreadPoolExecutor(3) as runner_pool:
+            ThreadPoolExecutor(3) as runner_pool, \
+            tempfile.TemporaryDirectory() as bench_dir, \
+            ThreadPoolExecutor(1) as bench_pool:
         # phase 22's export compiles for minutes: it runs beside 12-21
         started = start_runner(runner_pool, runner_dir)
         launches['cifhr_accumulate'] += phase_other_backbones(port, device,
@@ -6140,13 +6453,15 @@ def main():
         launches['cifhr_accumulate'] += phase_tracking(port, device, card)
         launches['cifhr_accumulate'] += phase_tracking_training(
             port, device, card)
-        launches['cifhr_accumulate'] += phase_plugins_path(port, device,
-                                                           card)
+        count, crowdpose_bench = phase_plugins_path(port, device, card,
+                                                    bench_pool, bench_dir)
+        launches['cifhr_accumulate'] += count
         lap('phases 12-15')
         for phase in (phase_detection, phase_mix, phase_reference,
                       phase_drawing):
             for name, count in phase(port, device, card).items():
                 launches[name] += count
+        finish_crowdpose_benchmark(crowdpose_bench, card)
         lap('phases 16-19')
         for name, count in phase_deploy(port, device, card,
                                         runner_dir).items():
@@ -6158,6 +6473,9 @@ def main():
         for name, count in phase_runner(port, started, device, card).items():
             launches[name] += count
         lap('phase 22')
+        for name, count in phase_spatial(port, device, card).items():
+            launches[name] += count
+        lap('phase 23')
 
     # no single PyTorch call computes the CifHr map; times at F=17 K=256
     entries = [kernel_entry('cifhr_accumulate', 'cifhr.cu',

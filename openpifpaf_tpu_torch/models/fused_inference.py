@@ -23,6 +23,10 @@ Engines over the fold:
   mode of that kernel, interleaved in PyTorch.
 The stem, the strided first-in-stage blocks and conv5 stay on cuDNN in
 every engine, as they stay on XLA convolutions in the JAX package.
+
+:func:`folded_rows_forward` and :func:`block_rows_forward` run the same
+engines on an image split along H over the spatial mesh's shards, the
+kernels on haloed tiles (see the section below).
 """
 
 import dataclasses
@@ -34,6 +38,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from . import dw_cuda, shuffle_cuda
+from ..parallel import spatial
 from .basenetworks import ShuffleNetV2K, activation, channel_interleave2
 
 MODES = ('conv', 'dwpallas')
@@ -53,15 +58,26 @@ class FoldedConv:
     #: CUDA kernel of :mod:`.dw_cuda`, every other conv on cuDNN)
     mode: str = 'conv'
 
-    def __call__(self, x):
-        k = self.weight.shape[-1]
-        if self.mode == 'dwpallas' and self.groups == x.shape[1] \
-                and k > 1 and self.stride == 1 and self.weight.shape[1] == 1:
+    @property
+    def padding(self):
+        return (self.weight.shape[-1] - 1) // 2 * self.dilation
+
+    def on_kernel(self):
+        """Whether the call launches the depthwise kernel."""
+        return self.mode == 'dwpallas' and self.weight.shape[1] == 1 \
+            and self.groups == self.weight.shape[0] \
+            and self.weight.shape[-1] > 1 and self.stride == 1
+
+    def __call__(self, x, pad_rows=True):
+        """The conv of ``x``; ``pad_rows=False`` pads along W only (a
+        shard's tile, whose rows' padding is the row plan's)."""
+        if self.on_kernel():
             return dw_cuda.depthwise_conv(
                 x, self.weight, self.bias, dilation=self.dilation,
                 act=self.act, leaky=self.non_linearity == 'leaky_relu')
+        pad = self.padding
         y = F.conv2d(x, self.weight, self.bias, stride=self.stride,
-                     padding=(k - 1) // 2 * self.dilation,
+                     padding=(pad if pad_rows else 0, pad),
                      dilation=self.dilation, groups=self.groups)
         return activation(y, self.non_linearity) if self.act else y
 
@@ -158,10 +174,7 @@ def fold_shufflenet(base_net) -> FoldedShuffleNetV2K:
     return FoldedShuffleNetV2K(stem=stem, blocks=blocks, conv5=conv5)
 
 
-def block_forward(folded, dtype, fused_op):
-    """Forward fn of ``folded`` in ``dtype`` with every non-first stride-1
-    block replaced by ``fused_op(x, weights, k=, dilation=, leaky=)``.
-    Takes and returns channels_last NCHW tensors."""
+def _block_ops(folded, dtype, fused_op):
     folded = folded.cast(dtype)
     ops = []
     for op in folded.blocks + folded.conv5:
@@ -174,7 +187,14 @@ def block_forward(folded, dtype, fused_op):
                 leaky=dw.non_linearity == 'leaky_relu'))
         else:
             ops.append(op)
-    ops = folded.stem + ops
+    return folded.stem + ops
+
+
+def block_forward(folded, dtype, fused_op):
+    """Forward fn of ``folded`` in ``dtype`` with every non-first stride-1
+    block replaced by ``fused_op(x, weights, k=, dilation=, leaky=)``.
+    Takes and returns channels_last NCHW tensors."""
+    ops = _block_ops(folded, dtype, fused_op)
 
     def forward(x):
         x = x.to(dtype)
@@ -201,3 +221,89 @@ def build_fused_backbone(model, dtype=torch.bfloat16):
     """The folded ``model.base_net`` with its weights in ``dtype``; raises
     ``ValueError`` when it does not fold."""
     return fold_shufflenet(getattr(model, 'base_net', model)).cast(dtype)
+
+
+# The engines on an activation split along H (the spatial mesh). Each
+# function takes the op of every local shard (the folds of the
+# replica on each shard's device) and a ``parallel.spatial.Rows``. Both
+# kernels pad 'SAME': a call that launches one runs on the shard's tile
+# extended by the kernel's halo from real neighbours only (clipped at the
+# global edges) and its output's halo rows are cropped
+# (``spatial.halo_op``), which is exact at the global edges too. Padding
+# the block's input with zero rows instead would not be: its first 1x1
+# turns a zero row into relu(b1) before the depthwise reads it. Every
+# other conv runs through the row plan, conv by conv (``spatial.row_op``).
+
+
+def _channels_last(x):
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+def conv_rows(convs, rows):
+    """A :class:`FoldedConv` on its shard."""
+    c = convs[0]
+    if c.on_kernel():
+        return spatial.halo_op(rows, c.padding,
+                               lambda k, x: convs[k](_channels_last(x)))
+    k = c.weight.shape[-1]
+    if k == 1 and c.stride == 1:
+        return rows.map(lambda j, x: convs[j](x))
+    return spatial.row_op(rows, spatial.RowOp(k, c.stride, c.padding,
+                                              c.dilation),
+                          lambda j, x: convs[j](_channels_last(x),
+                                                pad_rows=False))
+
+
+def block_rows(blocks, rows):
+    """A :class:`FoldedBlock` on its shard, conv by conv."""
+    convs = [b.convs for b in blocks]
+
+    def chain(indices, x):
+        for i in indices:
+            x = conv_rows([c[i] for c in convs], x)
+        return x
+
+    interleave = (lambda k, a, b: channel_interleave2(a, b))
+    if not blocks[0].first_in_stage:
+        x1 = rows.map(lambda k, t: t.chunk(2, dim=1)[0])
+        x2 = rows.map(lambda k, t: t.chunk(2, dim=1)[1])
+        return x1.map2(chain((0, 1, 2), x2), interleave)
+    return chain((0, 1), rows).map2(chain((2, 3, 4), rows), interleave)
+
+
+def op_rows(ops, rows):
+    """One op of an engine's list on its shard: a conv, a block, or a
+    fused-block kernel call (``functools.partial`` of ``fused_op``)."""
+    op = ops[0]
+    if isinstance(op, FoldedConv):
+        return conv_rows(ops, rows)
+    if isinstance(op, FoldedBlock):
+        return block_rows(ops, rows)
+    halo = (op.keywords['k'] - 1) // 2 * op.keywords['dilation']
+    return spatial.halo_op(rows, halo,
+                           lambda k, x: ops[k](_channels_last(x)))
+
+
+def _rows_forward(op_lists, dtype):
+    def forward(rows):
+        rows = rows.map(lambda k, x: x.to(dtype))
+        for ops in zip(*op_lists):
+            rows = op_rows(list(ops), rows)
+        return rows
+
+    return forward
+
+
+def folded_rows_forward(folds, dtype):
+    """The spatial forward of :class:`FoldedShuffleNetV2K` ``folds`` (one
+    per local shard, in their mode: ``'conv'`` or ``'dwpallas'``) in
+    ``dtype``: ``fn(rows) -> rows``."""
+    folds = [f.cast(dtype) for f in folds]
+    return _rows_forward([f.stem + f.blocks + f.conv5 for f in folds], dtype)
+
+
+def block_rows_forward(folds, dtype, fused_op):
+    """The spatial forward of :func:`block_forward`: every non-first
+    stride-1 block through ``fused_op`` on its shard's haloed tile."""
+    return _rows_forward([_block_ops(f, dtype, fused_op) for f in folds],
+                         dtype)

@@ -8,7 +8,8 @@ in the JAX order ``f * n_components + c``; optional PixelShuffle
 upsampling with a symmetric crop. In train mode the raw (B, F, C, H, W)
 tensor is returned, for the loss; otherwise the inference
 post-processing runs in the forward: sigmoid on confidences, the
-coordinate index added to the regressions, softplus on the scales. The
+coordinate index added to the regressions, softplus on the scales
+(``postprocess``, which the spatial forward also runs on each shard). The
 output is (B, F, C, H, W), as in the JAX package.
 """
 
@@ -71,20 +72,31 @@ class CompositeField4(nn.Module):
         x = x.reshape(batch, meta.n_fields, n_components, height, width)
         if train:
             return x
+        return postprocess(x, meta)
 
-        nc = meta.n_confidences
-        nv = meta.n_vectors
-        ns = meta.n_scales
-        parts = [x[:, :, 0:1], torch.sigmoid(x[:, :, 1:1 + nc])]
-        if nv > 0:
-            idx = index_field((height, width), device=x.device)[None, None]
-            for i, do_offset in enumerate(meta.vector_offsets):
-                reg = x[:, :, 1 + nc + 2 * i:1 + nc + 2 * i + 2]
-                parts.append(reg + idx if do_offset else reg)
-        if ns > 0:
-            parts.append(F.softplus(
-                x[:, :, 1 + nc + 2 * nv:1 + nc + 2 * nv + ns]))
-        return torch.cat(parts, dim=2)
+
+def postprocess(x, meta, row0=0):
+    """The inference post-processing of raw (B, F, C, H, W) fields:
+    sigmoid on the confidences, the coordinate index added to the
+    regressions that ``meta.vector_offsets`` marks, softplus on the
+    scales. ``row0`` is the global row of ``x``'s first row (a shard of
+    the fields' height)."""
+    nc = meta.n_confidences
+    nv = meta.n_vectors
+    ns = meta.n_scales
+    parts = [x[:, :, 0:1], torch.sigmoid(x[:, :, 1:1 + nc])]
+    if nv > 0:
+        idx = index_field((x.shape[3], x.shape[4]), device=x.device)
+        if row0:
+            idx[1] += row0
+        idx = idx[None, None]
+        for i, do_offset in enumerate(meta.vector_offsets):
+            reg = x[:, :, 1 + nc + 2 * i:1 + nc + 2 * i + 2]
+            parts.append(reg + idx if do_offset else reg)
+    if ns > 0:
+        parts.append(F.softplus(
+            x[:, :, 1 + nc + 2 * nv:1 + nc + 2 * nv + ns]))
+    return torch.cat(parts, dim=2)
 
 
 def pif_hflip(fields, keypoints, hflip):

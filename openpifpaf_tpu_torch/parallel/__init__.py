@@ -1,4 +1,4 @@
-"""Data-parallel distribution (port of ``openpifpaf_tpu/parallel/``).
+"""Distribution (port of ``openpifpaf_tpu/parallel/``).
 
 JAX expresses every parallel form through ``jax.sharding`` over a
 ``Mesh``; the port uses ``torch.distributed`` process groups and explicit
@@ -8,27 +8,28 @@ devices:
   torchrun's environment (NCCL on the card, gloo on the CPU);
 - :func:`data_mesh` is the data axis: a list of devices and the process
   group of the ranks;
-- :func:`local_batch_slice` and :func:`shard_batch` give each rank or
-  device its part of a global batch;
-- :class:`ShardedForward` splits a forward batch over local devices;
+- :func:`grid_mesh` is the ``('data', 'space')`` mesh: images split along
+  H over the space axis, whose halo exchanges and row plan are
+  :mod:`.spatial` and whose module graph is :mod:`.spatial_model`;
+- :func:`image_sharding`, :func:`field_sharding`, :func:`replicate`,
+  :func:`local_batch_slice` and :func:`shard_batch` give each rank or
+  device its part of a global tensor;
+- :class:`ShardedForward` splits a forward batch over local devices, and
+  each image's height over the space axis of a grid mesh;
 - :func:`cross_rank_batch_norm` reduces BatchNorm statistics over the
   ranks of a DDP step, as JAX's sharded step does over the global batch.
-
-The ``('data', 'space')`` mesh (images sharded along H with halo
-exchanges) is not ported: :func:`grid_mesh` with ``spatial > 1``,
-:func:`image_sharding` and :func:`field_sharding` raise, naming ROADMAP
-A12(b).
 """
 
 from .batch_norm import cross_rank_batch_norm
 from .inference import ShardedForward
-from .mesh import (DataMesh, data_mesh, field_sharding, grid_mesh,
+from .mesh import (DataMesh, GridMesh, data_mesh, field_sharding, grid_mesh,
                    image_sharding, initialize_multihost, local_batch_slice,
-                   rank_mean, rank_seed, shard_batch, shard_loader)
+                   rank_mean, rank_seed, replicate, shard_batch,
+                   shard_loader)
 
 __all__ = [
-    'DataMesh', 'ShardedForward', 'cross_rank_batch_norm', 'data_mesh',
-    'field_sharding', 'grid_mesh', 'image_sharding', 'initialize_multihost',
-    'local_batch_slice', 'rank_mean', 'rank_seed', 'shard_batch',
-    'shard_loader',
+    'DataMesh', 'GridMesh', 'ShardedForward', 'cross_rank_batch_norm',
+    'data_mesh', 'field_sharding', 'grid_mesh', 'image_sharding',
+    'initialize_multihost', 'local_batch_slice', 'rank_mean', 'rank_seed',
+    'replicate', 'shard_batch', 'shard_loader',
 ]

@@ -8,7 +8,9 @@ deviations from the global mean (the variance it normalises with, in two
 passes as ``F.batch_norm`` computes it: E[x^2] - E[x]^2 cancels where the
 mean is large), and the two per-channel sums of its backward, over a
 process group. It runs under gloo on the CPU and NCCL on the card
-(``torch.nn.SyncBatchNorm`` refuses CPU tensors).
+(``torch.nn.SyncBatchNorm`` refuses CPU tensors). On the spatial mesh
+:func:`rows_batch_norm` takes the statistics of an activation split along
+H over the owned rows of its shards and every rank.
 """
 
 import torch
@@ -71,3 +73,27 @@ def cross_rank_batch_norm(x, weight, bias, eps, group):
     every rank of ``group``; returns ``(y, mean, var)``, the statistics
     for the running buffers (the variance as flax's E[x^2] - E[x]^2)."""
     return _CrossRankBatchNorm.apply(x, weight, bias, eps, group)
+
+
+def rows_batch_norm(norms, rows, train):
+    """A :class:`..models.basenetworks.BatchNorm` on an activation split
+    along H (:class:`.spatial.Rows`), ``norms[k]`` the module of local
+    shard ``k``. In eval it is per pixel on each shard. In train the
+    count, sum and sum of squares (and the backward's two sums) are taken
+    over the owned rows of every local shard, never over halo rows, and,
+    with the module's process group, reduced over every rank of the data x
+    space mesh (:func:`cross_rank_batch_norm`): the local shards are
+    concatenated along H for the first module, which keeps the batch
+    statistics, and split back."""
+    if not train:
+        return rows.map(lambda k, x: norms[k](x, False))
+    first = rows.parts[0].device
+    y = norms[0](torch.cat([p.to(first) for p in rows.parts], dim=rows.dim),
+                 True)
+    parts = []
+    start = 0
+    for p in rows.parts:
+        height = p.shape[rows.dim]
+        parts.append(y.narrow(rows.dim, start, height).to(p.device))
+        start += height
+    return rows.like(parts)

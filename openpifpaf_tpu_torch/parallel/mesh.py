@@ -1,5 +1,5 @@
-"""Process groups, the data axis, batch sharding (port of
-``openpifpaf_tpu/parallel/mesh.py``)."""
+"""Process groups, the data axis, the ``('data', 'space')`` grid, batch
+and row sharding (port of ``openpifpaf_tpu/parallel/mesh.py``)."""
 
 import dataclasses
 import logging
@@ -10,12 +10,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-LOG = logging.getLogger(__name__)
+from .spatial import SpaceAxis, split_rows
 
-#: the error of the spatial mesh, which is not ported
-SPATIAL_NOT_PORTED = ('the (data, space) mesh (images sharded along H with '
-                      'halo exchanges) is not yet ported to PyTorch '
-                      '(ROADMAP A12(b))')
+LOG = logging.getLogger(__name__)
 
 
 def initialize_multihost(device_type='cuda', *, init_method=None,
@@ -77,20 +74,142 @@ def data_mesh(n_devices=None, *, device_type='cuda', group=None):
     return DataMesh(_local_devices(n_devices, device_type), group)
 
 
-def grid_mesh(n_devices=None, *, spatial=1, device_type='cuda'):
-    """The data axis; a spatial axis (``spatial > 1``) raises."""
-    if spatial > 1:
-        raise NotImplementedError(f'grid_mesh(spatial={spatial}): '
-                                  + SPATIAL_NOT_PORTED)
-    return data_mesh(n_devices, device_type=device_type)
+@dataclasses.dataclass
+class GridMesh:
+    """The ``('data', 'space')`` mesh: ``spatial`` shards of each image's
+    height. This process holds ``devices``; across ``group``'s ranks
+    (None: one process) rank r's device i is global device
+    ``g = r * len(devices) + i``, at data index ``g // spatial`` and space
+    index ``g % spatial``, as JAX reshapes its device list. This class is
+    the one place that knows the layout: the Predictor, the Trainer and
+    ``train.py`` read theirs from it. Raises ``ValueError`` when
+    ``spatial`` does not divide the devices, as JAX does, or when a space
+    axis would split a rank's devices unevenly."""
+    devices: List[torch.device]
+    spatial: int
+    group: Optional[object] = None
+
+    axis_names = ('data', 'space')
+
+    def __post_init__(self):
+        if self.n_devices % self.spatial:
+            raise ValueError(f'{self.n_devices} devices not divisible by '
+                             f'spatial={self.spatial}')
+        per_rank = len(self.devices)
+        if per_rank % self.spatial and self.spatial % per_rank:
+            raise ValueError(f'spatial={self.spatial} neither divides nor '
+                             f'is a multiple of the {per_rank} devices of '
+                             'a rank')
+
+    @property
+    def rank(self):
+        return _rank_and_size(self.group)[0]
+
+    @property
+    def n_devices(self):
+        return len(self.devices) * _rank_and_size(self.group)[1]
+
+    @property
+    def shape(self):
+        """(data, space)."""
+        return self.n_devices // self.spatial, self.spatial
+
+    def cells(self):
+        """``(data, space)`` of each local device."""
+        base = self.rank * len(self.devices)
+        return [divmod(base + i, self.spatial)
+                for i in range(len(self.devices))]
+
+    def space_axes(self, group=None):
+        """``(data index, SpaceAxis)`` of each data index that this
+        process holds shards of. A space axis that spans ranks reaches
+        their shards through point-to-point messages on ``group``
+        (default: the default group), which holds ``self.group``'s
+        ranks."""
+        by_data = {}
+        for device, (d, s) in zip(self.devices, self.cells()):
+            by_data.setdefault(d, []).append((s, device))
+        per_rank = len(self.devices)
+        axes = []
+        for d, shards in sorted(by_data.items()):
+            owners = None
+            if len(shards) < self.spatial:
+                ranks = dist.get_process_group_ranks(
+                    self.group or dist.group.WORLD)
+                owners = tuple(ranks[(d * self.spatial + s) // per_rank]
+                               for s in range(self.spatial))
+            axes.append((d, SpaceAxis(
+                self.spatial, tuple(s for s, _ in shards),
+                tuple(device for _, device in shards), owners, group)))
+        return axes
+
+
+def grid_mesh(n_devices=None, *, spatial=1, device_type='cuda',
+              devices=None):
+    """The 2-D ``('data', 'space')`` mesh over ``n_devices`` local devices
+    (all visible CUDA devices by default) and the ranks of the initialised
+    default group: images split along H over ``spatial`` devices, batches
+    over the rest. ``devices`` lists the local devices instead, one of
+    them possibly more than once (several shards on one card).
+    ``spatial=1`` is the data axis (:class:`DataMesh`). Raises
+    ``ValueError`` as :class:`GridMesh` does."""
+    if devices is None:
+        devices = _local_devices(n_devices, device_type)
+    group = dist.group.WORLD if dist.is_initialized() else None
+    if spatial <= 1:
+        return DataMesh(list(devices), group)
+    return GridMesh(list(devices), spatial, group)
+
+
+@dataclasses.dataclass
+class Sharding:
+    """How a tensor is split over a mesh: ``batch_dim`` over the data
+    axis, ``row_dim`` over the space axis (None: not split)."""
+    mesh: object
+    batch_dim: Optional[int] = None
+    row_dim: Optional[int] = None
+
+    def shard(self, x):
+        """This process's part of the whole tensor ``x`` on each of its
+        devices (a list over ``mesh.devices``)."""
+        mesh = self.mesh
+        if isinstance(mesh, GridMesh):
+            (n_data, n_space), cells = mesh.shape, mesh.cells()
+        else:
+            rank, size = _rank_and_size(mesh.group)
+            n_data, n_space = size * len(mesh.devices), 1
+            cells = [(rank * len(mesh.devices) + i, 0)
+                     for i in range(len(mesh.devices))]
+        parts = []
+        for device, (d, s) in zip(mesh.devices, cells):
+            part = x
+            if self.batch_dim is not None:
+                if x.shape[self.batch_dim] % n_data:
+                    raise ValueError(f'batch of {x.shape[self.batch_dim]} '
+                                     f'not divisible by {n_data}')
+                part = part.chunk(n_data, self.batch_dim)[d]
+            if self.row_dim is not None and n_space > 1:
+                a, b = split_rows(x.shape[self.row_dim], n_space)[s]
+                part = part.narrow(self.row_dim, a, b - a)
+            parts.append(part.to(device))
+        return parts
 
 
 def image_sharding(mesh):
-    raise NotImplementedError('image_sharding: ' + SPATIAL_NOT_PORTED)
+    """(B, H, W, C) images: batch over 'data', H over 'space' when the
+    mesh has a spatial axis."""
+    return Sharding(mesh, 0, 1 if isinstance(mesh, GridMesh) else None)
 
 
 def field_sharding(mesh):
-    raise NotImplementedError('field_sharding: ' + SPATIAL_NOT_PORTED)
+    """(B, F, C, fh, fw) fields and targets matching
+    :func:`image_sharding`: fh over 'space'."""
+    return Sharding(mesh, 0, 3 if isinstance(mesh, GridMesh) else None)
+
+
+def replicate(mesh):
+    """A tensor whole on every device."""
+    return Sharding(mesh)
 
 
 def _rank_and_size(group):

@@ -73,8 +73,10 @@ def cli(args=None):
                              'CUDA devices, one replica each; the fields '
                              'are decoded on the first')
     parser.add_argument('--spatial-devices', default=None, type=int,
-                        help='more than 1 (the image height sharded over '
-                             'devices) is not yet ported (ROADMAP A12(b))')
+                        help='with --n-devices: split each image\'s height '
+                             'over this many of the devices (halo '
+                             'exchanges); the fields are decoded whole on '
+                             'the first')
     parser.add_argument('-o', '--image-output', default=None, nargs='?',
                         const=True, help='image output file or directory')
     parser.add_argument('--json-output', default=None, nargs='?',
@@ -91,10 +93,6 @@ def cli(args=None):
     show.cli(parser)
 
     args = parser.parse_args(args)
-    if args.spatial_devices is not None and args.spatial_devices > 1:
-        from .parallel.mesh import SPATIAL_NOT_PORTED
-        raise NotImplementedError('--spatial-devices > 1: '
-                                  + SPATIAL_NOT_PORTED)
     logger.configure(args, LOG)
     decoder.configure(args)
     visualizer.configure(args)
@@ -121,7 +119,8 @@ def main(args=None):
     args = cli(args)
     predictor = Predictor(checkpoint=args.checkpoint, device=args.device,
                           backbone_engine=args.backbone_engine,
-                          bf16=args.bf16, n_devices=args.n_devices)
+                          bf16=args.bf16, n_devices=args.n_devices,
+                          spatial_devices=args.spatial_devices)
     predictor.batch_size = args.batch_size
     predictor.pipeline_decode = args.pipeline_decode
     predictor.hflip_tta = args.hflip_tta

@@ -9,7 +9,8 @@ The serving loop is pipelined one batch deep (``pipeline_decode``): batch
 i+1's forward is queued on the card before batch i's decode runs, on a
 side CUDA stream, so the card runs the forward while the host decodes.
 ``n_devices`` splits the forward batch over that many local devices
-(:class:`.parallel.ShardedForward`).
+(:class:`.parallel.ShardedForward`), and ``spatial_devices`` each image's
+height over that many of them (the ``('data', 'space')`` grid mesh).
 Test-time options: the horizontal flip (``hflip_tta``), several scales
 merged (``multi_scale``), and large batches forwarded in chunks
 (``nn_chunk_size``, off by default). A list of JPEG files with a
@@ -31,7 +32,7 @@ from . import datasets, decoder, headmeta, parallel, transforms
 from .datasets.collate import collate_images_anns_meta
 from .datasets.loader_with_reset import LoaderWithReset
 from .models import factory as models_factory
-from .models import fused_inference
+from .models import fused_inference, shuffle_cuda
 from .models.basenetworks import ShuffleNetV2K
 from .models.heads import paf_hflip, pif_hflip
 from .models.tracking import TrackingShell
@@ -98,10 +99,13 @@ class Predictor:
     #: the CUDA events around the forward that ``fields_batch`` queued
     #: last (pipelined on the card), else None
     _nn_events = None
+    #: devices each image's height is split over (with ``n_devices``)
+    spatial_devices = None
 
     def __init__(self, checkpoint=None, head_metas=None, *, model=None,
                  device=None, json_data=False, backbone_engine='auto',
-                 bf16=False, n_devices=None):
+                 bf16=False, n_devices=None, spatial_devices=None,
+                 mesh=None):
         """Without ``model``: the checkpoint at ``checkpoint`` (the port's,
         a reference ``.pkl`` or a published name of
         ``models.factory.CHECKPOINT_URLS``), with ``head_metas``
@@ -133,6 +137,14 @@ class Predictor:
         serving forward on each, and gathers the fields on the first for
         the decode; fewer visible cards raise ``ValueError``. With
         ``device='cpu'`` the replicas are all on the CPU.
+        ``spatial_devices`` (more than 1, dividing ``n_devices``) makes
+        that a ``('data', 'space')`` grid: each image's height is split
+        over ``spatial_devices`` of them with halo exchanges, on the
+        module graph or the backbone engine, and the fields are gathered
+        whole for the decode. ``mesh`` (a mesh of :mod:`.parallel`)
+        serves over its devices in place of the one these two make: e.g.
+        ``parallel.grid_mesh(spatial=S, devices=[card] * S)``, every shard
+        of the height on one card.
         """
         if backbone_engine not in BACKBONE_ENGINES:
             raise ValueError(f'unknown backbone engine {backbone_engine!r}; '
@@ -170,9 +182,12 @@ class Predictor:
         else:
             self._backbone = self._resolve_backbone_engine()
         self.n_devices = n_devices
+        self.spatial_devices = spatial_devices
         self._sharded = None
-        if n_devices is not None and n_devices > 1:
-            self._sharded = self._sharded_forward(n_devices)
+        if mesh is None and n_devices is not None and n_devices > 1:
+            mesh = self._mesh(n_devices, spatial_devices or 1)
+        if mesh is not None:
+            self._sharded = self._sharded_forward(mesh)
         self.processor = decoder.factory(self.head_metas)
         self.json_data = json_data
         self._warned_no_hflip = set()
@@ -190,13 +205,9 @@ class Predictor:
         """Drop the tracking model's cached features."""
         self._prev_feats = None
 
-    def _resolve_backbone_engine(self, model=None):
-        """The backbone forward ``fn(x) -> features`` (channels_last NCHW)
-        of ``backbone_engine`` and ``bf16`` for ``model`` (default the
-        Predictor's), or None for the module graph in float32. Raises
-        ``ValueError`` for an explicit engine on a backbone that does not
-        fold."""
-        model = model or self.model
+    def _engine(self, model):
+        """The engine that ``backbone_engine`` resolves to for ``model``,
+        and the backbone's dtype."""
         engine = self.backbone_engine
         base_net = model.base_net
         if engine == 'auto':
@@ -207,44 +218,94 @@ class Predictor:
                     (c // 2) % 128 == 0
                     for c in base_net.stages_out_channels[1:])
             engine = 'halves' if foldable else 'flax'
-        dtype = torch.bfloat16 if self.bf16 else torch.float32
-        if engine == 'flax':
-            if not self.bf16:
-                return None
-            net = copy.deepcopy(base_net).to(dtype)
-            return lambda x: net(x.to(dtype))
+        return engine, torch.bfloat16 if self.bf16 else torch.float32
+
+    def _fold(self, model, engine, dtype):
         try:
             folded = fused_inference.build_fused_backbone(model, dtype)
         except ValueError as e:
             raise ValueError(f'backbone engine {engine!r}: {e}') from None
         LOG.info('backbone engine: %s (%s)', engine, dtype)
+        return folded.with_mode('dwpallas') if engine == 'dwpallas' \
+            else folded
+
+    def _resolve_backbone_engine(self, model=None):
+        """The backbone forward ``fn(x) -> features`` (channels_last NCHW)
+        of ``backbone_engine`` and ``bf16`` for ``model`` (default the
+        Predictor's), or None for the module graph in float32. Raises
+        ``ValueError`` for an explicit engine on a backbone that does not
+        fold."""
+        model = model or self.model
+        engine, dtype = self._engine(model)
+        if engine == 'flax':
+            if not self.bf16:
+                return None
+            net = copy.deepcopy(model.base_net).to(dtype)
+            return lambda x: net(x.to(dtype))
+        folded = self._fold(model, engine, dtype)
         if engine == 'pallas':
             return fused_inference.build_pallas_forward(folded, dtype=dtype)
-        if engine == 'dwpallas':
-            folded = folded.with_mode('dwpallas')
         return lambda x: folded(x.to(dtype))
 
-    def _sharded_forward(self, n_devices):
-        """The forward over ``n_devices`` devices: each replica of the
-        model runs the backbone engine resolved on it."""
-        if self._tracking:
-            raise ValueError('a tracking model serves one frame at a time '
-                             'on one device, not n_devices='
-                             f'{n_devices}')
+    def _spatial_forward(self, replicas):
+        """``fn(images, axis) -> field rows``: the backbone engine on the
+        shards of ``axis`` (``replicas[k]`` the model on local shard k's
+        device), then the heads on float32 features."""
+        from .parallel import spatial_model
+        engine, dtype = self._engine(replicas[0])
+        if engine == 'flax':
+            nets = [r.base_net for r in replicas]
+            if self.bf16:
+                nets = [copy.deepcopy(n).to(dtype) for n in nets]
+
+            def backbone(rows):
+                if self.bf16:
+                    rows = rows.map(lambda k, x: x.to(dtype))
+                return spatial_model.backbone_rows(nets, rows, False)
+        else:
+            folds = [self._fold(r, engine, dtype) for r in replicas]
+            backbone = fused_inference.block_rows_forward(
+                folds, dtype, shuffle_cuda.fused_block) \
+                if engine == 'pallas' else \
+                fused_inference.folded_rows_forward(folds, dtype)
+
+        def forward(images, axis):
+            features = backbone(spatial_model.images_to_rows(images, axis))
+            if engine != 'flax' or self.bf16:
+                features = features.map(lambda k, x: x.float())
+            return spatial_model.heads_rows([r.head_nets for r in replicas],
+                                            features)
+
+        return forward
+
+    def _mesh(self, n_devices, spatial):
+        """The grid mesh of ``n_devices`` devices of the Predictor's
+        device type, each image's height over ``spatial`` of them."""
         if self.device.type == 'cuda':
             visible = torch.cuda.device_count()
             if visible < n_devices:
                 raise ValueError(
                     f'n_devices={n_devices}: only {visible} CUDA '
                     'device(s) visible')
-        mesh = parallel.data_mesh(n_devices, device_type=self.device.type)
+        return parallel.grid_mesh(n_devices, spatial=spatial,
+                                  device_type=self.device.type)
+
+    def _sharded_forward(self, mesh):
+        """The forward over ``mesh``'s devices: each replica of the model
+        runs the backbone engine resolved on it; on a grid mesh each
+        image's height is split over its space axis."""
+        if self._tracking:
+            raise ValueError('a tracking model serves one frame at a time '
+                             'on one device, not n_devices='
+                             f'{len(mesh.devices)}')
 
         def forward(replica):
             backbone = self._resolve_backbone_engine(replica)
             return lambda images: self._forward(images, replica, backbone)
 
         return parallel.ShardedForward(self.model, mesh=mesh,
-                                       forward=forward)
+                                       forward=forward,
+                                       spatial_forward=self._spatial_forward)
 
     def _forward(self, images, model=None, backbone=None):
         """Per-head fields of a (B, H, W, 3) float32 batch on the device:

@@ -10,6 +10,11 @@ takes part, and with one card the step is the plain single-process one.
 A launch by ``torchrun --nproc-per-node N -m openpifpaf_tpu_torch.train``
 is found from its environment. ``--batch-size`` is the global batch: each
 rank loads its shard. Only rank 0 writes checkpoints and the log.
+``--spatial-partitions S`` makes the ranks a ``('data', 'space')`` mesh:
+each image's height is split over S ranks (rank r at data index r // S,
+space index r % S) and the batch over the N / S data indices. As in JAX,
+a ``--batch-size`` times S below the devices shrinks the mesh to
+``max(S, batch size x S)`` ranks, with a warning.
 
 Example:
     python -m openpifpaf_tpu_torch.train --dataset cocokp --basenet shufflenetv2k16
@@ -79,8 +84,9 @@ def cli(argv=None):
                              'process); 1 runs the data-parallel step on '
                              'one device')
     parser.add_argument('--spatial-partitions', default=1, type=int,
-                        help='more than 1 (the image height sharded over '
-                             'devices) is not yet ported (ROADMAP A12(b))')
+                        help='split each image\'s height over this many '
+                             'of the ranks (halo exchanges); the batch is '
+                             'split over the rest')
     parser.add_argument('--seed', default=42, type=int)
     parser.add_argument('--profile', default=None, nargs='?',
                         const='torch_trace',
@@ -98,11 +104,10 @@ def cli(argv=None):
         dm.cli(parser)
 
     args = parser.parse_args(argv)
-    if args.spatial_partitions > 1:
-        raise NotImplementedError(
-            '--spatial-partitions > 1: ' + parallel.mesh.SPATIAL_NOT_PORTED)
     if args.n_devices is not None and args.n_devices < 1:
         parser.error('--n-devices must be at least 1')
+    if args.spatial_partitions < 1:
+        parser.error('--spatial-partitions must be at least 1')
 
     if args.output is None:
         args.output = default_output_file(args)
@@ -154,10 +159,17 @@ def _process_group(args, argv):
             torch.cuda.set_device(device)
         return group, rank, dist.get_world_size(), device
     n = args.n_devices
+    spatial = args.spatial_partitions
     if n is None:
         n = torch.cuda.device_count() if device_type == 'cuda' else 1
-        if n <= 1:
+        if n <= 1 and spatial == 1:
             return None, 0, 1, args.device
+    if args.batch_size * spatial < n:
+        LOG.warning('batch size %d x spatial %d < %d devices: shrinking the '
+                    'data mesh', args.batch_size, spatial, n)
+        n = max(spatial, args.batch_size * spatial)
+    if n % spatial:
+        raise ValueError(f'{n} devices not divisible by spatial={spatial}')
     if device_type == 'cuda' and n > torch.cuda.device_count():
         raise ValueError(f'--n-devices {n}: only '
                          f'{torch.cuda.device_count()} CUDA devices visible')
@@ -189,16 +201,20 @@ def main(argv=None):
             _spawned_rank, args=(argv, world_size, _free_port()),
             nprocs=world_size, start_method='spawn')
         return None
-    if args.batch_size % world_size:
+    spatial = args.spatial_partitions
+    # the ranks of one data index load the same batch
+    mesh = parallel.GridMesh([device], spatial, group)
+    (n_data, _), ((data_rank, _),) = mesh.shape, mesh.cells()
+    if args.batch_size % n_data:
         raise ValueError(f'--batch-size {args.batch_size} (the global '
-                         f'batch) not divisible by {world_size} ranks')
+                         f'batch) not divisible by {n_data} data ranks')
     if group is not None:
-        # each rank's augmentations draw from a stream of its own
-        np.random.seed(parallel.rank_seed(args.seed, rank))
+        # each data index's augmentations draw from a stream of its own
+        np.random.seed(parallel.rank_seed(args.seed, data_rank))
 
     datasets.MultiDataModule.weights = args.dataset_weights
     datamodule = datasets.factory(args.dataset)
-    datamodule.batch_size = args.batch_size // world_size
+    datamodule.batch_size = args.batch_size // n_data
     datamodule.loader_workers = args.loader_workers
 
     if args.checkpoint:
@@ -230,8 +246,8 @@ def main(argv=None):
     train_loader = datamodule.train_loader()
     val_loader = datamodule.val_loader()
     if group is not None:
-        parallel.shard_loader(train_loader, rank, world_size)
-        parallel.shard_loader(val_loader, rank, world_size)
+        parallel.shard_loader(train_loader, data_rank, n_data)
+        parallel.shard_loader(val_loader, data_rank, n_data)
     LOG.info('training batches: %d, validation batches: %d',
              len(train_loader), len(val_loader))
 
@@ -240,7 +256,7 @@ def main(argv=None):
 
     trainer = Trainer(
         model, loss_fn, optimizer, schedule, args.output,
-        device=device, process_group=group,
+        device=device, process_group=group, spatial=spatial,
         model_meta_data={
             'base_name': args.basenet,
             'backbone_options': {

@@ -18,8 +18,24 @@ rank's batch, the running-variance normaliser moves with the mean of the
 ranks' losses, and the logged losses are those means. Each rank's batch
 is its shard of the global batch; the per-head losses divide by the
 rank's batch size, so the averaged gradient is the global batch's. Only
-rank 0 writes checkpoints. JAX's spatial mesh is not ported (ROADMAP
-A12(b)).
+rank 0 writes checkpoints.
+
+With ``spatial`` above 1 the step runs on JAX's ``('data', 'space')``
+mesh: each image's height is split over ``spatial`` shards, all on the
+trainer's device in one process, or one per rank with a process group
+(rank r at data index r // spatial, space index r % spatial; the ranks of
+a data index load the same batch). The forward runs on each shard's rows
+with halo exchanges (``parallel.spatial_model``), the BatchNorm statistics
+are taken over every shard's owned rows and every rank, and the fields
+are gathered along fh before the loss, so that the loss code stays as it
+is: each rank of a space axis computes the same loss on the same fields
+and targets, equal to JAX's sharded loss, a sum over the cells. A
+parameter's gradient is then summed over the space axis, where each
+shard holds its rows' share, and averaged over the data axis: the
+gather's backward hands each rank its rows' gradient times the number of
+ranks of its space axis, and DDP averages over all ranks. The loss's own
+parameters, equal on the ranks of a space axis, come out of DDP's average
+as they are.
 """
 
 import logging
@@ -33,7 +49,8 @@ from torch import nn
 
 from ..models.basenetworks import (commit_batch_stats, discard_batch_stats,
                                    set_batch_norm_group)
-from ..parallel.mesh import rank_mean
+from ..parallel import spatial_model
+from ..parallel.mesh import GridMesh, rank_mean
 
 LOG = logging.getLogger(__name__)
 
@@ -108,13 +125,16 @@ class Trainer:
     n_val_batches = None
 
     def __init__(self, model, loss_fn, optimizer, schedule, out, *,
-                 device=None, model_meta_data=None, process_group=None):
+                 device=None, model_meta_data=None, process_group=None,
+                 spatial=1):
         """``optimizer`` builds the optimizer and its scheduler from the
         trainable tensors (``optimize.OptimizerFactory``); ``schedule``
         is the learning rate as a function of the step. The model is
         moved to ``device`` (default: where its parameters are).
         ``process_group``: train data-parallel over its ranks (see the
-        module's docstring); rank 0's parameters are broadcast."""
+        module's docstring); rank 0's parameters are broadcast.
+        ``spatial``: shards of each image's height (the module's
+        docstring)."""
         self.device = torch.device(device) if device is not None \
             else next(model.parameters()).device
         self.model = model.to(self.device)
@@ -125,6 +145,8 @@ class Trainer:
         self.process_group = process_group
         self.rank = dist.get_rank(process_group) \
             if process_group is not None else 0
+        #: the space axis of the spatial step (None: not spatial)
+        self.space, data_rank = self._space_axis(spatial)
 
         self.loss_params = {
             k: nn.Parameter(v.to(self.device))
@@ -154,9 +176,29 @@ class Trainer:
         #: the logged lr, and advances on every step; the optimizer's
         #: lr comes from the scheduler, which advances on applied steps
         self.step = 0
-        # one dropout stream per rank; rank 0's is the single process's
+        # one dropout stream per data index; rank 0's is the single
+        # process's
         self.dropout_generator = torch.Generator(self.device).manual_seed(
-            DROPOUT_SEED + self.rank)
+            DROPOUT_SEED + data_rank)
+
+    def _space_axis(self, spatial):
+        """The space axis of the spatial step (None: not spatial) and this
+        rank's data index, as the grid mesh lays the ranks out."""
+        if spatial <= 1:
+            return None, self.rank
+        if self.remat:
+            raise ValueError('--remat recomputes a block of one tensor; '
+                             'the spatial step runs on shards of rows')
+        group = self.process_group
+        if group is None:
+            mesh = GridMesh([self.device] * spatial, spatial)
+            return mesh.space_axes()[0][1], 0
+        mesh = GridMesh([self.device], spatial, group)
+        # the halo messages on a group of their own, apart from DDP's and
+        # the BatchNorm's collectives
+        (data, axis), = mesh.space_axes(
+            dist.new_group(dist.get_process_group_ranks(group)))
+        return axis, data
 
     def _fix_bn_active(self, epoch):
         if self.fix_batch_norm is True:
@@ -221,6 +263,9 @@ class Trainer:
         """Head outputs in train mode; ``bf16`` runs the backbone under
         bfloat16 autocast and the heads on its float32 features."""
         model = self.model
+        if self.space is not None:
+            return self._spatial_forward(images, head_mask, bn_train,
+                                         self.bf16)
         if not self.bf16:
             return model(images, train=True, head_mask=head_mask,
                          bn_train=bn_train, generator=self.dropout_generator,
@@ -231,6 +276,25 @@ class Trainer:
                 remat=self.remat)
         return model.heads(features.float(), train=True, head_mask=head_mask,
                            generator=self.dropout_generator)
+
+    def _spatial_forward(self, images, head_mask, bn_train, bf16):
+        """The train-mode fields of the spatial step, whole on every rank
+        (the module's docstring)."""
+        axis = self.space
+        models = [self.model] * len(axis.local)
+        rows = spatial_model.images_to_rows(images, axis)
+        bn = True if bn_train is None else bn_train
+        with torch.autocast(images.device.type, dtype=torch.bfloat16,
+                            enabled=bf16):
+            features = spatial_model.backbone_rows(
+                [m.base_net for m in models], rows, bn)
+        if bf16:
+            features = features.map(lambda k, x: x.float())
+        fields = spatial_model.heads_rows(
+            [m.head_nets for m in models], features, train=True,
+            head_mask=head_mask, generator=self.dropout_generator)
+        return spatial_model.gather_fields(fields, self.device,
+                                           scale=axis.n_ranks)
 
     def train_step(self, images, targets, *, fix_bn=False):
         """One step on a batch on the device: images (B, H, W, 3),
@@ -303,9 +367,13 @@ class Trainer:
         JAX step does."""
         head_mask = tuple(t is not None for t in targets)
         with torch.no_grad():
-            outputs = self.model(images, train=True, head_mask=head_mask,
-                                 bn_train=False if fix_bn else None,
-                                 generator=self.dropout_generator)
+            if self.space is not None:
+                outputs = self._spatial_forward(
+                    images, head_mask, False if fix_bn else None, False)
+            else:
+                outputs = self.model(images, train=True, head_mask=head_mask,
+                                     bn_train=False if fix_bn else None,
+                                     generator=self.dropout_generator)
             total, head_losses, _ = self.loss_fn(
                 outputs, targets, self.loss_params, self.loss_state)
             total, head_losses = self._rank_mean(total, head_losses)

@@ -11,8 +11,9 @@ cocokpst train step), the wholebody-133 golden decode, detection (the
 CifDet golden decode, the engines under the cocodet head), a
 reference-layout k16 pickle served through the fused-block engine, the
 golden scene's decoding order drawn (where matplotlib is installed),
-the pipelined serving loop with its decode on a side stream, and the CifHr
-call of an AOTInductor package.
+the pipelined serving loop with its decode on a side stream, the CifHr
+call of an AOTInductor package, and the spatial mesh's shards on the card
+(the engines' kernels on haloed shards, the spatial train step).
 
 Every test here needs a GPU (marker ``gpu``) and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a machine that
@@ -27,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from openpifpaf_tpu_torch import parallel
 from openpifpaf_tpu_torch.decoder import CifCaf
 from openpifpaf_tpu_torch.lab import kernels as lab_kernels
 from openpifpaf_tpu_torch.lab import mosaic_lab
@@ -596,7 +598,7 @@ def train_batch(tmp_path_factory):
     return images, targets, datamodule.head_metas
 
 
-def _trainer(metas, device, **attrs):
+def _trainer(metas, device, spatial=1, **attrs):
     from openpifpaf_tpu_torch.training import losses, optimize
     from openpifpaf_tpu_torch.training.trainer import Trainer
 
@@ -605,7 +607,7 @@ def _trainer(metas, device, **attrs):
         optimizer_args(lr=1e-4, lr_warm_up_factor=1.0),
         training_batches_per_epoch=1)
     trainer = Trainer(model, losses.Factory().factory(metas), optimizer,
-                      schedule, 'unused', device=device)
+                      schedule, 'unused', device=device, spatial=spatial)
     for k, v in attrs.items():
         setattr(trainer, k, v)
     return trainer
@@ -1204,3 +1206,61 @@ def test_cuda_pipelined_loop_equals_strict_on_a_side_stream(cuda,
     for stream, cells, kw, out in calls:
         assert stream == side != torch.cuda.default_stream(cuda)
         assert torch.equal(out, cifhr.accumulate_dense(*cells, **kw))
+
+
+def _spatial_predictor(model, device, engine, shards):
+    """A Predictor of ``model`` whose forward splits each image's height
+    over ``shards`` shards, all on ``device`` in this process (the local
+    side of the halo exchange: one card holds every shard)."""
+    return Predictor(model=model, device=device, backbone_engine=engine,
+                     mesh=parallel.grid_mesh(spatial=shards,
+                                             devices=[device] * shards))
+
+
+@pytest.mark.parametrize('shards', [2, 4])
+@pytest.mark.parametrize('engine,counter', [
+    ('flax', None), ('dwpallas', dw_cuda), ('pallas', shuffle_cuda)])
+def test_cuda_spatial_engines_on_shards(cuda, engine, counter, shards):
+    """Each engine on the shards of the image's height on the card gives
+    its unsharded fields (float32, TF32 off: atol 1e-4), its kernel
+    launching once per non-first block (4 here) on each shard's haloed
+    tile."""
+    model = Factory().from_scratch(
+        cocokp_head_metas(), base_net=basenetworks.ShuffleNetV2K(
+            [2, 3, 2], [16, 32, 64, 128, 128]))
+    ref = Predictor(model=model, device=cuda, backbone_engine=engine)
+    served = _spatial_predictor(model, cuda, engine, shards)
+    image = np.random.RandomState(0).randn(1, 97, 129, 3).astype(np.float32)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = ref.fields_batch(image)
+        before = counter.LAUNCHES if counter else 0
+        out = served.fields_batch(image)
+        after = counter.LAUNCHES if counter else 0
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert after - before == (4 * shards if counter else 0)
+    for o, r in zip(out, want):
+        assert bool(torch.isfinite(o).all())
+        torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4)
+
+
+def test_cuda_spatial_train_step(cuda, train_batch):
+    """The spatial train step with 2 shards on the card against the
+    unsharded step (TF32 off): the loss within 1e-5, the parameters rtol
+    1e-3, atol 1e-5."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        plain = _trainer(train_batch[2], cuda)
+        sharded = _trainer(train_batch[2], cuda, spatial=2)
+        sharded.model.load_state_dict(plain.model.state_dict())
+        loss, _ = _step(plain, train_batch)
+        sharded_loss, _ = _step(sharded, train_batch)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert abs(sharded_loss - loss) <= 1e-5 * abs(loss)
+    ours = dict(sharded.model.named_parameters())
+    for name, p in plain.model.named_parameters():
+        torch.testing.assert_close(ours[name], p, rtol=1e-3, atol=1e-5)

@@ -264,3 +264,28 @@ def test_cifhr_cull_keeps_every_cell_that_touches_its_pixels(case):
                                       full[:, y0:y1, x0:x1].numpy())
     per_round = p.threads * cifhr_cuda.CELLS_PER_THREAD
     assert (most > per_round) == (n_cells == 3000)
+
+
+def _shard_tiles(h, shards, halo=2):
+    """Tile heights of the spatial mesh's kernel calls on ``h`` rows over
+    ``shards``: each shard's rows and a halo from real neighbours
+    (``parallel.spatial.halo_op``), or 2 halo + 1 rows on an empty shard."""
+    from openpifpaf_tpu_torch.parallel.spatial import split_rows
+    return sorted({min(e + halo, h) - max(s - halo, 0) if s < e
+                   else 2 * halo + 1 for s, e in split_rows(h, shards)})
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shards', [2, 4])
+@pytest.mark.parametrize('cb,h,w', K16_STAGES)
+def test_plans_fit_k16_shard_tiles(cb, h, w, shards, dtype):
+    """At spatial 2 and 4 the stages' 129, 65 and 33 rows become tiles of
+    8-67 rows with their halo: both kernels plan them."""
+    for th in _shard_tiles(h, shards):
+        p = shuffle_cuda.plan(1, th, w, cb, k=5, dilation=1, dtype=dtype)
+        assert p.smem <= shuffle_cuda.SMEM_LIMIT
+        assert p.ctas == -(-th // p.th) * -(-w // p.tw) * p.cluster
+        d = dw_cuda.plan(1, th, w, cb, k=5, dilation=1, dtype=dtype)
+        assert d.smem <= dw_cuda.SMEM_LIMIT
+        assert d.threads == d.nv * d.tw * d.strips <= dw_cuda.MAX_THREADS
+        assert d.nv * d.groups * d.vec >= cb

@@ -116,6 +116,7 @@ def test_every_port_module_imports_without_jax():
                  'logs', 'io', 'io.native', 'transforms.misc',
                  'decoder.utils', 'parallel', 'parallel.mesh',
                  'parallel.inference', 'parallel.batch_norm',
+                 'parallel.spatial', 'parallel.spatial_model',
                  'decoder.multi'):
         assert f'openpifpaf_tpu_torch.{name}' in report['modules']
     assert report['loaded'] == []

@@ -13,6 +13,8 @@ batch's BatchNorm in float64. The ranks run as subprocesses with their
 own timeout.
 """
 
+import argparse
+import logging
 import os
 import socket
 import subprocess
@@ -26,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from openpifpaf_tpu import parallel as jax_parallel
-from openpifpaf_tpu_torch import parallel, predict, train
+from openpifpaf_tpu_torch import parallel, train
 from openpifpaf_tpu_torch.models import convert_jax
 from openpifpaf_tpu_torch.models.shell import assign_strides
 from openpifpaf_tpu_torch.plugins.coco.cocokp import CocoKp
@@ -79,18 +81,37 @@ def test_mesh_slices_and_shards():
         parallel.shard_batch(x[:5], mesh)
 
 
-def test_spatial_mesh_raises_naming_the_item():
-    with pytest.raises(NotImplementedError, match=r'ROADMAP A12\(b\)'):
-        parallel.grid_mesh(4, spatial=2, device_type='cpu')
-    assert parallel.grid_mesh(2, device_type='cpu').devices == \
-        [torch.device('cpu')] * 2
-    for sharding in (parallel.image_sharding, parallel.field_sharding):
-        with pytest.raises(NotImplementedError, match=r'A12\(b\)'):
-            sharding(None)
-    with pytest.raises(NotImplementedError, match=r'A12\(b\)'):
-        predict.cli(['x.jpg', '--spatial-devices', '2'])
-    with pytest.raises(NotImplementedError, match=r'A12\(b\)'):
-        train.cli(['--spatial-partitions', '2', '--device', 'cpu'])
+def jax_mesh_devices(n_devices, batch_size, spatial):
+    """The devices of JAX's train mesh (``openpifpaf_tpu/train.py:140-146``,
+    the rule as written there): a batch times spatial below the devices
+    shrinks the data mesh."""
+    spatial = max(1, spatial)
+    if batch_size * spatial < n_devices:
+        n_devices = max(spatial, batch_size * spatial)
+    return n_devices
+
+
+@pytest.mark.parametrize('n_devices,batch_size,spatial', [
+    (4, 2, 1), (4, 1, 2), (4, 2, 2), (2, 8, 1), (8, 1, 4), (6, 3, 1)])
+def test_train_mesh_shrinks_as_jax(n_devices, batch_size, spatial, caplog):
+    """``train --device cpu --n-devices N``: a batch below N (times the
+    spatial partitions) warns and spawns JAX's count of ranks, not raise."""
+    args = argparse.Namespace(device='cpu', n_devices=n_devices,
+                              batch_size=batch_size,
+                              spatial_partitions=spatial)
+    want = jax_mesh_devices(n_devices, batch_size, spatial)
+    with caplog.at_level(logging.WARNING, logger=train.LOG.name):
+        group, rank, world_size, device = train._process_group(args, [])
+    assert (group, rank, device) == (None, None, None)
+    assert world_size == want
+    assert ('shrinking the data mesh' in caplog.text) == (want < n_devices)
+
+
+def test_train_mesh_needs_spatial_to_divide_it():
+    args = argparse.Namespace(device='cpu', n_devices=6, batch_size=8,
+                              spatial_partitions=4)
+    with pytest.raises(ValueError, match='not divisible by spatial=4'):
+        train._process_group(args, [])
 
 
 @pytest.mark.parametrize('batch', [4, 3])
